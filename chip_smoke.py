@@ -4,24 +4,41 @@
     python3 chip_smoke.py                 # on a machine with the card
     python3 chip_smoke.py --cpu-rehearsal # phases 4-5 on the CPU, no card
 
-Drives reslic_tcm_tpu_torch only (no JAX, no PIL), in five phases:
+Drives reslic_tcm_tpu_torch only (no JAX, no PIL), in seven phases:
 
 1. Device: the card's name and power limit; TF32 off, cuDNN deterministic.
-2. Build: the three CUDA kernels (nvcc, one process per source, all at
-   once) and the host rANS coder (g++) into reslic_tcm_tpu_torch/_build/.
+2. Build: the four CUDA kernels' three sources (nvcc, one process per
+   source, all at once) and the host rANS coder (g++) into
+   reslic_tcm_tpu_torch/_build/.
 3. Kernels: each kernel against its plain PyTorch version on the card at
-   the shapes TCM-S's main path gives it (768x512 image): max abs error
-   against 1e-4 * max(1, max |plain|), time per launch (CUDA events after
-   warm-up), the plain version's time, and the least time the card could
-   take (fp32 CUDA-core peak 67 TFLOP/s vs 3.35 TB/s, whichever binds).
-4. Slice: TCM-S (N=64, M=320) with the committed lambda=0.013 weights,
-   update(), then evaluate() on two seeded 768x512 synthetic images, the
-   forward estimate and then real compress -> decompress. Asserts an exact
-   decode of y_hat, real bpp within 3% of the estimate, the documented
-   kernel launches per pass, and agreement with the CPU plain path on a
-   small image.
-5. Summary: the kernels line, the card line, the wall time, and last the
+   the shapes the main paths of TCM-S and WACNN give it (768x512 image):
+   max abs error against 1e-4 * max(1, max |plain|), time per launch (CUDA
+   events after warm-up), the plain version's time, and the least time the
+   card could take (fp32 CUDA-core peak 67 TFLOP/s vs 3.35 TB/s, whichever
+   binds).
+4. TCM-S slice: TCM-S (N=64, M=320) with the committed lambda=0.013
+   weights, update(), then evaluate() on two seeded 768x512 synthetic
+   images, the forward estimate and then real compress -> decompress.
+   Asserts an exact decode of y_hat, real bpp within 3% of the estimate,
+   the documented kernel launches per pass, and agreement with the CPU
+   plain path on a small image.
+5. WACNN slice: WACNN (N=192, M=320) with seeded random weights, update(),
+   the forward estimate (evaluate()) and the real codec
+   (training.codec_eval.compress_with_ac) on the same two images. Asserts
+   an exact decode of y_hat, a decoded x_hat equal to the forward's clipped
+   x_hat within 1e-5, the documented launches per pass (B1 and B4), and
+   agreement with the CPU plain path on a small image. Real vs estimated
+   bpp is printed, not held to a limit: with random weights tail symbols
+   may take the coder's bypass.
+6. Profile: torch.profiler over one warm forward, compress and decompress
+   of each slice at 768x512: the device's busy time and idle share of each
+   pass, and the kernels that take the most device time.
+7. Summary: the kernels line, the card line, the wall time, and last the
    {"ok": true, "device": ...} line.
+
+Each slice is driven with every launch counter set to 0 just before it and
+read just after; a kernel of that slice's path that was not launched fails
+the run.
 
 A hang dumps every thread's stack and exits non-zero after BUDGET_S.
 """
@@ -46,25 +63,37 @@ SNAPSHOT = os.path.join("checkpoints", "tcm_s_lambda0.013_r5.npz")
 IMAGE_HW = (768, 512)
 SEED = 0
 
-# Launches per pass at TCM-S, 768x512 (the table in PERF.md; checked against the
-# wrappers' counters in phase 4).
-PASS_LAUNCHES = {
-    "forward": {"flash_window_block": 32, "fused_residual_block": 18, "fused_conv_gdn": 9},
-    "compress": {"flash_window_block": 26, "fused_residual_block": 12, "fused_conv_gdn": 6},
-    "decompress": {"flash_window_block": 26, "fused_residual_block": 10, "fused_conv_gdn": 5},
-}
+def _launches(b1, b2, b3, b4):
+    return {"flash_window_block": b1, "fused_residual_block": b2, "fused_conv_gdn": b3,
+            "fused_qkv_attention": b4}
 
-# (kernel, shape [B, H, W, C], option, launches per forward pass at 768x512)
-# option: (head_dim, shifted) for B1, inverse for B3, None for B2.
+
+# Launches per pass at 768x512 (the tables in PERF.md; checked against the
+# wrappers' counters in phases 4 and 5).
+PASS_LAUNCHES = {
+    "tcm": {"forward": _launches(32, 18, 9, 0), "compress": _launches(26, 12, 6, 0),
+            "decompress": _launches(26, 10, 5, 0)},
+    "wacnn": {"forward": _launches(2, 0, 0, 2), "compress": _launches(1, 0, 0, 1),
+              "decompress": _launches(1, 0, 0, 1)},
+}
+# the kernels each slice's path must launch
+PATH_KERNELS = {s: [k for k, n in p["forward"].items() if n] for s, p in PASS_LAUNCHES.items()}
+
+# (kernel, shape, option, launches per forward pass at 768x512 of TCM-S +
+# WACNN). shape: [B, H, W, C] for B1-B3, [windows, tokens, C] for B4.
+# option: (head_dim, shifted, with LN1 and the MLP) for B1, inverse for B3,
+# None for B2, (heads, masked) for B4.
 KERNEL_CASES = [
-    ("flash_window_block", (1, 384, 256, 64), (8, False), 2),
-    ("flash_window_block", (1, 384, 256, 64), (8, True), 2),
-    ("flash_window_block", (1, 192, 128, 64), (16, False), 2),
-    ("flash_window_block", (1, 192, 128, 64), (16, True), 2),
-    ("flash_window_block", (1, 96, 64, 64), (32, False), 2),
-    ("flash_window_block", (1, 96, 64, 64), (32, True), 2),
-    ("flash_window_block", (1, 48, 32, 128), (16, False), 10),
-    ("flash_window_block", (1, 48, 32, 128), (16, True), 10),
+    ("flash_window_block", (1, 384, 256, 64), (8, False, True), 2),
+    ("flash_window_block", (1, 384, 256, 64), (8, True, True), 2),
+    ("flash_window_block", (1, 192, 128, 64), (16, False, True), 2),
+    ("flash_window_block", (1, 192, 128, 64), (16, True, True), 2),
+    ("flash_window_block", (1, 96, 64, 64), (32, False, True), 2),
+    ("flash_window_block", (1, 96, 64, 64), (32, True, True), 2),
+    ("flash_window_block", (1, 48, 32, 128), (16, False, True), 10),
+    ("flash_window_block", (1, 48, 32, 128), (16, True, True), 10),
+    ("flash_window_block", (1, 192, 128, 192), (24, False, False), 0),
+    ("flash_window_block", (1, 192, 128, 192), (24, True, False), 2),
     ("fused_residual_block", (1, 384, 256, 64), None, 4),
     ("fused_residual_block", (1, 192, 128, 64), None, 4),
     ("fused_residual_block", (1, 96, 64, 64), None, 4),
@@ -77,6 +106,8 @@ KERNEL_CASES = [
     ("fused_conv_gdn", (1, 192, 128, 128), True, 1),
     ("fused_conv_gdn", (1, 96, 64, 128), True, 1),
     ("fused_conv_gdn", (1, 24, 16, 128), True, 2),
+    ("fused_qkv_attention", (96, 16, 320), (8, False), 0),
+    ("fused_qkv_attention", (96, 16, 320), (8, True), 2),
 ]
 
 KERNEL_SOURCES = {
@@ -86,6 +117,8 @@ KERNEL_SOURCES = {
                              "reslic_tcm_tpu/ops/fused_conv.py:137"),
     "fused_conv_gdn": ("reslic_tcm_tpu_torch/csrc/fused_conv.cu",
                        "reslic_tcm_tpu/ops/fused_conv.py:237"),
+    "fused_qkv_attention": ("reslic_tcm_tpu_torch/csrc/qkv_attention.cu",
+                            "artifacts/pallas_attn_perhead.py:80"),
 }
 
 
@@ -135,15 +168,26 @@ def phase_build():
 
 def _cost(kernel: str, shape, option):
     """(FLOPs, bytes) the function needs: matmul and conv multiply-adds at 2
-    FLOP each; each input (activations and weights) read once and each
-    output written once, in fp32."""
+    FLOP each; each input (activations, weights, bias tables and mask) read
+    once and each output written once, in fp32. B1 counts LN1 and the MLP
+    only in the flavour that has them."""
+    if kernel == "fused_qkv_attention":
+        nw, t, c = shape
+        heads, masked = option
+        flops = nw * (2 * t * c * 4 * c + 4 * t * t * c)
+        inputs = 4 * c * c + 4 * c + heads * t * t + (nw * t * t if masked else 0)
+        return flops, 4 * (2 * nw * t * c + inputs)
     b, h, w, c = shape
     px = b * h * w
     if kernel == "flash_window_block":
         t = 64
         windows = px // t
-        flops = windows * (2 * t * c * (3 * c + c + 8 * c) + 4 * t * t * c)
-        weights = 12 * c * c + 9 * c + 64 * 64 * (c // option[0]) + 4 * c
+        full = option[2]
+        mlp = 8 * c if full else 0
+        flops = windows * (2 * t * c * (3 * c + c + mlp) + 4 * t * t * c)
+        weights = 4 * c * c + 4 * c + t * t * (c // option[0])
+        if full:
+            weights += 8 * c * c + 5 * c + 4 * c  # LN1, LN2, w1, b1, w2, b2
         nbytes = 4 * (2 * px * c + weights)
     elif kernel == "fused_residual_block":
         flops = px * 2 * (2 * 9 * c * c)
@@ -160,15 +204,26 @@ def _inputs(torch, kernel, shape, option, dev, seed):
     def r(*s, scale=1.0):
         return (torch.randn(*s, generator=g) * scale).to(dev)
 
+    if kernel == "fused_qkv_attention":
+        nw, t, c = shape
+        heads, masked = option
+        # WACNN's mask: one image's [nW, T, T] of 0 / -100 (the diagonal open)
+        mask = torch.where(torch.rand(nw, t, t, generator=g) < 0.3, -100.0, 0.0)
+        mask[:, torch.arange(t), torch.arange(t)] = 0.0
+        return (r(nw, t, c), r(3 * c, c, scale=c ** -0.5), r(3 * c, scale=0.1),
+                r(heads, t, t, scale=0.5), r(c, c, scale=c ** -0.5), r(c, scale=0.1),
+                mask.to(dev) if masked else None), {}
     b, h, w, c = shape
     if kernel == "flash_window_block":
-        hd, shifted = option
+        hd, shifted, full = option
         args = (r(b, h, w, c), r(3 * c, c, scale=c ** -0.5), r(3 * c, scale=0.1),
                 r(c, c, scale=c ** -0.5), r(c, scale=0.1), 1 + r(c, scale=0.1), r(c, scale=0.1),
                 r(c // hd, 64, 64, scale=0.5),
                 (1 + r(c, scale=0.1), r(c, scale=0.1), r(4 * c, c, scale=c ** -0.5),
                  r(4 * c, scale=0.1), r(c, 4 * c, scale=(4 * c) ** -0.5), r(c, scale=0.1)))
-        return args, dict(head_dim=hd, window=8, shifted=shifted)
+        if not full:
+            args = args[:5] + (None, None, args[7], None)
+        return args, dict(head_dim=hd, window=8, shifted=shifted, with_ln=full)
     conv = (r(b, h, w, c), r(c, c, 3, 3, scale=(9 * c) ** -0.5), r(c, scale=0.1))
     if kernel == "fused_residual_block":
         return conv + (r(c, c, 3, 3, scale=(9 * c) ** -0.5), r(c, scale=0.1)), {}
@@ -192,11 +247,13 @@ def _time_ms(torch, fn, reps: int) -> float:
 def phase_kernels(torch):
     from reslic_tcm_tpu_torch.ops import flash_window_attn as F
     from reslic_tcm_tpu_torch.ops import fused_conv as C
+    from reslic_tcm_tpu_torch.ops import qkv_attention as Q
 
     fns = {
         "flash_window_block": (F.flash_window_block, F.plain_window_block),
         "fused_residual_block": (C.fused_residual_block, C.plain_residual_block),
         "fused_conv_gdn": (C.fused_conv_gdn, C.plain_conv_gdn),
+        "fused_qkv_attention": (Q.fused_qkv_attention, Q.plain_qkv_attention),
     }
     dev = torch.device("cuda")
     per_kernel = {}
@@ -211,7 +268,7 @@ def phase_kernels(torch):
                 raise AssertionError(f"{kernel} {shape}: non-finite output")
             err = float((got - want).abs().max())
             bound = TOL * max(1.0, float(want.abs().max()))
-            reps = 20 if shape[1] * shape[2] >= 96 * 64 else 100
+            reps = 20 if np.prod(shape) >= 96 * 64 * 64 else 100
             ms = _time_ms(torch, lambda: kern(*args, **kw), reps)
             plain_ms = _time_ms(torch, lambda: plain(*args, **kw), reps)
             flops, nbytes = _cost(kernel, shape, option)
@@ -248,20 +305,28 @@ def _load_codec(device):
     return codec
 
 
+def _check_launches(j, name, got, want, on_card):
+    want = {k: v if on_card else 0 for k, v in want.items()}
+    if got != want:
+        raise AssertionError(f"image {j} {name}: launches {got}, expected {want}")
+
+
 def phase_slice(torch, device, hw):
-    from reslic_tcm_tpu_torch.cli.eval import evaluate, launch_counts
+    """TCM-S with the committed weights: evaluate(), estimate then real."""
+    from reslic_tcm_tpu_torch.cli.eval import evaluate
     from reslic_tcm_tpu_torch.data.synthetic import synth_image
+    from reslic_tcm_tpu_torch.ops.launches import launch_counts, reset_launch_counts
 
     t0 = time.perf_counter()
     codec = _load_codec(device)
     images = [synth_image(np.random.default_rng(SEED + i), *hw) for i in range(2)]
-    log(f"slice: TCM-S N=64 M=320 from {SNAPSHOT} on {device}; two {hw[0]}x{hw[1]} "
+    log(f"slice tcm: TCM-S N=64 M=320 from {SNAPSHOT} on {device}; two {hw[0]}x{hw[1]} "
         f"synthetic images (seed {SEED}); set-up {time.perf_counter() - t0:.1f} s")
     on_card = device == "cuda"
-    start = launch_counts()
+    reset_launch_counts()
     est = evaluate(codec, images, real=False, log=lambda m: log("  " + m))
     real = evaluate(codec, images, real=True, log=lambda m: log("  " + m))
-    launches = {k: v - start[k] for k, v in launch_counts().items()}
+    launches = launch_counts()
 
     for j, (e, r) in enumerate(zip(est["records"], real["records"])):
         log(f"image {j}: estimate {e['bpp']:.4f} bpp, real {r['bpp']:.4f} bpp, "
@@ -276,21 +341,62 @@ def phase_slice(torch, device, hw):
         for name, got in (("forward", e["launches_forward"]),
                           ("compress", r["launches_compress"]),
                           ("decompress", r["launches_decompress"])):
-            want = {k: v if on_card else 0 for k, v in PASS_LAUNCHES[name].items()}
-            if got != want:
-                raise AssertionError(f"image {j} {name}: launches {got}, expected {want}")
-    log(f"launches per pass (each image): {json.dumps(PASS_LAUNCHES)}")
-    return codec, est, real, launches
+            _check_launches(j, name, got, PASS_LAUNCHES["tcm"][name], on_card)
+    log(f"launches per pass (each image): {json.dumps(PASS_LAUNCHES['tcm'])}")
+    return codec, launches
 
 
-def phase_reference(torch, codec):
+def phase_wacnn(torch, device, hw):
+    """WACNN at full width with seeded random weights: the forward estimate
+    through evaluate(), the real codec through compress_with_ac()."""
+    from reslic_tcm_tpu_torch.cli.eval import evaluate
+    from reslic_tcm_tpu_torch.data.synthetic import synth_image
+    from reslic_tcm_tpu_torch.models.wacnn import make_wacnn
+    from reslic_tcm_tpu_torch.ops.launches import launch_counts, reset_launch_counts
+    from reslic_tcm_tpu_torch.training.codec_eval import compress_with_ac
+
+    t0 = time.perf_counter()
+    codec = make_wacnn(N=192, M=320, device=device, seed=SEED)
+    codec.update()
+    images = [synth_image(np.random.default_rng(SEED + i), *hw) for i in range(2)]
+    log(f"slice wacnn: WACNN N=192 M=320, random weights (seed {SEED}) on {device}; the same "
+        f"two {hw[0]}x{hw[1]} images; set-up {time.perf_counter() - t0:.1f} s")
+    on_card = device == "cuda"
+    reset_launch_counts()
+    est = evaluate(codec, images, real=False, log=lambda m: log("  " + m))
+    real = []
+    compress_with_ac(codec, images, log=lambda m: log("  " + m), records=real)
+    launches = launch_counts()
+
+    with torch.no_grad():
+        for j, (img, e, r) in enumerate(zip(images, est["records"], real)):
+            log(f"image {j}: estimate {e['bpp']:.4f} bpp, real {r['bpp']:.4f} bpp "
+                f"(y {r['bpp_y']:.4f}, z {r['bpp_z']:.4f}), PSNR {r['psnr']:.3f} dB, "
+                f"forward {e['forward_ms']:.1f} ms, encode {r['encode_ms']:.1f} ms, "
+                f"decode {r['decode_ms']:.1f} ms")
+            if not r["y_hat_exact"]:
+                raise AssertionError(f"image {j}: decode did not reproduce the encoder's y_hat")
+            fwd = torch.clamp(codec.forward(img[None])["x_hat"], 0, 1)
+            err = float((r["x_hat"] - fwd).abs().max())
+            log(f"image {j}: decoded x_hat vs the forward's clipped x_hat, max abs err {err:.3e}")
+            if not err <= 1e-5:
+                raise AssertionError(f"image {j}: decoded x_hat differs from the forward's")
+            for name, got in (("forward", e["launches_forward"]),
+                              ("compress", r["launches_compress"]),
+                              ("decompress", r["launches_decompress"])):
+                _check_launches(j, name, got, PASS_LAUNCHES["wacnn"][name], on_card)
+    log(f"launches per pass (each image): {json.dumps(PASS_LAUNCHES['wacnn'])}")
+    return codec, launches
+
+
+def phase_reference(torch, codec, make_cpu):
     """The card's forward against the CPU plain path at the same weights on
     a small image: the slice-level reference check."""
     from reslic_tcm_tpu_torch.data.synthetic import synth_image
 
     img = synth_image(np.random.default_rng(SEED + 7), 256, 256)[None]
     got = codec.forward(img)
-    cpu = _load_codec("cpu")
+    cpu = make_cpu()
     want = cpu.forward(img)
     for key in ("x_hat",):
         a, b = got[key].cpu(), want[key]
@@ -304,6 +410,51 @@ def phase_reference(torch, codec):
         log(f"reference: {key} bits card {bits_a:.2f} vs CPU {bits_b:.2f}")
         if not abs(bits_a - bits_b) <= 1e-3 * bits_b + 1.0:
             raise AssertionError(f"{key} rate disagrees with the CPU reference")
+
+
+def _make_wacnn_cpu():
+    from reslic_tcm_tpu_torch.models.wacnn import make_wacnn
+
+    return make_wacnn(N=192, M=320, device="cpu", seed=SEED)
+
+
+# ------------------------------- profile --------------------------------
+
+
+def phase_profile(torch, codecs: dict):
+    """torch.profiler over one warm 768x512 forward, compress and decompress
+    of each slice's codec: the device's busy time and idle share of the
+    window (host clock, ending in a synchronise), and the kernels that take
+    the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from reslic_tcm_tpu_torch.data.synthetic import synth_image
+
+    img = synth_image(np.random.default_rng(SEED), *IMAGE_HW)[None]
+    for slice_name, codec in codecs.items():
+        enc = codec.compress(img)
+        passes = {"forward": lambda: codec.forward(img),
+                  "compress": lambda: codec.compress(img),
+                  "decompress": lambda: codec.decompress(enc["strings"], enc["shape"])}
+        for pass_name, fn in passes.items():
+            fn()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+            if not kernels:
+                log(f"profile {slice_name} {pass_name}: the profiler recorded no device "
+                    f"kernels; busy time and idle share not measured")
+                continue
+            busy = sum(e.self_device_time_total for e in kernels) / 1e3
+            log(f"profile {slice_name} {pass_name}: window {wall:.2f} ms, device busy "
+                f"{busy:.2f} ms, idle share {1 - busy / wall:.3f}, {len(kernels)} kernel names")
+            for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+                log(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x  {e.key[:90]}")
 
 
 # --------------------------------- main ---------------------------------
@@ -321,8 +472,9 @@ def main() -> int:
 
     if args.cpu_rehearsal:
         torch.set_num_threads(min(4, os.cpu_count() or 1))
-        codec, est, real, launches = phase_slice(torch, "cpu", (256, 256))
-        log("kernels " + json.dumps({"launches": launches}))
+        _, tcm = phase_slice(torch, "cpu", (256, 256))
+        _, wacnn = phase_wacnn(torch, "cpu", (256, 256))
+        log("kernels " + json.dumps({"launches": {"tcm": tcm, "wacnn": wacnn}}))
         log(f"rehearsal done in {time.perf_counter() - t0:.1f} s (no ok line: no card)")
         return 0
 
@@ -335,32 +487,37 @@ def main() -> int:
     phase_build()
     per_kernel = phase_kernels(torch)
 
-    from reslic_tcm_tpu_torch.ops import flash_window_attn as F
-    from reslic_tcm_tpu_torch.ops import fused_conv as C
-
-    for wrapper in (F.flash_window_block, C.fused_residual_block, C.fused_conv_gdn):
-        wrapper.launches = 0
-    codec, est, real, launches = phase_slice(torch, "cuda", IMAGE_HW)
-    phase_reference(torch, codec)
+    paths, codecs = {}, {}
+    codecs["tcm"], paths["tcm"] = phase_slice(torch, "cuda", IMAGE_HW)
+    phase_reference(torch, codecs["tcm"], lambda: _load_codec("cpu"))
+    codecs["wacnn"], paths["wacnn"] = phase_wacnn(torch, "cuda", IMAGE_HW)
+    phase_reference(torch, codecs["wacnn"], _make_wacnn_cpu)
     torch.cuda.synchronize()
+    for path, launches in paths.items():
+        log(f"main path {path}: launches {json.dumps(launches)}")
+        for kernel in PATH_KERNELS[path]:
+            if launches[kernel] == 0:
+                raise AssertionError(f"{kernel} was never launched on the {path} path")
+    phase_profile(torch, codecs)
 
     kernels = []
     for kernel, k in per_kernel.items():
         src, tpu = KERNEL_SOURCES[kernel]
+        n = sum(launches[kernel] for launches in paths.values())
         kernels.append({
             "name": kernel, "route": "cuda", "source": src, "replaces": tpu,
-            "launches": launches[kernel], "max_abs_err": k["max_abs_err"],
+            "launches": n, "max_abs_err": k["max_abs_err"],
             "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": max(k["t_ops"], k["t_bytes"]),
             "bound_by": "operations" if k["t_ops"] >= k["t_bytes"] else "bytes",
             "library_ms": None,
         })
-        if launches[kernel] == 0:
-            raise AssertionError(f"{kernel} was never launched on the main path")
-        log(f"kernel {kernel}: {launches[kernel]} launches on the main path, max abs err "
+        log(f"kernel {kernel}: {n} launches on the main paths, max abs err "
             f"{k['max_abs_err']:.2e}, {k['ms'] * 1e3:.0f} us per forward pass "
             f"(plain {k['plain_ms'] * 1e3:.0f} us, bound {max(k['t_ops'], k['t_bytes']) * 1e3:.0f} us)")
-    log("ms, plain_ms and bound_ms: one 768x512 forward pass's launches of the kernel "
-        "at their main-path shapes; library_ms null: no single PyTorch call computes it")
+    log("launches: both slices' main-path runs (two images each, all three passes); ms, "
+        "plain_ms and bound_ms: the kernel's launches in one 768x512 forward pass of "
+        "TCM-S plus one of WACNN, at their main-path shapes; library_ms null: no single "
+        "PyTorch call computes it")
     log(json.dumps({"kernels": kernels}))
     log(f"card: {smi}")
     log(f"wall: {time.perf_counter() - t0:.1f} s")

@@ -1,11 +1,14 @@
-"""Evaluation CLI (port of reslic_tcm_tpu/cli/eval.py, TCM branch).
+"""Evaluation CLI (port of reslic_tcm_tpu/cli/eval.py).
 
-Same flags and report lines as the JAX CLI: loads a TCM checkpoint, pads
-each image to a multiple of 128, then either runs the real codec
-(``--real``: compress -> decompress through the host rANS coder) or the
-forward-only bpp estimate, and reports PSNR, MS-SSIM (dB), bpp and time.
-Runs on the CUDA device unless ``--platform cpu``. The loop is
-``evaluate(codec, images)``, callable with arrays.
+Same flags and report lines as the JAX CLI. ``--model tcm`` (the default)
+loads a TCM checkpoint, pads each image to a multiple of 128, then either
+runs the real codec (``--real``: compress -> decompress through the host
+rANS coder) or the forward-only bpp estimate, and reports PSNR, MS-SSIM
+(dB), bpp and time; its loop is ``evaluate(codec, images)``, callable with
+arrays. ``--model wacnn`` takes the JAX CLI's generic branch: the real
+codec through ``training.codec_eval.compress_with_ac`` (pad 64) or the
+pad-128 forward estimate, reported as ``[level 0] ...`` lines. Runs on the
+CUDA device unless ``--platform cpu``.
 """
 
 from __future__ import annotations
@@ -18,9 +21,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..ops.flash_window_attn import flash_window_block
-from ..ops.fused_conv import fused_conv_gdn, fused_residual_block
+from ..ops.launches import launch_counts, launches_since
 from ..ops.math import compute_padding, crop_nhwc, pad_nhwc
+from ..training.codec_eval import compress_with_ac, sync
 from ..utils.metrics import compute_psnr, ms_ssim, msssim_to_db
 
 _IMG_EXTS = {".png", ".jpg", ".jpeg", ".bmp", ".ppm", ".webp"}
@@ -75,22 +78,6 @@ def read_image(path) -> np.ndarray:
     return np.asarray(Image.open(path).convert("RGB"), np.float32) / 255.0
 
 
-def launch_counts() -> dict:
-    """The kernel wrappers' launch counters."""
-    return {"flash_window_block": flash_window_block.launches,
-            "fused_residual_block": fused_residual_block.launches,
-            "fused_conv_gdn": fused_conv_gdn.launches}
-
-
-def _delta(before: dict) -> dict:
-    return {k: v - before[k] for k, v in launch_counts().items()}
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def evaluate(codec, images, real: bool = True, log=print) -> dict:
     """Evaluate ``codec`` on HWC float32 images in [0, 1], each padded to a
     multiple of 128. Returns the averages and one record per image: bpp (the
@@ -106,29 +93,29 @@ def evaluate(codec, images, real: bool = True, log=print) -> dict:
         xp = pad_nhwc(x, pad)
         rec = {}
         if real:
-            _sync(dev)
+            sync(dev)
             before, t0 = launch_counts(), time.perf_counter()
             enc = codec.compress(xp)
-            _sync(dev)
+            sync(dev)
             t1 = time.perf_counter()
-            rec["launches_compress"] = _delta(before)
+            rec["launches_compress"] = launches_since(before)
             before = launch_counts()
             dec = codec.decompress(enc["strings"], enc["shape"])
-            _sync(dev)
+            sync(dev)
             t2 = time.perf_counter()
-            rec["launches_decompress"] = _delta(before)
+            rec["launches_decompress"] = launches_since(before)
             rec.update(encode_ms=(t1 - t0) * 1e3, decode_ms=(t2 - t1) * 1e3,
                        y_hat_exact=bool(torch.equal(enc["y_hat"], dec["y_hat"])))
             x_hat = crop_nhwc(dec["x_hat"], pad)
             nbytes = len(enc["strings"][0][0]) + sum(len(s) for s in enc["strings"][1])
             rec["bpp"] = nbytes * 8.0 / (h * w)
         else:
-            _sync(dev)
+            sync(dev)
             before, t0 = launch_counts(), time.perf_counter()
             out = codec.forward(xp)
-            _sync(dev)
+            sync(dev)
             rec["forward_ms"] = (time.perf_counter() - t0) * 1e3
-            rec["launches_forward"] = _delta(before)
+            rec["launches_forward"] = launches_since(before)
             x_hat = crop_nhwc(torch.clamp(out["x_hat"], 0, 1), pad)
             bits = sum(float(-torch.log2(lik).sum()) for lik in out["likelihoods"].values())
             rec["bpp"] = bits / (xp.shape[1] * xp.shape[2])
@@ -162,11 +149,15 @@ def evaluate(codec, images, real: bool = True, log=print) -> dict:
 
 def load_checkpoint(codec, path: str) -> None:
     """A committed ``.npz`` snapshot of JAX parameters, or a reference
-    PyTorch ``.pth``/``.pth.tar`` state dict (CDF buffers ignored)."""
+    PyTorch ``.pth``/``.pth.tar`` state dict (CDF buffers ignored). Every
+    parameter of the codec must be in the file; snapshot entries it has no
+    place for are listed."""
     from ..utils.torch_convert import load_snapshot_into
 
     if path.endswith(".npz"):
-        load_snapshot_into(codec.module, path)
+        unused = load_snapshot_into(codec.module, path, allow_unused=True)
+        if unused:
+            print(f"ignored {len(unused)} snapshot entries: {', '.join(unused)}")
         return
     if path.endswith((".pth", ".pth.tar", ".pt")):
         ckpt = torch.load(path, map_location="cpu", weights_only=True)
@@ -178,21 +169,11 @@ def load_checkpoint(codec, path: str) -> None:
         print(f"ignored {len(unused)} checkpoint entries (CDF buffers and the like)")
         return
     raise NotImplementedError(
-        "orbax checkpoint directories need JAX: snapshot them to .npz with "
-        "artifacts/snapshot_ckpt.py first")
+        "orbax checkpoint directories need JAX: snapshot them to .npz with the "
+        "repository's snapshot_ckpt.py first")
 
 
-def main(argv=None):
-    from ..models.tcm import make_tcm
-
-    args = parse_args(argv if argv is not None else sys.argv[1:])
-    if args.model != "tcm":
-        raise NotImplementedError(
-            f"--model {args.model}: the port evaluates TCM only so far; the other codecs "
-            "come with ROADMAP queue A items 9-11")
-    for flag, item in _NOT_YET.items():
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag.replace('_', '-')} is not ported yet: {item}")
+def _device(args) -> torch.device:
     device = torch.device("cpu" if args.platform == "cpu" else "cuda")
     if device.type == "cuda":
         if not torch.cuda.is_available():
@@ -201,10 +182,59 @@ def main(argv=None):
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cudnn.deterministic = True
         torch.backends.cudnn.benchmark = False
+    return device
+
+
+def _eval_generic(args, device, img_list) -> int:
+    """Any registry model the port builds: the real codec through
+    ``compress_with_ac`` or the pad-128 forward estimate, one rate level."""
+    from ..models import get_model
+
+    codec, *_ = get_model(args, device=device)
+    if args.checkpoint:
+        print("Loading", args.checkpoint)
+        load_checkpoint(codec, args.checkpoint)
+    lv = 0
+    if args.real:
+        codec.update()
+        bpp, psnr_v = compress_with_ac(codec, (read_image(p) for p in img_list))
+        print(f"[level {lv}] average_Bit-rate: {bpp:.3f} bpp | average_PSNR: {psnr_v:.2f}dB")
+        return 0
+    psnr_sum = bit_rate = 0.0
+    for path in img_list:
+        x = torch.as_tensor(read_image(path), device=device)[None]
+        pad, _ = compute_padding(x.shape[1], x.shape[2], PAD)
+        xp = pad_nhwc(x, pad)
+        out = codec.forward(xp)
+        x_hat = crop_nhwc(torch.clamp(out["x_hat"], 0, 1), pad)
+        num_pixels = xp.shape[1] * xp.shape[2]
+        bit_rate += sum(float(-torch.log2(lik).sum()) for lik in out["likelihoods"].values()
+                        ) / num_pixels
+        psnr_sum += compute_psnr(x, x_hat)
+    n = len(img_list)
+    print(f"[level {lv}] average_PSNR: {psnr_sum / n:.2f}dB | "
+          f"average_Bit-rate: {bit_rate / n:.3f} bpp")
+    return 0
+
+
+def main(argv=None):
+    from ..models import NOT_PORTED
+    from ..models.tcm import make_tcm
+
+    args = parse_args(argv if argv is not None else sys.argv[1:])
+    if args.model in NOT_PORTED:
+        raise NotImplementedError(f"--model {args.model} is not ported yet: "
+                                  f"{NOT_PORTED[args.model]}")
+    for flag, item in _NOT_YET.items():
+        if getattr(args, flag):
+            raise NotImplementedError(f"--{flag.replace('_', '-')} is not ported yet: {item}")
+    device = _device(args)
     img_list = list_images(args.data)
     if not img_list:
         print(f"no images under {args.data}")
         return 1
+    if args.model != "tcm":
+        return _eval_generic(args, device, img_list)
     codec = make_tcm(N=args.N, M=args.M, device=device)
     if args.checkpoint:
         print("Loading", args.checkpoint)

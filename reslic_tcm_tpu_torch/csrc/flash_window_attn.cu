@@ -11,6 +11,10 @@
 //   x   = x + o . Wproj + bproj
 //   x   = x + GELU(LN2(x) . W1 + b1) . W2 + b2       (exact erf GELU)
 //
+// A second flavour (FULL = false) drops LN1 and the MLP branch: it computes
+// x + o . Wproj + bproj from qkv = x . Wqkv + bqkv, the TPU kernel's
+// with_ln=False, mlp=None (WACNN's WinBasedAttention, C = 192, head_dim 24).
+//
 // The shifted (SW) flavour takes the already rolled map (torch.roll stays
 // outside) and adds -1e9 to the scores of token pairs that the roll brought
 // together from opposite image edges: in the last window row when the two
@@ -40,8 +44,19 @@
 // softmax give one warp to each row and reduce with butterfly shuffles.
 // Every reduction has a fixed order and there are no atomics, so the
 // results are deterministic, which the codec's encoder/decoder symmetry
-// needs. Heads are processed one after another (8, 16 or 32 wide), so the
-// TPU kernel's head-packed and block-diagonal layouts have no counterpart.
+// needs. Heads are processed one after another (8, 16, 24 or 32 wide), so
+// the TPU kernel's head-packed and block-diagonal layouts have no
+// counterpart.
+//
+// At C = 192 (the attention-only flavour) the LN+MLP layout would need 260 KB
+// of shared memory (x 48 KB, a separate attention-output buffer 48 KB, qkv
+// 148 KB, scores 17 KB) against the 227 KB a block may have. Without LN1
+// the LN buffer is not needed, and each head's output overwrites that
+// head's q columns once its scores are in the score buffer (nothing reads
+// them again), so the proj reads the attention output from qkv's first C
+// columns: 212 KB, one block (8 warps) per SM, 384 blocks at 768x512.
+// That flavour does 2*T*(4*C^2 + 2*T*C) FLOP per window (22 MFLOP at
+// C = 192) for 2*T*C*4 = 96 KB in and out: operations bound it too.
 //
 // Interface: plain C, raw pointers, the launch stream; returns
 // cudaGetLastError() of the launch (0 on success).
@@ -133,7 +148,7 @@ __device__ void dense(const float* A, int lda, int K, const float* __restrict__ 
   }
 }
 
-template <int C, int HD>
+template <int C, int HD, bool FULL>
 __global__ void __launch_bounds__(kThreads)
     flash_window_block_kernel(const float* __restrict__ x, float* __restrict__ out,
                               const float* __restrict__ wqkv, const float* __restrict__ bqkv,
@@ -150,10 +165,13 @@ __global__ void __launch_bounds__(kThreads)
   static_assert(C % 32 == 0 && C % HD == 0, "shape");
   static_assert(kT * (kHiddenChunk + 1) + kT * C <= kT * LQ, "MLP buffers fit in qkv's space");
   extern __shared__ float smem[];
-  float* xs = smem;            // [T][C] residual stream
-  float* as = xs + kT * C;     // [T][C] LN output, then attention output
-  float* qs = as + kT * C;     // [T][LQ] qkv; later MLP hidden chunk + accumulator
-  float* ss = qs + kT * LQ;    // [T][LS] one head's scores
+  float* xs = smem;                       // [T][C] residual stream
+  float* as = xs + kT * C;                // FULL: [T][C] LN output, then attention output
+  float* qs = FULL ? as + kT * C : as;    // [T][LQ] qkv; later MLP hidden chunk + accumulator
+  float* ss = qs + kT * LQ;               // [T][LS] one head's scores
+  // attention output: its own buffer, or (not FULL) over the q columns
+  float* os = FULL ? as : qs;
+  constexpr int LO = FULL ? C : LQ;
 
   const int nww = W / kWin;
   const int nwh = H / kWin;
@@ -167,9 +185,11 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = threadIdx.x; i < kT * C; i += kThreads) xs[i] = x[gofs(i / C, i % C)];
   __syncthreads();
 
-  layer_norm<C>(xs, as, ln1s, ln1b);
-  __syncthreads();
-  dense<kStore>(as, C, C, wqkv, 3 * C, 3 * C, bqkv, qs, LQ);
+  if (FULL) {
+    layer_norm<C>(xs, as, ln1s, ln1b);
+    __syncthreads();
+  }
+  dense<kStore>(FULL ? as : xs, C, C, wqkv, 3 * C, 3 * C, bqkv, qs, LQ);
   __syncthreads();
 
   const bool last_row = shifted && wy == nwh - 1;
@@ -210,7 +230,8 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
     __syncthreads();
-    // o_h = P v_h, written into as[:, h*HD : (h+1)*HD]
+    // o_h = P v_h, written into os[:, h*HD : (h+1)*HD] (not FULL: head h's
+    // q columns, which no later step reads)
     for (int it = threadIdx.x; it < kT * HD; it += kThreads) {
       const int d = it % HD;
       const int p = it / HD;
@@ -218,13 +239,18 @@ __global__ void __launch_bounds__(kThreads)
       const float* vv = qs + 2 * C + h * HD + d;
       float o = 0.f;
       for (int q = 0; q < kT; ++q) o = fmaf(pp[q], vv[q * LQ], o);
-      as[p * C + h * HD + d] = o;
+      os[p * LO + h * HD + d] = o;
     }
     __syncthreads();
   }
 
-  dense<kAccumulate>(as, C, C, wproj, C, C, bproj, xs, C);
+  dense<kAccumulate>(os, LO, C, wproj, C, C, bproj, xs, C);
   __syncthreads();
+
+  if (!FULL) {
+    for (int i = threadIdx.x; i < kT * C; i += kThreads) out[gofs(i / C, i % C)] = xs[i];
+    return;
+  }
 
   layer_norm<C>(xs, as, ln2s, ln2b);
   float* hs = qs;                          // [T][kHiddenChunk + 1]
@@ -244,19 +270,20 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int C, int HD>
+template <int C, int HD, bool FULL = true>
 cudaError_t launch(const float* x, float* out, const float* wqkv, const float* bqkv,
                    const float* wproj, const float* bproj, const float* ln1s, const float* ln1b,
                    const float* relb, const float* ln2s, const float* ln2b, const float* w1,
                    const float* b1, const float* w2, const float* b2, int B, int H, int W,
                    int shifted, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (2 * kT * C + kT * (3 * C + 1) + kT * (kT + 1));
-  cudaError_t e = cudaFuncSetAttribute(flash_window_block_kernel<C, HD>,
+  const size_t smem =
+      sizeof(float) * ((FULL ? 2 : 1) * kT * C + kT * (3 * C + 1) + kT * (kT + 1));
+  cudaError_t e = cudaFuncSetAttribute(flash_window_block_kernel<C, HD, FULL>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return e;
   const dim3 grid((H / kWin) * (W / kWin), B);
-  flash_window_block_kernel<C, HD><<<grid, kThreads, smem, stream>>>(
+  flash_window_block_kernel<C, HD, FULL><<<grid, kThreads, smem, stream>>>(
       x, out, wqkv, bqkv, wproj, bproj, ln1s, ln1b, relb, ln2s, ln2b, w1, b1, w2, b2, H, W,
       shifted);
   return cudaGetLastError();
@@ -302,6 +329,23 @@ int flash_window_block_f32(const float* x, float* out, const float* wqkv, const 
   if (C == 128)
     return launch_c<128>(head_dim, x, out, wqkv, bqkv, wproj, bproj, ln1s, ln1b, relb, ln2s,
                          ln2b, w1, b1, w2, b2, B, H, W, shifted, s);
+  return cudaErrorInvalidValue;
+}
+
+// The attention-only flavour (no LN1, no MLP): out = x + attn(x) . Wproj +
+// bproj. x, out: [B][H][W][C] (H, W multiples of 8; C 192 with head_dim
+// 24). wqkv: [C][3C] with the q columns pre-scaled; bqkv: [3C]; wproj:
+// [C][C] ([in][out]); bproj: [C]; relb: [C/head_dim][64][64].
+int window_attention_block_f32(const float* x, float* out, const float* wqkv,
+                               const float* bqkv, const float* wproj, const float* bproj,
+                               const float* relb, int B, int H, int W, int C, int head_dim,
+                               int shifted, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (H % kWin != 0 || W % kWin != 0) return cudaErrorInvalidValue;
+  if (C == 192 && head_dim == 24)
+    return launch<192, 24, false>(x, out, wqkv, bqkv, wproj, bproj, nullptr, nullptr, relb,
+                                  nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, B, H,
+                                  W, shifted, s);
   return cudaErrorInvalidValue;
 }
 

@@ -1,0 +1,42 @@
+"""Model registry (port of reslic_tcm_tpu/models/__init__.py).
+
+``get_model(args)`` builds the codec named by ``args.model`` with the JAX
+registry's constructor arguments and returns the same five-tuple
+(codec, gaussian_configuration, annealing_strategy_gaussian,
+factorized_configuration, annealing_strategy_factorized). The port builds
+TCM and WACNN; every other registry name raises ``NotImplementedError``
+naming the ROADMAP item that brings it.
+"""
+
+from __future__ import annotations
+
+# registry names the port does not build yet -> the ROADMAP item that brings each
+NOT_PORTED = {
+    "stanh": "ROADMAP queue A item 10 (STanH)",
+    "scale_stanh": "ROADMAP queue A item 10 (STanH)",
+    "wacnn_stanh": "ROADMAP queue A item 10 (STanH)",
+    "scale_gain": "ROADMAP queue A item 11 (gain codecs)",
+    "wacnn_gain": "ROADMAP queue A item 11 (gain codecs)",
+    "scale_gain_sc": "ROADMAP queue A item 11 (gain codecs)",
+    "factorized": "ROADMAP queue A item 9 (Balle-2018)",
+    "scale_hyperprior": "ROADMAP queue A item 9 (Balle-2018)",
+    "mean_scale_hyperprior": "ROADMAP queue A item 9 (Balle-2018)",
+}
+
+
+def get_model(args, device="cuda"):
+    """Build the codec ``args.model`` (with ``args.N``, ``args.M``) on
+    ``device`` with seeded random weights."""
+    name = args.model
+    if name in NOT_PORTED:
+        raise NotImplementedError(f"--model {name} is not ported yet: {NOT_PORTED[name]}")
+    if name == "wacnn":
+        from .wacnn import make_wacnn
+
+        return make_wacnn(N=args.N, M=args.M, device=device), None, None, None, None
+    if name == "tcm":
+        from .tcm import make_tcm
+
+        # the JAX registry's TCM: M fixed at 320, the reference's depths
+        return make_tcm(N=args.N, M=320, device=device), None, None, None, None
+    raise ValueError(f"unknown model {name!r}")

@@ -30,9 +30,10 @@ from ..ops.math import build_indexes, gaussian_likelihood, ste_round
 
 class ChannelARModule(nn.Module):
     """Base of the channel-AR codecs. Subclasses create g_a, g_s, h_a,
-    h_mean_s, h_scale_s, entropy_bottleneck, atten_mean, atten_scale,
-    cc_mean_transforms, cc_scale_transforms and lrp_transforms, and set
-    num_slices, max_support_slices and M."""
+    h_mean_s, h_scale_s, entropy_bottleneck, cc_mean_transforms,
+    cc_scale_transforms, lrp_transforms and, where the codec has them
+    (TCM, not WACNN), atten_mean and atten_scale, and set num_slices,
+    max_support_slices and M. The z channels are the entropy bottleneck's."""
 
     num_slices: int
     max_support_slices: int
@@ -49,9 +50,15 @@ class ChannelARModule(nn.Module):
     def _mu_sigma(self, i: int, latent_means, latent_scales, support, y_shape):
         """(mu, sigma, mean_support) for slice i."""
         h, w = y_shape
-        mean_support = self.atten_mean[i](torch.cat([latent_means] + support, dim=1))
+        atten_mean = getattr(self, "atten_mean", None)
+        atten_scale = getattr(self, "atten_scale", None)
+        mean_support = torch.cat([latent_means] + support, dim=1)
+        if atten_mean is not None:
+            mean_support = atten_mean[i](mean_support)
         mu = self.cc_mean_transforms[i](mean_support)[:, :, :h, :w]
-        scale_support = self.atten_scale[i](torch.cat([latent_scales] + support, dim=1))
+        scale_support = torch.cat([latent_scales] + support, dim=1)
+        if atten_scale is not None:
+            scale_support = atten_scale[i](scale_support)
         sigma = self.cc_scale_transforms[i](scale_support)[:, :, :h, :w]
         return mu, sigma, mean_support
 

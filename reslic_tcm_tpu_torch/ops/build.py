@@ -40,6 +40,7 @@ GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 SOURCES = {
     "flash_window_attn": ("csrc/flash_window_attn.cu", "nvcc"),
     "fused_conv": ("csrc/fused_conv.cu", "nvcc"),
+    "qkv_attention": ("csrc/qkv_attention.cu", "nvcc"),
     "rans": ("coding/csrc/rans.cpp", "g++"),
 }
 

@@ -4,10 +4,12 @@
 of an NHWC map: LN1 -> qkv -> per-head window attention with the relative
 position bias (and, for the shifted flavour on the pre-rolled map, the
 -1e9 boundary mask) -> proj -> residual, then LN2 -> Linear(4C) -> exact
-GELU -> Linear(C) -> residual. On a CUDA tensor it launches
-``csrc/flash_window_attn.cu``; on a CPU tensor it runs ``plain_window_block``,
-the plain PyTorch version written with explicit einsums. Launches are
-counted in ``flash_window_block.launches``.
+GELU -> Linear(C) -> residual. With ``with_ln=False, mlp=None`` (WACNN's
+WinBasedAttention) it is ``x + proj(attn(x))``: no LayerNorm and no MLP
+branch. On a CUDA tensor it launches ``csrc/flash_window_attn.cu``; on a
+CPU tensor it runs ``plain_window_block``, the plain PyTorch version
+written with explicit einsums. Launches of either flavour are counted in
+``flash_window_block.launches``.
 
 Weights come in torch layout ([out, in] linears) straight from the modules.
 """
@@ -23,9 +25,10 @@ import torch.nn.functional as F
 from . import build
 
 NEG_INF = -1e9
-KERNEL_CHANNELS = (64, 128)
-KERNEL_HEAD_DIMS = (8, 16, 32)
 KERNEL_WINDOW = 8
+# (C, head_dim) instances of the kernel, per flavour
+KERNEL_SHAPES_FULL = {(c, hd) for c in (64, 128) for hd in (8, 16, 32)}  # LN1 + MLP
+KERNEL_SHAPES_ATTN = {(192, 24)}  # with_ln=False, mlp=None
 
 
 def window_partition(x: torch.Tensor, w: int) -> torch.Tensor:
@@ -61,16 +64,17 @@ def _layer_norm(x, scale, bias):
     return (x - mu) * torch.rsqrt(var + 1e-5) * scale + bias
 
 
-def plain_window_block(x, wqkv, bqkv, wproj, bproj, ln_scale, ln_bias, rel_bias, mlp,
-                       *, head_dim: int, window: int, shifted: bool):
+def plain_window_block(x, wqkv, bqkv, wproj, bproj, ln_scale, ln_bias, rel_bias, mlp=None,
+                       *, head_dim: int, window: int, shifted: bool, with_ln: bool = True):
     """Plain PyTorch version of B1: the composed counterpart of the JAX
     package's reference_window_block plus the LN2/MLP branch. x: NHWC,
     pre-rolled for the shifted flavour; rel_bias: [heads, w*w, w*w];
-    mlp = (ln2_scale, ln2_bias, w1 [4C, C], b1, w2 [C, 4C], b2)."""
+    mlp = (ln2_scale, ln2_bias, w1 [4C, C], b1, w2 [C, 4C], b2) or None;
+    with_ln=False feeds x straight into qkv (ln_* are then unread)."""
     b, hgt, wid, c = x.shape
     w = window
     nh = c // head_dim
-    ln = _layer_norm(x, ln_scale, ln_bias)
+    ln = _layer_norm(x, ln_scale, ln_bias) if with_ln else x
     windows = window_partition(ln, w)
     qkv = torch.einsum("bnpc,oc->bnpo", windows, wqkv) + bqkv
     qkv = qkv.reshape(b, -1, w * w, 3, nh, head_dim)
@@ -84,6 +88,8 @@ def plain_window_block(x, wqkv, bqkv, wproj, bproj, ln_scale, ln_bias, rel_bias,
     out = torch.einsum("bnhpq,bnqhd->bnphd", probs, v).reshape(b, -1, w * w, c)
     out = torch.einsum("bnpc,oc->bnpo", out, wproj) + bproj
     res = x + window_reverse(out, w, hgt, wid)
+    if mlp is None:
+        return res
     ln2_scale, ln2_bias, w1, b1, w2, b2 = mlp
     hid = F.gelu(torch.einsum("bhwc,oc->bhwo", _layer_norm(res, ln2_scale, ln2_bias), w1) + b1)
     return res + (torch.einsum("bhwk,ok->bhwo", hid, w2) + b2)
@@ -95,51 +101,65 @@ def _lib() -> ctypes.CDLL:
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.flash_window_block_f32.argtypes = [vp] * 15 + [i] * 6 + [vp]
         lib.flash_window_block_f32.restype = ctypes.c_int
+        lib.window_attention_block_f32.argtypes = [vp] * 7 + [i] * 6 + [vp]
+        lib.window_attention_block_f32.restype = ctypes.c_int
         lib._argtypes_set = True
     return lib
 
 
-def flash_window_block(x, wqkv, bqkv, wproj, bproj, ln_scale, ln_bias, rel_bias, mlp,
-                       *, head_dim: int, window: int, shifted: bool):
+def flash_window_block(x, wqkv, bqkv, wproj, bproj, ln_scale, ln_bias, rel_bias, mlp=None,
+                       *, head_dim: int, window: int, shifted: bool, with_ln: bool = True):
     """x: [B, H, W, C] NHWC float32 (pre-rolled for the shifted flavour);
     wqkv: [3C, C]; bqkv: [3C]; wproj: [C, C]; bproj, ln_*: [C];
     rel_bias: [C/head_dim, w*w, w*w]; mlp = (ln2_scale, ln2_bias,
-    w1 [4C, C], b1 [4C], w2 [C, 4C], b2 [C]). Returns the block's output."""
+    w1 [4C, C], b1 [4C], w2 [C, 4C], b2 [C]) or None. The kernel has two
+    flavours: LN1 and the MLP (``with_ln=True`` and an ``mlp``), or neither
+    (``with_ln=False, mlp=None``; ln_* may be None). Returns the block's
+    output."""
     if x.device.type == "cpu":
         return plain_window_block(x, wqkv, bqkv, wproj, bproj, ln_scale, ln_bias, rel_bias,
-                                  mlp, head_dim=head_dim, window=window, shifted=shifted)
+                                  mlp, head_dim=head_dim, window=window, shifted=shifted,
+                                  with_ln=with_ln)
     bsz, h, wd, c = x.shape
-    if (window != KERNEL_WINDOW or c not in KERNEL_CHANNELS or head_dim not in KERNEL_HEAD_DIMS
-            or h % window or wd % window):
+    full = with_ln and mlp is not None
+    shapes = KERNEL_SHAPES_FULL if full else KERNEL_SHAPES_ATTN
+    if (with_ln != (mlp is not None) or window != KERNEL_WINDOW
+            or (c, head_dim) not in shapes or h % window or wd % window):
         raise ValueError(
-            f"flash_window_block kernel takes window {KERNEL_WINDOW}, C in {KERNEL_CHANNELS}, "
-            f"head_dim in {KERNEL_HEAD_DIMS} and H, W multiples of the window; got "
-            f"x {tuple(x.shape)}, window {window}, head_dim {head_dim}")
-    ln2_scale, ln2_bias, w1, b1, w2, b2 = mlp
+            f"flash_window_block kernel takes window {KERNEL_WINDOW}, H and W multiples of "
+            f"it, and (C, head_dim) in {sorted(KERNEL_SHAPES_FULL)} with LN1 and an MLP or in "
+            f"{sorted(KERNEL_SHAPES_ATTN)} with neither; got x {tuple(x.shape)}, window "
+            f"{window}, head_dim {head_dim}, with_ln={with_ln}, mlp={mlp is not None}")
     t = window * window
-    build.check_inference(x, wqkv, bqkv, wproj, bproj, ln_scale, ln_bias, rel_bias, *mlp)
+    build.check_inference(x, wqkv, bqkv, wproj, bproj, rel_bias, *(mlp or ()),
+                          *((ln_scale, ln_bias) if with_ln else ()))
     build.check_tensor("x", x, (bsz, h, wd, c), x.device, contiguous=True)
     build.check_params(
         x.device, wqkv=(wqkv, (3 * c, c)), bqkv=(bqkv, (3 * c,)), wproj=(wproj, (c, c)),
-        bproj=(bproj, (c,)), ln_scale=(ln_scale, (c,)), ln_bias=(ln_bias, (c,)),
-        rel_bias=(rel_bias, (c // head_dim, t, t)), ln2_scale=(ln2_scale, (c,)),
-        ln2_bias=(ln2_bias, (c,)), w1=(w1, (4 * c, c)), b1=(b1, (4 * c,)),
-        w2=(w2, (c, 4 * c)), b2=(b2, (c,)),
-    )
+        bproj=(bproj, (c,)), rel_bias=(rel_bias, (c // head_dim, t, t)))
     # [in, out] weights with head_dim^-0.5 folded into the q columns
     colscale = torch.ones(3 * c, device=x.device)
     colscale[:c] = head_dim ** -0.5
-    wqkv_k = (wqkv.detach().t() * colscale).contiguous()
-    bqkv_k = (bqkv.detach() * colscale).contiguous()
-    args = [wqkv_k, bqkv_k, wproj.detach().t().contiguous(), bproj, ln_scale, ln_bias,
-            rel_bias, ln2_scale, ln2_bias, w1.detach().t().contiguous(), b1,
-            w2.detach().t().contiguous(), b2]
-    args = [a.detach().contiguous() for a in args]
+    attn = [(wqkv.detach().t() * colscale).contiguous(), (bqkv.detach() * colscale).contiguous(),
+            wproj.detach().t().contiguous(), bproj.detach().contiguous()]
+    rel = rel_bias.detach().contiguous()
     out = torch.empty_like(x)
-    rc = _lib().flash_window_block_f32(
-        build.ptr(x), build.ptr(out), *[build.ptr(a) for a in args],
-        bsz, h, wd, c, head_dim, int(shifted), build.stream(x),
-    )
+    if full:
+        ln2_scale, ln2_bias, w1, b1, w2, b2 = mlp
+        build.check_params(
+            x.device, ln_scale=(ln_scale, (c,)), ln_bias=(ln_bias, (c,)),
+            ln2_scale=(ln2_scale, (c,)), ln2_bias=(ln2_bias, (c,)), w1=(w1, (4 * c, c)),
+            b1=(b1, (4 * c,)), w2=(w2, (c, 4 * c)), b2=(b2, (c,)))
+        rest = [ln_scale, ln_bias, rel, ln2_scale, ln2_bias, w1.detach().t(), b1,
+                w2.detach().t(), b2]
+        rest = [a.detach().contiguous() for a in rest]
+        rc = _lib().flash_window_block_f32(
+            build.ptr(x), build.ptr(out), *[build.ptr(a) for a in attn + rest],
+            bsz, h, wd, c, head_dim, int(shifted), build.stream(x))
+    else:
+        rc = _lib().window_attention_block_f32(
+            build.ptr(x), build.ptr(out), *[build.ptr(a) for a in attn], build.ptr(rel),
+            bsz, h, wd, c, head_dim, int(shifted), build.stream(x))
     if rc != 0:
         raise RuntimeError(f"flash_window_block kernel launch failed: cudaError {rc}")
     flash_window_block.launches += 1

@@ -53,6 +53,16 @@ def subpel_conv3x3(in_ch: int, out_ch: int, r: int = 1) -> nn.Sequential:
     return nn.Sequential(conv3x3(in_ch, out_ch * r * r), nn.PixelShuffle(r))
 
 
+class Deconv(nn.ConvTranspose2d):
+    """ConvTranspose2d(k, stride s, padding k//2, output_padding s-1): H and W
+    grow by exactly s. IOHW weight; the bridge turns the JAX package's
+    input-dilated HWIO kernel into it."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 5, stride: int = 2):
+        super().__init__(in_ch, out_ch, kernel_size, stride, padding=kernel_size // 2,
+                         output_padding=stride - 1)
+
+
 _GDN_BETA_MIN = 1e-6
 _GDN_GAMMA_INIT = 0.1
 _GDN_REPARAM_OFFSET = 2 ** -18
@@ -95,17 +105,19 @@ class GDN(nn.Module):
 
 class ResidualUnit(nn.Module):
     """CompressAI AttentionBlock residual unit: 1x1 -> act -> 3x3 -> act ->
-    1x1, residual add, trailing activation (ReLU in TCM's SWAtten)."""
+    1x1, residual add, trailing activation: ReLU (TCM's SWAtten) or, with
+    ``act=nn.GELU``, exact-erf GELU (WACNN's window-attention blocks)."""
 
-    def __init__(self, n: int):
+    def __init__(self, n: int, act=nn.ReLU):
         super().__init__()
         self.conv = nn.Sequential(
-            conv1x1(n, n // 2), nn.ReLU(), conv3x3(n // 2, n // 2), nn.ReLU(),
+            conv1x1(n, n // 2), act(), conv3x3(n // 2, n // 2), act(),
             conv1x1(n // 2, n),
         )
+        self.act = act()
 
     def forward(self, x):
-        return F.relu(self.conv(x) + x)
+        return self.act(self.conv(x) + x)
 
 
 class ResidualBlock(nn.Module):

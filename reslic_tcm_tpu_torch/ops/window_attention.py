@@ -1,13 +1,27 @@
 """Swin window attention (port of reslic_tcm_tpu/ops/window_attention.py), NHWC.
 
 WMSA, SwinTransformerBlock (the reference's ``Block``) and SwinBlock of the
-TCM ConvTransBlock and SWAtten, with the reference's parameter names. A
-window-8 block runs as one fused sub-block through ``flash_window_block``
-(the CUDA kernel B1 on the card, its plain version on the CPU); window-4
-blocks (TCM's hyper transforms) stay composed, as in the JAX package.
+TCM ConvTransBlock and SWAtten, and WindowAttention, WinBasedAttention and
+Win_noShift_Attention of WACNN, with the reference's parameter names.
+Routing follows the JAX package:
+
+* a window-8 SwinTransformerBlock runs as one fused sub-block through
+  ``flash_window_block`` (kernel B1); window-4 blocks (TCM's hyper
+  transforms) stay composed;
+* WinBasedAttention takes B1's attention-only flavour when the window is a
+  multiple of 8, the shift 0 or half the window and H and W multiples of
+  the window; otherwise it pads, rolls and partitions the map and runs
+  WindowAttention on the windows with the -100 shift mask;
+* WindowAttention on a batch of windows is ``fused_qkv_attention`` (kernel
+  B4).
+
+Each kernel wrapper runs the kernel on a CUDA tensor and its plain PyTorch
+version on a CPU tensor.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -16,6 +30,8 @@ from torch import nn
 
 from .flash_window_attn import (KERNEL_WINDOW, flash_window_block, shift_window_mask,
                                 window_partition, window_reverse)
+from .layers import ResidualUnit, conv1x1, to_nchw, to_nhwc
+from .qkv_attention import fused_qkv_attention
 
 
 def relative_position_index(w: int) -> np.ndarray:
@@ -125,3 +141,117 @@ class SwinBlock(nn.Module):
         if ph or pw:
             x = x[:, :h, :wd, :]
         return x
+
+
+class WindowAttention(nn.Module):
+    """Relative-position-bias window MHSA over [B_, N, C] windows (the
+    reference's win_attention.py WindowAttention): kernel B4 on the card."""
+
+    def __init__(self, dim: int, window_size: int, num_heads: int):
+        super().__init__()
+        self.dim, self.window_size, self.num_heads = dim, window_size, num_heads
+        w = window_size
+        self.relative_position_bias_table = nn.Parameter(
+            torch.zeros((2 * w - 1) * (2 * w - 1), num_heads))
+        nn.init.trunc_normal_(self.relative_position_bias_table, std=0.02)
+        self.qkv = nn.Linear(dim, 3 * dim)
+        self.proj = nn.Linear(dim, dim)
+        self.register_buffer(
+            "_rel_index", torch.from_numpy(relative_position_index(w).astype(np.int64)).reshape(-1),
+            persistent=False)
+
+    def rel_bias(self) -> torch.Tensor:
+        """[heads, w*w, w*w] relative-position bias."""
+        t = self.window_size ** 2
+        return self.relative_position_bias_table[self._rel_index].reshape(
+            t, t, self.num_heads).permute(2, 0, 1)
+
+    def forward(self, x, mask=None):
+        """x: [B_, N, C] windows; mask: [nW, N, N] additive (window i takes
+        mask[i % nW]) or None."""
+        return fused_qkv_attention(x.contiguous(), self.qkv.weight, self.qkv.bias,
+                                   self.rel_bias(), self.proj.weight, self.proj.bias, mask)
+
+
+@functools.lru_cache(maxsize=16)
+def region_mask(h: int, wd: int, w: int, s: int) -> np.ndarray:
+    """The composed path's [nW, w*w, w*w] shift mask of an h x wd map rolled
+    by -s: -100 between tokens of different regions, else 0."""
+    img = np.zeros((h, wd), np.int32)
+    cnt = 0
+    for hs in (slice(0, h - w), slice(h - w, h - s), slice(h - s, h)):
+        for ws in (slice(0, wd - w), slice(wd - w, wd - s), slice(wd - s, wd)):
+            img[hs, ws] = cnt
+            cnt += 1
+    mw = img.reshape(h // w, w, wd // w, w).transpose(0, 2, 1, 3).reshape(-1, w * w)
+    diff = mw[:, None, :] - mw[:, :, None]
+    return np.where(diff != 0, -100.0, 0.0).astype(np.float32)
+
+
+class WinBasedAttention(nn.Module):
+    """Shifted-window attention with a residual shortcut (the reference's
+    win_attention.py WinBasedAttention), NHWC."""
+
+    def __init__(self, dim: int, num_heads: int = 8, window_size: int = 8, shift_size: int = 0):
+        super().__init__()
+        self.dim, self.num_heads = dim, num_heads
+        self.window_size, self.shift_size = window_size, shift_size
+        self.attn = WindowAttention(dim, window_size, num_heads)
+
+    def forward(self, x):
+        w, s = self.window_size, self.shift_size
+        if w % KERNEL_WINDOW == 0 and s in (0, w // 2) and x.shape[1] % w == 0 \
+                and x.shape[2] % w == 0:
+            return self._fused(x)
+        shortcut = x
+        oh, ow = x.shape[1], x.shape[2]
+        ph, pw = (-oh) % w, (-ow) % w
+        if ph or pw:
+            x = F.pad(x, (0, 0, 0, pw, 0, ph))
+        b, h, wd, c = x.shape
+        mask = None
+        if s > 0:
+            mask = torch.from_numpy(region_mask(h, wd, w, s)).to(x.device)
+            x = torch.roll(x, shifts=(-s, -s), dims=(1, 2))
+        windows = window_partition(x, w).reshape(-1, w * w, c)
+        out = self.attn(windows, mask).reshape(b, -1, w * w, c)
+        x = window_reverse(out, w, h, wd)
+        if s > 0:
+            x = torch.roll(x, shifts=(s, s), dims=(1, 2))
+        if ph or pw:
+            x = x[:, :oh, :ow, :]
+        return shortcut + x
+
+    def _fused(self, x):
+        """x + attn(x) as B1's attention-only flavour (the -1e9 boundary mask
+        on the rolled map; the composed path's -100 gives the same softmax
+        to below 1e-40)."""
+        w, s = self.window_size, self.shift_size
+        if s > 0:
+            x = torch.roll(x, shifts=(-s, -s), dims=(1, 2))
+        a = self.attn
+        out = flash_window_block(
+            x.contiguous(), a.qkv.weight, a.qkv.bias, a.proj.weight, a.proj.bias, None, None,
+            a.rel_bias(), None, head_dim=self.dim // self.num_heads, window=w, shifted=s > 0,
+            with_ln=False)
+        if s > 0:
+            out = torch.roll(out, shifts=(s, s), dims=(1, 2))
+        return out
+
+
+class Win_noShift_Attention(nn.Module):
+    """Gated window-attention block ``a * sigmoid(b) + x`` (the reference's
+    layers.py Win_noShift_Attention), NCHW: a = three GELU residual units on
+    x; b = WinBasedAttention on x, three GELU residual units and a 1x1."""
+
+    def __init__(self, dim: int, num_heads: int = 8, window_size: int = 8, shift_size: int = 0):
+        super().__init__()
+        self.conv_a = nn.Sequential(*(ResidualUnit(dim, nn.GELU) for _ in range(3)))
+        self.win_attn = WinBasedAttention(dim, num_heads, window_size, shift_size)
+        self.conv_b = nn.Sequential(*(ResidualUnit(dim, nn.GELU) for _ in range(3)),
+                                    conv1x1(dim, dim))
+
+    def forward(self, x):
+        a = self.conv_a(x)
+        b = self.conv_b(to_nchw(self.win_attn(to_nhwc(x))))
+        return a * torch.sigmoid(b) + x

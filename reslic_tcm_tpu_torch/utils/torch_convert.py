@@ -6,6 +6,8 @@ so the JAX package's flax parameters map onto them with the same name table
 its converter uses, run the other way:
 
   flax conv kernel HWIO [kh, kw, I, O] -> Conv2d weight OIHW [O, I, kh, kw]
+  flax Deconv kernel (input-dilated HWIO) -> ConvTranspose2d weight IOHW
+                                             [I, O, kh, kw], spatially flipped
   flax dense kernel [I, O]             -> Linear weight [O, I]
   LayerNorm scale -> weight; GDN, entropy-bottleneck chain and relative
   position tables copy as they are.
@@ -115,13 +117,22 @@ def torch_key(path: str, flat_keys) -> str:
     return _finalize_key(key)
 
 
+def is_deconv_path(path: str) -> bool:
+    """A 4-D flax ``kernel`` that its module stores directly, with no Conv
+    wrapper ("conv") as parent, is a Deconv's (the JAX converter's rule)."""
+    parts = path.split("/")
+    return parts[-1] == "kernel" and len(parts) >= 2 and parts[-2] != "conv"
+
+
 def from_jax_params(flat: dict) -> dict:
     """flax parameters, flattened to '/'-joined paths -> a port state dict
     of float32 tensors (fp16 snapshot values upcast)."""
     sd = {}
     for path, value in flat.items():
         v = np.array(value, dtype=np.float32)
-        if path.endswith("/kernel") and v.ndim == 4:
+        if path.endswith("/kernel") and v.ndim == 4 and is_deconv_path(path):
+            v = v.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
+        elif path.endswith("/kernel") and v.ndim == 4:
             v = v.transpose(3, 2, 0, 1)
         elif path.endswith("/kernel") and v.ndim == 2:
             v = v.T
@@ -138,6 +149,22 @@ def load_snapshot(path: str) -> dict:
         return {k: z[k].astype(np.float32) for k in z.files}
 
 
-def load_snapshot_into(module: torch.nn.Module, path: str) -> None:
-    """Load a snapshot into a port module; every key must match."""
-    module.load_state_dict(from_jax_params(load_snapshot(path)), strict=True)
+def load_snapshot_into(module: torch.nn.Module, path: str,
+                       allow_unused: bool = False) -> list[str]:
+    """Load a snapshot into a port module. Every parameter of the module must
+    be in the snapshot, with its shape. Snapshot entries the module has no
+    place for raise, unless ``allow_unused``; they are returned (flax paths),
+    e.g. the two quantizer tables of a STanH snapshot loaded into its plain
+    backbone."""
+    flat = load_snapshot(path)
+    sd = from_jax_params(flat)
+    own = module.state_dict()
+    unused = sorted(p for p in flat if torch_key(p, flat) not in own)
+    if unused and not allow_unused:
+        raise ValueError(f"{path}: {len(unused)} entries have no parameter here, "
+                         f"e.g. {unused[:5]}")
+    missing = [k for k in own if k not in sd]
+    if missing:
+        raise ValueError(f"{path} lacks {len(missing)} parameters, e.g. {missing[:5]}")
+    module.load_state_dict({k: v for k, v in sd.items() if k in own}, strict=True)
+    return unused

@@ -6,7 +6,8 @@ CUDA device). No JAX here: the card's machine has none, so run
 (``--noconftest`` skips tests/conftest.py, which imports JAX).
 
 Each kernel is held against its plain PyTorch version on the same CUDA
-tensors, with TF32 off, at shapes of TCM-S's main path and at ragged ones.
+tensors, with TF32 off, at shapes of TCM-S's and WACNN's main paths and at
+ragged ones.
 Tolerance 1e-4 * max(1, max |plain|): the kernels sum in another fixed
 order than cuDNN/cuBLAS, over up to 9*128 = 1152 terms per output.
 """
@@ -21,10 +22,12 @@ import pytest
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-from torch_port_inputs import attn_inputs, conv_inputs, err_ok, oihw, port_attn_args  # noqa: E402
+from torch_port_inputs import (attn_inputs, conv_inputs, err_ok, oihw,  # noqa: E402
+                               port_attn_args, qkv_inputs)
 
 from reslic_tcm_tpu_torch.ops import flash_window_attn as PF  # noqa: E402
 from reslic_tcm_tpu_torch.ops import fused_conv as PC  # noqa: E402
+from reslic_tcm_tpu_torch.ops import qkv_attention as PQ  # noqa: E402
 
 TOL_CARD = 1e-4
 # the whole forward compounds the per-layer differences over some 60 layers
@@ -56,6 +59,64 @@ def test_b1_kernel_matches_plain_on_card(cuda, shifted, c, head_dim, hw):
         torch.cuda.synchronize()
     assert PF.flash_window_block.launches == before + 1
     err_ok(got.cpu().numpy(), want.cpu().numpy(), TOL_CARD)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shifted", [False, True])
+@pytest.mark.parametrize("hw", [(16, 24), (8, 8)])
+def test_b1_attention_only_kernel_matches_plain_on_card(cuda, shifted, hw):
+    """The with_ln=False, mlp=None flavour at WACNN's C=192, head_dim 24."""
+    c, head_dim = 192, 24
+    x, wts = attn_inputs(32, 2, *hw, c)
+    rel = np.random.default_rng(33).normal(0, 0.5, (c // head_dim, 64, 64)).astype(np.float32)
+    wqkv, bqkv, wproj, bproj, _, _, relc, _ = port_attn_args(wts, rel, lambda t: t.to(cuda))
+    args = (wqkv, bqkv, wproj, bproj, None, None, relc, None)
+    kw = dict(head_dim=head_dim, window=8, shifted=shifted, with_ln=False)
+    xc = torch.from_numpy(x).to(cuda)
+    with torch.no_grad():
+        want = PF.plain_window_block(xc, *args, **kw)
+        before = PF.flash_window_block.launches
+        got = PF.flash_window_block(xc, *args, **kw)
+        torch.cuda.synchronize()
+    assert PF.flash_window_block.launches == before + 1
+    err_ok(got.cpu().numpy(), want.cpu().numpy(), TOL_CARD)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nw,n_mask", [(20, 4), (7, 0), (96, 96)])
+def test_b4_kernel_matches_plain_on_card(cuda, nw, n_mask):
+    """WACNN's window-4 attention at C=320, 8 heads (head_dim 40): with an
+    image's mask shared by 5 images, without a mask, and with one mask per
+    window."""
+    windows, wqkv, bqkv, rel, wproj, bproj, mask = qkv_inputs(34, nw, 16, 320, 8,
+                                                              max(n_mask, 1))
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)  # noqa: E731
+    args = (t(windows), t(wqkv.T), t(bqkv), t(rel), t(wproj.T), t(bproj),
+            t(mask) if n_mask else None)
+    with torch.no_grad():
+        want = PQ.plain_qkv_attention(*args)
+        before = PQ.fused_qkv_attention.launches
+        got = PQ.fused_qkv_attention(*args)
+        torch.cuda.synchronize()
+    assert PQ.fused_qkv_attention.launches == before + 1
+    err_ok(got.cpu().numpy(), want.cpu().numpy(), TOL_CARD)
+
+
+@pytest.mark.cuda
+def test_attention_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    windows, wqkv, bqkv, rel, wproj, bproj, mask = qkv_inputs(35, 8, 16, 320, 8, 3)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)  # noqa: E731
+    args = [t(windows), t(wqkv.T), t(bqkv), t(rel), t(wproj.T), t(bproj)]
+    with torch.no_grad():
+        with pytest.raises(ValueError):  # 3 mask windows do not divide 8
+            PQ.fused_qkv_attention(*args, t(mask))
+        with pytest.raises(ValueError):  # 4 heads: head_dim 80 has no instance
+            PQ.fused_qkv_attention(*args[:3], t(rel[:4]), *args[4:])
+        x, wts = attn_inputs(36, 1, 8, 8, 64)
+        a = port_attn_args(wts, rel[:1].repeat(4, 0), lambda u: u.to(cuda))
+        with pytest.raises(ValueError):  # C = 64 has no attention-only instance
+            PF.flash_window_block(t(x), *a[:4], None, None, t(np.zeros((4, 64, 64), np.float32)),
+                                  None, head_dim=16, window=8, shifted=False, with_ln=False)
 
 
 @pytest.mark.cuda
@@ -125,10 +186,43 @@ def test_tcm_codec_on_card_matches_cpu_and_decodes_exactly(cuda):
     before = launch_counts()
     out = gpu.forward(img)
     assert {k: v - before[k] for k, v in launch_counts().items()} == {
-        "flash_window_block": 32, "fused_residual_block": 18, "fused_conv_gdn": 9}
+        "flash_window_block": 32, "fused_residual_block": 18, "fused_conv_gdn": 9,
+        "fused_qkv_attention": 0}
     ref = cpu.forward(img)
     err_ok(out["x_hat"].cpu().numpy(), ref["x_hat"].numpy(), TOL_SLICE)
     gpu.update()
     enc = gpu.compress(img)
     dec = gpu.decompress(enc["strings"], enc["shape"])
     assert torch.equal(enc["y_hat"], dec["y_hat"])
+
+
+@pytest.mark.cuda
+def test_wacnn_codec_on_card_matches_cpu_and_decodes_exactly(cuda):
+    """WACNN at full width (N=192, M=320) with seeded random weights on a
+    256x256 image: the card's forward agrees with the CPU's plain path,
+    compress -> decompress reproduces y_hat exactly, the decoded x_hat is
+    the forward's, and each pass launches B1 and B4 as documented."""
+    from reslic_tcm_tpu_torch.cli.eval import launch_counts
+    from reslic_tcm_tpu_torch.data.synthetic import synth_image
+    from reslic_tcm_tpu_torch.models.wacnn import make_wacnn
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    img = synth_image(np.random.default_rng(0), 256, 256)[None]
+    gpu = make_wacnn(device=cuda, seed=1)
+    cpu = make_wacnn(device="cpu", seed=1)
+    before = launch_counts()
+    out = gpu.forward(img)
+    assert {k: v - before[k] for k, v in launch_counts().items()} == {
+        "flash_window_block": 2, "fused_residual_block": 0, "fused_conv_gdn": 0,
+        "fused_qkv_attention": 2}
+    ref = cpu.forward(img)
+    err_ok(out["x_hat"].cpu().numpy(), ref["x_hat"].numpy(), TOL_SLICE)
+    gpu.update()
+    before = launch_counts()
+    enc = gpu.compress(img)
+    dec = gpu.decompress(enc["strings"], enc["shape"])
+    assert {k: v - before[k] for k, v in launch_counts().items()}["fused_qkv_attention"] == 2
+    assert torch.equal(enc["y_hat"], dec["y_hat"])
+    np.testing.assert_allclose(dec["x_hat"].cpu().numpy(),
+                               np.clip(out["x_hat"].cpu().numpy(), 0, 1), atol=1e-5)

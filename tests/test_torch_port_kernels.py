@@ -1,14 +1,20 @@
-"""Port parity for the three kernels B1-B3 of reslic_tcm_tpu_torch, on
+"""Port parity for the four kernels B1-B4 of reslic_tcm_tpu_torch, on
 the CPU: each kernel's plain PyTorch version (what the wrapper runs on a
 CPU tensor) against the JAX package's Pallas kernel run in interpret mode
 (at shapes the Pallas kernel takes) or, for H and W that are not multiples
-of 8, which the Pallas kernels refuse, against the JAX composed math.
-Tolerance: float32 with different summation orders, max |port - jax| <=
-1e-5 * max(1, max |jax|). The CUDA kernels themselves are tested on the
-card by tests/test_torch_port_cuda.py.
+of 8, which the Pallas kernels refuse, against the JAX composed math. B4's
+Pallas kernel lives in artifacts/, which is no package, so it is loaded
+from its file. Tolerance: float32 with different summation orders (and,
+for B4, the scale applied to the scores in the Pallas kernel and to q in
+the plain version), max |port - jax| <= 1e-5 * max(1, max |jax|). The
+CUDA kernels themselves are tested on the card by
+tests/test_torch_port_cuda.py.
 """
 
 from __future__ import annotations
+
+import importlib.util
+import os
 
 import jax
 import jax.numpy as jnp
@@ -21,9 +27,20 @@ from reslic_tcm_tpu.ops import fused_conv as JC
 from reslic_tcm_tpu.ops import layers as JL
 from reslic_tcm_tpu_torch.ops import flash_window_attn as PF
 from reslic_tcm_tpu_torch.ops import fused_conv as PC
-from torch_port_inputs import attn_inputs, conv_inputs, err_ok, oihw, port_attn_args
+from reslic_tcm_tpu_torch.ops import qkv_attention as PQ
+from torch_port_inputs import (attn_inputs, conv_inputs, err_ok, oihw, port_attn_args,
+                               qkv_inputs)
 
 TOL_CPU = 1e-5
+
+
+def _perhead_module():
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "artifacts", "pallas_attn_perhead.py")
+    spec = importlib.util.spec_from_file_location("pallas_attn_perhead", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 # ----------------------------- CPU: vs JAX -----------------------------
@@ -45,6 +62,42 @@ def test_b1_plain_matches_jax_kernel_interpret(shifted, head_dim):
         interpret=True)
     got = PF.flash_window_block(torch.from_numpy(x), *port_attn_args(wts, rel, lambda t: t),
                                 head_dim=head_dim, window=8, shifted=shifted)
+    err_ok(got.numpy(), want, TOL_CPU)
+
+
+@pytest.mark.parametrize("shifted", [False, True])
+def test_b1_attention_only_plain_matches_jax_kernel_interpret(shifted):
+    """B1's with_ln=False, mlp=None flavour (WACNN's WinBasedAttention) at
+    head_dim 24, the width of WACNN's N=192 attention."""
+    c, head_dim = 48, 24
+    x, wts = attn_inputs(24, 2, 16, 24, c)
+    rel = np.random.default_rng(25).normal(0, 0.5, (c // head_dim, 64, 64)).astype(np.float32)
+    j = {k: jnp.asarray(v) for k, v in wts.items()}
+    want = JF.flash_window_block(
+        jnp.asarray(x), j["wqkv"], j["bqkv"], j["wproj"], j["bproj"], j["ln_scale"],
+        j["ln_bias"], jnp.asarray(rel), mlp=None, head_dim=head_dim, window=8,
+        shifted=shifted, compute_dtype=jnp.float32, interpret=True, with_ln=False)
+    wqkv, bqkv, wproj, bproj, *_ = port_attn_args(wts, rel, lambda t: t)
+    got = PF.flash_window_block(torch.from_numpy(x), wqkv, bqkv, wproj, bproj, None, None,
+                                torch.from_numpy(rel), None, head_dim=head_dim, window=8,
+                                shifted=shifted, with_ln=False)
+    err_ok(got.numpy(), want, TOL_CPU)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_b4_plain_matches_jax_kernel_interpret(masked):
+    """20 windows (not a multiple of the Pallas tile of 16) of 16 tokens,
+    C=40, 8 heads; the mask is [4, T, T], one image's shift mask, and the
+    Pallas kernel gets it tiled to every window."""
+    perhead = _perhead_module()
+    windows, wqkv, bqkv, rel, wproj, bproj, mask = qkv_inputs(26, 20, 16, 40, 8, 4)
+    jmask = jnp.asarray(np.tile(mask, (5, 1, 1))) if masked else None
+    want = perhead.fused_qkv_attention(
+        *map(jnp.asarray, (windows, wqkv, bqkv, rel, wproj, bproj)), mask=jmask,
+        interpret=True)
+    t = torch.from_numpy
+    got = PQ.fused_qkv_attention(t(windows), t(wqkv.T.copy()), t(bqkv), t(rel),
+                                 t(wproj.T.copy()), t(bproj), t(mask) if masked else None)
     err_ok(got.numpy(), want, TOL_CPU)
 
 

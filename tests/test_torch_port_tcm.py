@@ -184,7 +184,7 @@ def test_eval_cli_on_cpu_with_trained_weights(tmp_path, snapshot):
     rec = real["records"][0]
     assert rec["y_hat_exact"]
     assert rec["launches_compress"] == {"flash_window_block": 0, "fused_residual_block": 0,
-                                        "fused_conv_gdn": 0}
+                                        "fused_conv_gdn": 0, "fused_qkv_attention": 0}
     est_bpp = est["bpp"] * 256 * 256 / (176 * 192)
     assert abs(rec["bpp"] - est_bpp) <= 0.05 * est_bpp, (rec["bpp"], est_bpp)
     assert real["psnr"] == pytest.approx(est["psnr"], abs=1e-3)
@@ -204,7 +204,7 @@ def test_load_checkpoint_reads_npz_snapshots(pair, tmp_path):
 
 
 @pytest.mark.parametrize("flag", [["--bf16"], ["--device-coder"], ["--tile", "512"],
-                                  ["--shard-spatial", "2"], ["--model", "wacnn"]])
+                                  ["--shard-spatial", "2"], ["--model", "wacnn_stanh"]])
 def test_eval_cli_refuses_unported_options(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         peval.main(["--data", ".", "--platform", "cpu", *flag])

@@ -42,6 +42,18 @@ def port_attn_args(weights, rel_bias, to):
             t(wts["ln_scale"]), t(wts["ln_bias"]), t(rel_bias), mlp)
 
 
+def qkv_inputs(seed, nw, t, c, heads, n_mask):
+    """B4's inputs in the JAX layout: windows [nw, t, c], w_qkv [c, 3c],
+    b_qkv, rel_bias [heads, t, t], w_proj [c, c], b_proj and an additive
+    [n_mask, t, t] mask of 0 and -100 (each token sees at least itself)."""
+    rng = np.random.default_rng(seed)
+    f = lambda *s, scale=1.0: (rng.normal(0, scale, s)).astype(np.float32)  # noqa: E731
+    mask = np.where(rng.uniform(size=(n_mask, t, t)) < 0.3, -100.0, 0.0).astype(np.float32)
+    mask[:, np.arange(t), np.arange(t)] = 0.0
+    return (f(nw, t, c), f(c, 3 * c, scale=c ** -0.5), f(3 * c, scale=0.1),
+            f(heads, t, t, scale=0.5), f(c, c, scale=c ** -0.5), f(c, scale=0.1), mask)
+
+
 def conv_inputs(seed, b, h, w, c):
     rng = np.random.default_rng(seed)
     x = rng.normal(size=(b, h, w, c)).astype(np.float32)
