@@ -12,19 +12,22 @@
 // HWIO weights ([3][3][Cin][Cout], so neighbouring threads read neighbouring
 // output channels).
 //
-// What bounds it on this card: at TCM's shapes (C = 64 or 128, 9*C*C MACs
-// per output pixel) a 3x3 conv does 2*9*C = 1152..2304 FLOP for each 8 bytes
+// What bounds it on this card: at TCM's shapes (C = 64..256, 9*C*C MACs
+// per output pixel) a 3x3 conv does 2*9*C = 1152..4608 FLOP for each 8 bytes
 // of activation it must read and write, far above the 20 FLOP/byte where the
 // H100's fp32 CUDA cores (67 TFLOP/s) meet its 3.35 TB/s memory: operations
 // bound it. B2's other cost, the intermediate activation, never leaves
 // shared memory.
 //
-// Design: one block of 256 threads per 8x8 output tile, so the grid covers
-// any H and W and the ragged last row and column of tiles are masked here
-// (no 8-divisible tiles required, unlike the TPU's BlockSpecs). The block
-// copies its input tile with the halo (12x12xC for B2, 10x10xC for B3) to
-// shared memory, zero outside the image. Thread t owns output channel
-// t % C for a fixed set of pixels, keeping their sums in registers; each
+// Design: one block per 8x8 output tile, so the grid covers any H and W and
+// the ragged last row and column of tiles are masked here (no 8-divisible
+// tiles required, unlike the TPU's BlockSpecs). A block has PG * C threads,
+// PG = max(1, 256 / C) pixel groups (256 threads at C = 64, 128 and 256,
+// 192 at C = 96 and 192), so that every thread owns exactly one (output
+// channel, pixel group) pair. The block copies its input tile with the halo
+// (12x12xC for B2, 10x10xC for B3) to shared memory, zero outside the image.
+// Thread t owns output channel t % C for the pixels p = t / C + r * PG,
+// keeping their sums in registers; each
 // weight is read once per block from L2 and applied to all of the thread's
 // pixels, while every lane of a warp reads the same activation word
 // (a shared-memory broadcast). B2 keeps conv1's 10x10 result in shared memory
@@ -44,8 +47,17 @@
 namespace {
 
 constexpr int kTile = 8;
-constexpr int kThreads = 256;
 constexpr float kSlope = 0.01f;
+
+// Pixel groups of a block for C channels; the block has PG * C threads.
+template <int C>
+__host__ __device__ constexpr int pixel_groups() {
+  return C >= 256 ? 1 : 256 / C;
+}
+template <int C>
+__host__ __device__ constexpr int block_threads() {
+  return pixel_groups<C>() * C;
+}
 
 __device__ __forceinline__ float leaky(float v) { return v >= 0.f ? v : kSlope * v; }
 
@@ -54,7 +66,7 @@ __device__ __forceinline__ float leaky(float v) { return v >= 0.f ? v : kSlope *
 template <int C, int IN>
 __device__ __forceinline__ void load_halo(const float* __restrict__ xb, float* xs, int y0,
                                           int x0, int H, int W) {
-  for (int i = threadIdx.x; i < IN * IN * C; i += kThreads) {
+  for (int i = threadIdx.x; i < IN * IN * C; i += block_threads<C>()) {
     const int c = i % C;
     const int p = i / C;
     const int gy = y0 + p / IN;
@@ -92,14 +104,14 @@ __device__ __forceinline__ void conv3x3_tile(const float* src, const float* __re
 }
 
 template <int C>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(block_threads<C>())
     residual_block_kernel(const float* __restrict__ x, const float* __restrict__ w1,
                           const float* __restrict__ b1, const float* __restrict__ w2,
                           const float* __restrict__ b2, float* __restrict__ out, int H, int W,
                           int tiles_w) {
   constexpr int IN = kTile + 4;   // input tile with a 2-pixel halo
   constexpr int MID = kTile + 2;  // conv1 output: the tile plus conv2's 1-pixel ring
-  constexpr int PG = kThreads / C;
+  constexpr int PG = pixel_groups<C>();
   static_assert((MID * MID) % PG == 0 && (kTile * kTile) % PG == 0, "pixel split");
   constexpr int NP1 = MID * MID / PG;
   constexpr int NP2 = kTile * kTile / PG;
@@ -111,7 +123,7 @@ __global__ void __launch_bounds__(kThreads)
   const int ox = (blockIdx.x % tiles_w) * kTile;
   const size_t img = static_cast<size_t>(blockIdx.y) * H * W * C;
   const int co = threadIdx.x % C;
-  const int pg = threadIdx.x / C;
+  const int pg = PG == 1 ? 0 : threadIdx.x / C;  // PG == 1: the pixel offsets are constants
 
   load_halo<C, IN>(x + img, xs, oy - 2, ox - 2, H, W);
   __syncthreads();
@@ -147,13 +159,13 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <int C>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(block_threads<C>())
     conv_gdn_kernel(const float* __restrict__ x, const float* __restrict__ w,
                     const float* __restrict__ b, const float* __restrict__ gt,
                     const float* __restrict__ beta, const float* __restrict__ skip,
                     float* __restrict__ out, int H, int W, int tiles_w, int inverse) {
   constexpr int IN = kTile + 2;  // input tile with a 1-pixel halo
-  constexpr int PG = kThreads / C;
+  constexpr int PG = pixel_groups<C>();
   static_assert((kTile * kTile) % PG == 0, "pixel split");
   constexpr int NP = kTile * kTile / PG;
   extern __shared__ float smem[];
@@ -164,7 +176,7 @@ __global__ void __launch_bounds__(kThreads)
   const int ox = (blockIdx.x % tiles_w) * kTile;
   const size_t img = static_cast<size_t>(blockIdx.y) * H * W * C;
   const int co = threadIdx.x % C;
-  const int pg = threadIdx.x / C;
+  const int pg = PG == 1 ? 0 : threadIdx.x / C;  // PG == 1: the pixel offsets are constants
 
   load_halo<C, IN>(x + img, xs, oy - 1, ox - 1, H, W);
   __syncthreads();
@@ -207,7 +219,7 @@ cudaError_t launch_residual_block(const float* x, const float* w1, const float* 
   if (e != cudaSuccess) return e;
   const int tiles_w = (W + kTile - 1) / kTile;
   const int tiles_h = (H + kTile - 1) / kTile;
-  residual_block_kernel<C><<<dim3(tiles_h * tiles_w, B), kThreads, smem, stream>>>(
+  residual_block_kernel<C><<<dim3(tiles_h * tiles_w, B), block_threads<C>(), smem, stream>>>(
       x, w1, b1, w2, b2, out, H, W, tiles_w);
   return cudaGetLastError();
 }
@@ -223,7 +235,7 @@ cudaError_t launch_conv_gdn(const float* x, const float* w, const float* b, cons
   if (e != cudaSuccess) return e;
   const int tiles_w = (W + kTile - 1) / kTile;
   const int tiles_h = (H + kTile - 1) / kTile;
-  conv_gdn_kernel<C><<<dim3(tiles_h * tiles_w, B), kThreads, smem, stream>>>(
+  conv_gdn_kernel<C><<<dim3(tiles_h * tiles_w, B), block_threads<C>(), smem, stream>>>(
       x, w, b, gt, beta, skip, out, H, W, tiles_w, inverse);
   return cudaGetLastError();
 }
@@ -232,24 +244,28 @@ cudaError_t launch_conv_gdn(const float* x, const float* w, const float* b, cons
 
 extern "C" {
 
-// x, out: [B][H][W][C]; w1, w2: [3][3][C][C] (HWIO); b1, b2: [C]. C is 64 or 128.
+// x, out: [B][H][W][C]; w1, w2: [3][3][C][C] (HWIO); b1, b2: [C]. C is 64, 96 or 128.
 int fused_residual_block_f32(const float* x, const float* w1, const float* b1, const float* w2,
                              const float* b2, float* out, int B, int H, int W, int C,
                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (C == 64) return launch_residual_block<64>(x, w1, b1, w2, b2, out, B, H, W, s);
+  if (C == 96) return launch_residual_block<96>(x, w1, b1, w2, b2, out, B, H, W, s);
   if (C == 128) return launch_residual_block<128>(x, w1, b1, w2, b2, out, B, H, W, s);
   return cudaErrorInvalidValue;
 }
 
 // x, skip, out: [B][H][W][C]; w: [3][3][C][C] (HWIO); b, beta: [C];
 // gt: [C][C] = gamma^T (gt[j][k] weighs input channel j into output k).
+// C is 64, 128, 192 or 256.
 int fused_conv_gdn_f32(const float* x, const float* w, const float* b, const float* gt,
                        const float* beta, const float* skip, float* out, int B, int H, int W,
                        int C, int inverse, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (C == 64) return launch_conv_gdn<64>(x, w, b, gt, beta, skip, out, B, H, W, inverse, s);
   if (C == 128) return launch_conv_gdn<128>(x, w, b, gt, beta, skip, out, B, H, W, inverse, s);
+  if (C == 192) return launch_conv_gdn<192>(x, w, b, gt, beta, skip, out, B, H, W, inverse, s);
+  if (C == 256) return launch_conv_gdn<256>(x, w, b, gt, beta, skip, out, B, H, W, inverse, s);
   return cudaErrorInvalidValue;
 }
 

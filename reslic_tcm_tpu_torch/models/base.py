@@ -12,10 +12,14 @@ y_hat with the decoder's own per-slice functions on the same shapes, so
 the indexes match the decoder's bit for bit. (Two different programs for
 the same math can differ by an ulp in sigma, which is enough to move a
 scale index across a table boundary and desynchronize the decode.)
+For the same reason every pass of ``ChannelARCodec`` runs in full fp32
+(``fp32_numerics``): with TF32 on, cuDNN's convolutions would round
+differently in an encoder and a decoder run under different settings.
 """
 
 from __future__ import annotations
 
+import contextlib
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -26,6 +30,20 @@ from ..entropy import factorized as fz
 from ..entropy.gaussian import GaussianConditional
 from ..ops.layers import to_nchw, to_nhwc
 from ..ops.math import build_indexes, gaussian_likelihood, ste_round
+
+
+@contextlib.contextmanager
+def fp32_numerics():
+    """Run the block with TF32 off for cuDNN convolutions and cuBLAS matrix
+    products, and give back the caller's two flags afterwards. Usable as a
+    decorator (``@fp32_numerics()``)."""
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
 class ChannelARModule(nn.Module):
@@ -134,7 +152,8 @@ class ChannelARModule(nn.Module):
 
 class ChannelARCodec:
     """A ChannelARModule on a device plus the host rANS coder (the
-    reference's update() / compress() / decompress() / forward API)."""
+    reference's update() / compress() / decompress() / forward API). Each
+    pass runs under ``fp32_numerics``, whatever the caller's TF32 flags."""
 
     def __init__(self, module: ChannelARModule, device):
         self.device = torch.device(device)
@@ -148,6 +167,7 @@ class ChannelARCodec:
         """NHWC image(s) in [0, 1] -> NCHW float32 on the codec's device."""
         return to_nchw(torch.as_tensor(x, dtype=torch.float32).to(self.device))
 
+    @fp32_numerics()
     def update(self):
         """Build the integer CDF tables (must run before real coding)."""
         self.gaussian_conditional.update_scale_table()
@@ -162,6 +182,7 @@ class ChannelARCodec:
             raise RuntimeError("call update() before compress() or decompress()")
 
     @torch.no_grad()
+    @fp32_numerics()
     def forward(self, x) -> dict:
         """Eval forward (bpp estimate) of NHWC images; outputs NHWC."""
         out = self.module(self._input(x))
@@ -180,6 +201,7 @@ class ChannelARCodec:
         return self.compress_batch(x)[0]
 
     @torch.no_grad()
+    @fp32_numerics()
     def encode_symbols(self, x):
         """The device side of the encoder: (symbols, indexes, z, y_hat) for a
         batch of NHWC images; symbols and indexes are int32 [B, n] numpy
@@ -230,6 +252,7 @@ class ChannelARCodec:
         return self.decompress_batch([strings], shape)
 
     @torch.no_grad()
+    @fp32_numerics()
     def decompress_batch(self, strings_list, shape) -> dict:
         """Decode B bitstreams together; each image keeps its own rANS
         decoder state. Returns {"x_hat": NHWC in [0, 1], "y_hat": NHWC}."""

@@ -11,6 +11,11 @@ CPU tensor it runs ``plain_window_block``, the plain PyTorch version
 written with explicit einsums. Launches of either flavour are counted in
 ``flash_window_block.launches``.
 
+The LN+MLP kernel splits each window over a cluster of K CTAs when the
+grid would be small (``cluster_size``: fewer than ``CLUSTER_BELOW_WINDOWS``
+windows x batch), K chosen from the shape alone; its output is the same,
+bit for bit, for every K.
+
 Weights come in torch layout ([out, in] linears) straight from the modules.
 """
 
@@ -27,8 +32,25 @@ from . import build
 NEG_INF = -1e9
 KERNEL_WINDOW = 8
 # (C, head_dim) instances of the kernel, per flavour
-KERNEL_SHAPES_FULL = {(c, hd) for c in (64, 128) for hd in (8, 16, 32)}  # LN1 + MLP
-KERNEL_SHAPES_ATTN = {(192, 24)}  # with_ln=False, mlp=None
+KERNEL_SHAPES_FULL = {(c, hd) for c in (64, 96, 128) for hd in (8, 16, 32)}  # LN1 + MLP
+KERNEL_SHAPES_ATTN = {(128, 16), (192, 24)}  # with_ln=False, mlp=None
+# LN+MLP: split each window over a cluster below this many windows x batch.
+# On an H100 (kernel device time, PERF.md) the split of (128, 16) over 8
+# CTAs pays at 4 and 24 windows (TCM's SWAtten at 768x512) and loses from
+# 48 windows on, where one CTA per window is faster.
+CLUSTER_BELOW_WINDOWS = 32
+
+
+def max_cluster(c: int, head_dim: int) -> int:
+    """The largest cluster (CTAs per window) that splits the heads evenly."""
+    heads = c // head_dim
+    return next(k for k in (8, 4, 2, 1) if heads % k == 0)
+
+
+def cluster_size(c: int, head_dim: int, windows: int) -> int:
+    """CTAs per window of the LN+MLP kernel for ``windows`` windows x batch:
+    the largest split below CLUSTER_BELOW_WINDOWS, else none."""
+    return max_cluster(c, head_dim) if windows < CLUSTER_BELOW_WINDOWS else 1
 
 
 def window_partition(x: torch.Tensor, w: int) -> torch.Tensor:
@@ -99,7 +121,7 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("flash_window_attn")
     if not hasattr(lib, "_argtypes_set"):
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.flash_window_block_f32.argtypes = [vp] * 15 + [i] * 6 + [vp]
+        lib.flash_window_block_f32.argtypes = [vp] * 15 + [i] * 7 + [vp]
         lib.flash_window_block_f32.restype = ctypes.c_int
         lib.window_attention_block_f32.argtypes = [vp] * 7 + [i] * 6 + [vp]
         lib.window_attention_block_f32.restype = ctypes.c_int
@@ -108,14 +130,17 @@ def _lib() -> ctypes.CDLL:
 
 
 def flash_window_block(x, wqkv, bqkv, wproj, bproj, ln_scale, ln_bias, rel_bias, mlp=None,
-                       *, head_dim: int, window: int, shifted: bool, with_ln: bool = True):
+                       *, head_dim: int, window: int, shifted: bool, with_ln: bool = True,
+                       cluster: int | None = None):
     """x: [B, H, W, C] NHWC float32 (pre-rolled for the shifted flavour);
     wqkv: [3C, C]; bqkv: [3C]; wproj: [C, C]; bproj, ln_*: [C];
     rel_bias: [C/head_dim, w*w, w*w]; mlp = (ln2_scale, ln2_bias,
     w1 [4C, C], b1 [4C], w2 [C, 4C], b2 [C]) or None. The kernel has two
     flavours: LN1 and the MLP (``with_ln=True`` and an ``mlp``), or neither
-    (``with_ln=False, mlp=None``; ln_* may be None). Returns the block's
-    output."""
+    (``with_ln=False, mlp=None``; ln_* may be None). ``cluster`` forces the
+    LN+MLP kernel's CTAs per window (1 or ``max_cluster``; default
+    ``cluster_size`` of the shape); the result is the same for each. Returns
+    the block's output."""
     if x.device.type == "cpu":
         return plain_window_block(x, wqkv, bqkv, wproj, bproj, ln_scale, ln_bias, rel_bias,
                                   mlp, head_dim=head_dim, window=window, shifted=shifted,
@@ -130,7 +155,18 @@ def flash_window_block(x, wqkv, bqkv, wproj, bproj, ln_scale, ln_bias, rel_bias,
             f"it, and (C, head_dim) in {sorted(KERNEL_SHAPES_FULL)} with LN1 and an MLP or in "
             f"{sorted(KERNEL_SHAPES_ATTN)} with neither; got x {tuple(x.shape)}, window "
             f"{window}, head_dim {head_dim}, with_ln={with_ln}, mlp={mlp is not None}")
+    if x.data_ptr() % 16:
+        raise ValueError("flash_window_block kernel reads x in 16-byte vectors: x must be "
+                         "16-byte aligned")
     t = window * window
+    windows = bsz * (h // window) * (wd // window)
+    if not full:
+        cluster = 1
+    elif cluster is None:
+        cluster = cluster_size(c, head_dim, windows)
+    elif cluster not in (1, max_cluster(c, head_dim)):
+        raise ValueError(f"flash_window_block kernel at (C, head_dim) = ({c}, {head_dim}) "
+                         f"takes cluster 1 or {max_cluster(c, head_dim)}, got {cluster}")
     build.check_inference(x, wqkv, bqkv, wproj, bproj, rel_bias, *(mlp or ()),
                           *((ln_scale, ln_bias) if with_ln else ()))
     build.check_tensor("x", x, (bsz, h, wd, c), x.device, contiguous=True)
@@ -155,7 +191,7 @@ def flash_window_block(x, wqkv, bqkv, wproj, bproj, ln_scale, ln_bias, rel_bias,
         rest = [a.detach().contiguous() for a in rest]
         rc = _lib().flash_window_block_f32(
             build.ptr(x), build.ptr(out), *[build.ptr(a) for a in attn + rest],
-            bsz, h, wd, c, head_dim, int(shifted), build.stream(x))
+            bsz, h, wd, c, head_dim, cluster, int(shifted), build.stream(x))
     else:
         rc = _lib().window_attention_block_f32(
             build.ptr(x), build.ptr(out), *[build.ptr(a) for a in attn], build.ptr(rel),

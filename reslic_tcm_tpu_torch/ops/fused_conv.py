@@ -24,7 +24,10 @@ import torch.nn.functional as F
 from . import build
 
 _NEG_SLOPE = 0.01
-KERNEL_CHANNELS = (64, 128)
+# channel counts each kernel has an instance for (TCM N=64, 96 and 128 run
+# B2 at C = N and B3 at C = 2N)
+KERNEL_CHANNELS = {"fused_residual_block": (64, 96, 128),
+                   "fused_conv_gdn": (64, 128, 192, 256)}
 
 
 def plain_residual_block(x, w1, b1, w2, b2):
@@ -56,10 +59,10 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check_channels(x: torch.Tensor) -> None:
-    if x.dim() != 4 or x.shape[-1] not in KERNEL_CHANNELS:
-        raise ValueError(f"the fused conv kernels take NHWC with C in {KERNEL_CHANNELS}, "
-                         f"got {tuple(x.shape)}")
+def _check_channels(kernel: str, x: torch.Tensor) -> None:
+    if x.dim() != 4 or x.shape[-1] not in KERNEL_CHANNELS[kernel]:
+        raise ValueError(f"the {kernel} kernel takes NHWC with C in "
+                         f"{KERNEL_CHANNELS[kernel]}, got {tuple(x.shape)}")
 
 
 def _hwio(w: torch.Tensor) -> torch.Tensor:
@@ -70,7 +73,7 @@ def fused_residual_block(x, w1, b1, w2, b2):
     """x: [B, H, W, C] NHWC float32; w1, w2: [C, C, 3, 3]; b1, b2: [C]."""
     if x.device.type == "cpu":
         return plain_residual_block(x, w1, b1, w2, b2)
-    _check_channels(x)
+    _check_channels("fused_residual_block", x)
     bsz, h, w, c = x.shape
     build.check_inference(x, w1, b1, w2, b2)
     build.check_tensor("x", x, (bsz, h, w, c), x.device, contiguous=True)
@@ -97,7 +100,7 @@ def fused_conv_gdn(x, w, b, gamma, beta, skip, *, inverse: bool):
     gamma: [C, C] derived, gamma[k, j] weighs channel j into output k."""
     if x.device.type == "cpu":
         return plain_conv_gdn(x, w, b, gamma, beta, skip, inverse=inverse)
-    _check_channels(x)
+    _check_channels("fused_conv_gdn", x)
     bsz, h, wd, c = x.shape
     build.check_inference(x, w, b, gamma, beta, skip)
     build.check_tensor("x", x, (bsz, h, wd, c), x.device, contiguous=True)

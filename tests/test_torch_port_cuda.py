@@ -6,8 +6,8 @@ CUDA device). No JAX here: the card's machine has none, so run
 (``--noconftest`` skips tests/conftest.py, which imports JAX).
 
 Each kernel is held against its plain PyTorch version on the same CUDA
-tensors, with TF32 off, at shapes of TCM-S's and WACNN's main paths and at
-ragged ones.
+tensors, with TF32 off, at every width of TCM N=64/96/128 and WACNN
+N=128/192, at shapes of their main paths and at ragged ones.
 Tolerance 1e-4 * max(1, max |plain|): the kernels sum in another fixed
 order than cuDNN/cuBLAS, over up to 9*128 = 1152 terms per output.
 """
@@ -46,7 +46,10 @@ def cuda():
 @pytest.mark.cuda
 @pytest.mark.parametrize("shifted", [False, True])
 @pytest.mark.parametrize("c,head_dim,hw", [(64, 8, (24, 16)), (64, 16, (16, 32)),
-                                           (64, 32, (8, 8)), (128, 16, (48, 32))])
+                                           (64, 32, (8, 8)), (128, 16, (48, 32)),
+                                           (96, 8, (16, 24)), (96, 16, (24, 16)),
+                                           (96, 32, (8, 16)), (128, 8, (16, 16)),
+                                           (128, 32, (24, 8)), (64, 8, (256, 128))])
 def test_b1_kernel_matches_plain_on_card(cuda, shifted, c, head_dim, hw):
     x, wts = attn_inputs(30 + head_dim, 2, *hw, c)
     rel = np.random.default_rng(31).normal(0, 0.5, (c // head_dim, 64, 64)).astype(np.float32)
@@ -83,6 +86,47 @@ def test_b1_attention_only_kernel_matches_plain_on_card(cuda, shifted, hw):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shifted", [False, True])
+@pytest.mark.parametrize("c,head_dim", [(c, hd) for c in (64, 96, 128) for hd in (8, 16, 32)])
+def test_b1_kernel_is_bit_identical_across_cluster_sizes(cuda, shifted, c, head_dim):
+    """Every LN+MLP instance: one CTA per window and the largest cluster
+    give the same bits, and both agree with the plain version."""
+    x, wts = attn_inputs(c + head_dim, 2, 16, 24, c)
+    rel = np.random.default_rng(c).normal(0, 0.5, (c // head_dim, 64, 64)).astype(np.float32)
+    args = port_attn_args(wts, rel, lambda t: t.to(cuda))
+    xc = torch.from_numpy(x).to(cuda)
+    kw = dict(head_dim=head_dim, window=8, shifted=shifted)
+    km = PF.max_cluster(c, head_dim)
+    with torch.no_grad():
+        want = PF.plain_window_block(xc, *args, **kw)
+        one = PF.flash_window_block(xc, *args, **kw, cluster=1)
+        split = PF.flash_window_block(xc, *args, **kw, cluster=km)
+        torch.cuda.synchronize()
+        with pytest.raises(ValueError):  # a cluster with no instance
+            PF.flash_window_block(xc, *args, **kw, cluster=3)
+    assert torch.equal(one, split)
+    err_ok(one.cpu().numpy(), want.cpu().numpy(), TOL_CARD)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shifted", [False, True])
+def test_b1_attention_only_kernel_at_128_channels_matches_plain_on_card(cuda, shifted):
+    """The with_ln=False, mlp=None flavour at WACNN N=128's C=128, head_dim 16."""
+    c, head_dim = 128, 16
+    x, wts = attn_inputs(37, 2, 16, 24, c)
+    rel = np.random.default_rng(38).normal(0, 0.5, (c // head_dim, 64, 64)).astype(np.float32)
+    wqkv, bqkv, wproj, bproj, _, _, relc, _ = port_attn_args(wts, rel, lambda t: t.to(cuda))
+    args = (wqkv, bqkv, wproj, bproj, None, None, relc, None)
+    kw = dict(head_dim=head_dim, window=8, shifted=shifted, with_ln=False)
+    xc = torch.from_numpy(x).to(cuda)
+    with torch.no_grad():
+        want = PF.plain_window_block(xc, *args, **kw)
+        got = PF.flash_window_block(xc, *args, **kw)
+        torch.cuda.synchronize()
+    err_ok(got.cpu().numpy(), want.cpu().numpy(), TOL_CARD)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("nw,n_mask", [(20, 4), (7, 0), (96, 96)])
 def test_b4_kernel_matches_plain_on_card(cuda, nw, n_mask):
     """WACNN's window-4 attention at C=320, 8 heads (head_dim 40): with an
@@ -112,16 +156,19 @@ def test_attention_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
             PQ.fused_qkv_attention(*args, t(mask))
         with pytest.raises(ValueError):  # 4 heads: head_dim 80 has no instance
             PQ.fused_qkv_attention(*args[:3], t(rel[:4]), *args[4:])
-        x, wts = attn_inputs(36, 1, 8, 8, 64)
-        a = port_attn_args(wts, rel[:1].repeat(4, 0), lambda u: u.to(cuda))
-        with pytest.raises(ValueError):  # C = 64 has no attention-only instance
-            PF.flash_window_block(t(x), *a[:4], None, None, t(np.zeros((4, 64, 64), np.float32)),
+        x, wts = attn_inputs(36, 1, 8, 8, 80)
+        a = port_attn_args(wts, rel[:1].repeat(5, 0), lambda u: u.to(cuda))
+        with pytest.raises(ValueError):  # C = 80 has no attention-only instance
+            PF.flash_window_block(t(x), *a[:4], None, None, t(np.zeros((5, 64, 64), np.float32)),
                                   None, head_dim=16, window=8, shifted=False, with_ln=False)
+        with pytest.raises(ValueError):  # nor an LN+MLP instance
+            PF.flash_window_block(t(x), *a[:6], t(np.zeros((5, 64, 64), np.float32)), a[7],
+                                  head_dim=16, window=8, shifted=False)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("c,hw", [(64, (96, 64)), (64, (13, 10)), (128, (24, 16)),
-                                  (128, (7, 9))])
+                                  (128, (7, 9)), (96, (24, 16)), (96, (13, 10))])
 def test_b2_kernel_matches_plain_on_card(cuda, c, hw):
     x, w1, b1, w2, b2, *_ = conv_inputs(40, 2, *hw, c)
     t = lambda a: torch.from_numpy(a).to(cuda)  # noqa: E731
@@ -137,7 +184,9 @@ def test_b2_kernel_matches_plain_on_card(cuda, c, hw):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("inverse", [False, True])
-@pytest.mark.parametrize("c,hw", [(128, (96, 64)), (128, (11, 9)), (64, (16, 24))])
+@pytest.mark.parametrize("c,hw", [(128, (96, 64)), (128, (11, 9)), (64, (16, 24)),
+                                  (192, (24, 16)), (192, (11, 9)), (256, (16, 24)),
+                                  (256, (13, 10))])
 def test_b3_kernel_matches_plain_on_card(cuda, inverse, c, hw):
     x, w, b, _, _, gamma, beta, skip = conv_inputs(50, 1, *hw, c)
     t = lambda a: torch.from_numpy(a).to(cuda)  # noqa: E731
@@ -153,7 +202,8 @@ def test_b3_kernel_matches_plain_on_card(cuda, inverse, c, hw):
 
 @pytest.mark.cuda
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
-    x, w1, b1, w2, b2, *_ = conv_inputs(60, 1, 8, 8, 64)
+    x, w1, b1, w2, b2, gamma, beta, skip = conv_inputs(60, 1, 8, 8, 64)
+    x80, w80, b80, _, _, g80, beta80, skip80 = conv_inputs(61, 1, 8, 8, 80)
     t = lambda a: torch.from_numpy(a).to(cuda)  # noqa: E731
     w1c, w2c = oihw(w1).to(cuda), oihw(w2).to(cuda)
     with torch.no_grad():
@@ -161,9 +211,15 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
             PC.fused_residual_block(t(x).permute(0, 2, 1, 3), w1c, t(b1), w2c, t(b2))
         with pytest.raises(ValueError):  # float64
             PC.fused_residual_block(t(x).double(), w1c, t(b1), w2c, t(b2))
-        with pytest.raises(ValueError):  # C = 32 has no kernel
-            PC.fused_residual_block(t(x[..., :32]), w1c[:32, :32], t(b1[:32]), w2c[:32, :32],
-                                    t(b2[:32]))
+        w80c = oihw(w80).to(cuda)
+        with pytest.raises(ValueError):  # C = 80 has no kernel
+            PC.fused_residual_block(t(x80), w80c, t(b80), w80c, t(b80))
+        with pytest.raises(ValueError):  # nor a conv+GDN instance
+            PC.fused_conv_gdn(t(x80), w80c, t(b80), t(g80), t(beta80), t(skip80), inverse=False)
+        with pytest.raises(ValueError):  # B2 has no C = 256 instance (only B3 has)
+            x256, w256, b256, *_ = conv_inputs(62, 1, 8, 8, 256)
+            w256c = oihw(w256).to(cuda)
+            PC.fused_residual_block(t(x256), w256c, t(b256), w256c, t(b256))
     with pytest.raises(RuntimeError):  # a gradient is wanted: inference-only kernels
         PC.fused_residual_block(t(x), w1c.requires_grad_(), t(b1), w2c, t(b2))
 
@@ -226,3 +282,64 @@ def test_wacnn_codec_on_card_matches_cpu_and_decodes_exactly(cuda):
     assert torch.equal(enc["y_hat"], dec["y_hat"])
     np.testing.assert_allclose(dec["x_hat"].cpu().numpy(),
                                np.clip(out["x_hat"].cpu().numpy(), 0, 1), atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model,n", [("tcm", 96), ("tcm", 128), ("wacnn", 128)])
+def test_wider_codecs_on_card_match_cpu_and_decode_exactly(cuda, model, n):
+    """TCM N=96 and N=128 and WACNN N=128 (M=320) with seeded random
+    weights on a 256x256 image: every kernel-routed layer runs on the card
+    (no width without an instance), the forward agrees with the CPU's plain
+    path, and compress -> decompress reproduces y_hat exactly."""
+    from reslic_tcm_tpu_torch.cli.eval import launch_counts
+    from reslic_tcm_tpu_torch.data.synthetic import synth_image
+    from reslic_tcm_tpu_torch.models.tcm import make_tcm
+    from reslic_tcm_tpu_torch.models.wacnn import make_wacnn
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    make = make_tcm if model == "tcm" else make_wacnn
+    img = synth_image(np.random.default_rng(0), 256, 256)[None]
+    gpu = make(N=n, M=320, device=cuda, seed=1)
+    cpu = make(N=n, M=320, device="cpu", seed=1)
+    before = launch_counts()
+    out = gpu.forward(img)
+    want = ({"flash_window_block": 32, "fused_residual_block": 18, "fused_conv_gdn": 9,
+             "fused_qkv_attention": 0} if model == "tcm" else
+            {"flash_window_block": 2, "fused_residual_block": 0, "fused_conv_gdn": 0,
+             "fused_qkv_attention": 2})
+    assert {k: v - before[k] for k, v in launch_counts().items()} == want
+    ref = cpu.forward(img)
+    err_ok(out["x_hat"].cpu().numpy(), ref["x_hat"].numpy(), TOL_SLICE)
+    gpu.update()
+    enc = gpu.compress(img)
+    dec = gpu.decompress(enc["strings"], enc["shape"])
+    assert torch.equal(enc["y_hat"], dec["y_hat"])
+
+
+@pytest.mark.cuda
+def test_stream_encoded_with_tf32_on_decodes_exactly_with_it_off(cuda):
+    """The codec pins fp32 in its passes: a caller's TF32 setting at encode
+    time cannot move the mu and scale indexes the decoder computes. The
+    encoder's unpinned body under TF32 gives another y_hat on this input,
+    so the pin is what the exact decode rests on."""
+    import inspect
+
+    from reslic_tcm_tpu_torch.data.synthetic import synth_image
+    from reslic_tcm_tpu_torch.models.base import ChannelARCodec
+    from reslic_tcm_tpu_torch.models.tcm import make_tcm
+
+    img = synth_image(np.random.default_rng(3), 256, 256)[None]
+    codec = make_tcm(N=64, M=320, device=cuda, seed=2)
+    codec.update()
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    enc = codec.compress(img)
+    assert torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
+    with torch.no_grad():
+        *_, y_hat_tf32 = inspect.unwrap(ChannelARCodec.encode_symbols)(codec, img)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dec = codec.decompress(enc["strings"], enc["shape"])
+    assert torch.equal(enc["y_hat"], dec["y_hat"])
+    assert not torch.equal(y_hat_tf32, dec["y_hat"])

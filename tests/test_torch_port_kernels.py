@@ -66,6 +66,26 @@ def test_b1_plain_matches_jax_kernel_interpret(shifted, head_dim):
 
 
 @pytest.mark.parametrize("shifted", [False, True])
+@pytest.mark.parametrize("c,head_dim", [(96, 8), (96, 16), (96, 32), (128, 8), (128, 32)])
+def test_b1_plain_matches_jax_kernel_interpret_at_wider_channels(shifted, c, head_dim):
+    """B1's LN+MLP flavour at the widths of TCM N=96 and N=128's
+    ConvTransBlocks."""
+    x, wts = attn_inputs(c + head_dim, 1, 16, 24, c)
+    rel = np.random.default_rng(c + 1).normal(0, 0.5, (c // head_dim, 64, 64)).astype(
+        np.float32)
+    j = {k: jnp.asarray(v) for k, v in wts.items()}
+    want = JF.flash_window_block(
+        jnp.asarray(x), j["wqkv"], j["bqkv"], j["wproj"], j["bproj"], j["ln_scale"],
+        j["ln_bias"], jnp.asarray(rel),
+        mlp=(j["ln2_scale"], j["ln2_bias"], j["w1"], j["b1"], j["w2"], j["b2"]),
+        head_dim=head_dim, window=8, shifted=shifted, compute_dtype=jnp.float32,
+        interpret=True)
+    got = PF.flash_window_block(torch.from_numpy(x), *port_attn_args(wts, rel, lambda t: t),
+                                head_dim=head_dim, window=8, shifted=shifted)
+    err_ok(got.numpy(), want, TOL_CPU)
+
+
+@pytest.mark.parametrize("shifted", [False, True])
 def test_b1_attention_only_plain_matches_jax_kernel_interpret(shifted):
     """B1's with_ln=False, mlp=None flavour (WACNN's WinBasedAttention) at
     head_dim 24, the width of WACNN's N=192 attention."""
@@ -110,6 +130,16 @@ def test_b2_plain_matches_jax_kernel_interpret():
     err_ok(got.numpy(), want, TOL_CPU)
 
 
+def test_b2_plain_matches_jax_kernel_interpret_at_96_channels():
+    """B2 at the width of TCM N=96's ConvTransBlocks."""
+    x, w1, b1, w2, b2, *_ = conv_inputs(27, 1, 16, 24, 96)
+    want = JC.fused_residual_block(*map(jnp.asarray, (x, w1, b1, w2, b2)),
+                                   compute_dtype=jnp.float32, interpret=True)
+    got = PC.fused_residual_block(torch.from_numpy(x), oihw(w1), torch.from_numpy(b1),
+                                  oihw(w2), torch.from_numpy(b2))
+    err_ok(got.numpy(), want, TOL_CPU)
+
+
 def test_b2_plain_matches_jax_composed_on_ragged_shape():
     """13x10 is no multiple of 8, which the Pallas kernel refuses (JAX falls
     back to its composed ResidualBlock); the port's kernel masks the ragged
@@ -139,6 +169,20 @@ def test_b3_plain_matches_jax(inverse, hw):
         want = JL._gdn_apply(y, jx[4], jx[3], inverse) + jx[5]
     else:
         assert hw == (16, 24)
+    got = PC.fused_conv_gdn(torch.from_numpy(x), oihw(w), torch.from_numpy(b),
+                            torch.from_numpy(gamma), torch.from_numpy(beta),
+                            torch.from_numpy(skip), inverse=inverse)
+    err_ok(got.numpy(), want, TOL_CPU)
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("c", [192, 256])
+def test_b3_plain_matches_jax_kernel_interpret_at_wider_channels(inverse, c):
+    """B3 at 2N of TCM N=96 and N=128 (the ResidualBlockWithStride and
+    ResidualBlockUpsample tails)."""
+    x, w, b, _, _, gamma, beta, skip = conv_inputs(28, 1, 16, 24, c)
+    want = JC.fused_conv_gdn(*map(jnp.asarray, (x, w, b, gamma, beta, skip)), inverse=inverse,
+                             compute_dtype=jnp.float32, interpret=True)
     got = PC.fused_conv_gdn(torch.from_numpy(x), oihw(w), torch.from_numpy(b),
                             torch.from_numpy(gamma), torch.from_numpy(beta),
                             torch.from_numpy(skip), inverse=inverse)
