@@ -2,16 +2,19 @@
 
 * ``fused_residual_block``: ``leaky(conv3x3(leaky(conv3x3(x) + b1)) + b2) + x``
   with torch padding 1 on each conv and slope 0.01 (the ConvTransBlock
-  conv branch). CUDA kernel ``csrc/fused_conv.cu::residual_block_kernel``.
+  conv branch): two launches of ``csrc/fused_conv.cu::conv_gemm_kernel``,
+  conv1 into a scratch ``mid``, then conv2 with the residual.
 * ``fused_conv_gdn``: ``y = conv3x3(x) + b``; ``y * rsqrt(y^2 . gamma^T + beta)``
-  (GDN) or ``y * sqrt(...)`` (IGDN); ``+ skip``. CUDA kernel
-  ``csrc/fused_conv.cu::conv_gdn_kernel``.
+  (GDN) or ``y * sqrt(...)`` (IGDN); ``+ skip``: the conv launch into a
+  scratch ``y``, then the 1x1 GDN launch of the same kernel.
 
 Both wrappers take NHWC activations and the modules' own parameters in
 torch layout (OIHW conv weights; GDN's gamma and beta already derived). On
 a CPU tensor they run the plain PyTorch version beside them; on a CUDA
-tensor they launch the kernel or raise. Each counts its kernel launches in
-``<wrapper>.launches``.
+tensor they launch the kernels or raise. ``<wrapper>.launches`` counts the
+wrapper's calls that launched, one per call (each such call makes two
+kernel launches). The kernel's tile is chosen from (H, W, C) by
+``tile_config``; ``tile=`` forces one (the bits do not depend on it).
 """
 
 from __future__ import annotations
@@ -28,6 +31,27 @@ _NEG_SLOPE = 0.01
 # B2 at C = N and B3 at C = 2N)
 KERNEL_CHANNELS = {"fused_residual_block": (64, 96, 128),
                    "fused_conv_gdn": (64, 128, 192, 256)}
+# the kernel's tile instances, in the order of the C entries' `tile` argument
+TILES = ("large", "small")
+SMS = 132  # streaming multiprocessors of an H100 SXM
+
+
+def tile_shape(tile: str, c: int) -> tuple[int, int]:
+    """(pixels, channels) of one block's output tile; mirrors
+    ``LargeTile``/``SmallTile`` in csrc/fused_conv.cu."""
+    if tile == "large":
+        return 128, next(bn for bn in (128, 64, 32) if c % bn == 0)
+    if tile == "small":
+        return 32, 32
+    raise ValueError(f"no tile {tile!r}; the kernel has {TILES}")
+
+
+def tile_config(h: int, w: int, c: int) -> str:
+    """The tile for an H x W x C image: the large one where it gives at
+    least one block per SM, else the small one (so that 24x16 and 96x64
+    images still fill the card)."""
+    bm, bn = tile_shape("large", c)
+    return "large" if -(-h * w // bm) * (c // bn) >= SMS else "small"
 
 
 def plain_residual_block(x, w1, b1, w2, b2):
@@ -51,9 +75,9 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("fused_conv")
     if not hasattr(lib, "_argtypes_set"):
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.fused_residual_block_f32.argtypes = [vp] * 6 + [i] * 4 + [vp]
+        lib.fused_residual_block_f32.argtypes = [vp] * 7 + [i] * 5 + [vp]
         lib.fused_residual_block_f32.restype = ctypes.c_int
-        lib.fused_conv_gdn_f32.argtypes = [vp] * 7 + [i] * 5 + [vp]
+        lib.fused_conv_gdn_f32.argtypes = [vp] * 8 + [i] * 6 + [vp]
         lib.fused_conv_gdn_f32.restype = ctypes.c_int
         lib._argtypes_set = True
     return lib
@@ -63,14 +87,30 @@ def _check_channels(kernel: str, x: torch.Tensor) -> None:
     if x.dim() != 4 or x.shape[-1] not in KERNEL_CHANNELS[kernel]:
         raise ValueError(f"the {kernel} kernel takes NHWC with C in "
                          f"{KERNEL_CHANNELS[kernel]}, got {tuple(x.shape)}")
+    if x.numel() >= 2 ** 31:
+        raise ValueError(f"the {kernel} kernel indexes with 32-bit ints, got {tuple(x.shape)}")
+
+
+def _tile_index(tile, h: int, w: int, c: int) -> int:
+    tile = tile_config(h, w, c) if tile is None else tile
+    tile_shape(tile, c)  # raises for an unknown tile
+    return TILES.index(tile)
+
+
+def _check_aligned(**tensors) -> None:
+    """The kernel reads and writes these as float4."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: the kernel needs a 16-byte aligned tensor")
 
 
 def _hwio(w: torch.Tensor) -> torch.Tensor:
     return w.detach().permute(2, 3, 1, 0).contiguous()
 
 
-def fused_residual_block(x, w1, b1, w2, b2):
-    """x: [B, H, W, C] NHWC float32; w1, w2: [C, C, 3, 3]; b1, b2: [C]."""
+def fused_residual_block(x, w1, b1, w2, b2, *, tile=None):
+    """x: [B, H, W, C] NHWC float32; w1, w2: [C, C, 3, 3]; b1, b2: [C].
+    tile: None (chosen from the shape) or one of ``TILES``."""
     if x.device.type == "cpu":
         return plain_residual_block(x, w1, b1, w2, b2)
     _check_channels("fused_residual_block", x)
@@ -79,12 +119,14 @@ def fused_residual_block(x, w1, b1, w2, b2):
     build.check_tensor("x", x, (bsz, h, w, c), x.device, contiguous=True)
     build.check_params(x.device, w1=(w1, (c, c, 3, 3)), b1=(b1, (c,)),
                        w2=(w2, (c, c, 3, 3)), b2=(b2, (c,)))
+    t = _tile_index(tile, h, w, c)
     w1k, w2k = _hwio(w1), _hwio(w2)
     b1k, b2k = b1.detach().contiguous(), b2.detach().contiguous()
-    out = torch.empty_like(x)
+    _check_aligned(x=x, b1=b1k, b2=b2k)
+    mid, out = torch.empty_like(x), torch.empty_like(x)
     rc = _lib().fused_residual_block_f32(
-        build.ptr(x), build.ptr(w1k), build.ptr(b1k), build.ptr(w2k), build.ptr(b2k), build.ptr(out),
-        bsz, h, w, c, build.stream(x),
+        build.ptr(x), build.ptr(w1k), build.ptr(b1k), build.ptr(w2k), build.ptr(b2k),
+        build.ptr(mid), build.ptr(out), bsz, h, w, c, t, build.stream(x),
     )
     if rc != 0:
         raise RuntimeError(f"fused_residual_block kernel launch failed: cudaError {rc}")
@@ -95,9 +137,10 @@ def fused_residual_block(x, w1, b1, w2, b2):
 fused_residual_block.launches = 0
 
 
-def fused_conv_gdn(x, w, b, gamma, beta, skip, *, inverse: bool):
+def fused_conv_gdn(x, w, b, gamma, beta, skip, *, inverse: bool, tile=None):
     """x, skip: [B, H, W, C] NHWC float32; w: [C, C, 3, 3]; b, beta: [C];
-    gamma: [C, C] derived, gamma[k, j] weighs channel j into output k."""
+    gamma: [C, C] derived, gamma[k, j] weighs channel j into output k.
+    tile: None (chosen from the shape) or one of ``TILES``."""
     if x.device.type == "cpu":
         return plain_conv_gdn(x, w, b, gamma, beta, skip, inverse=inverse)
     _check_channels("fused_conv_gdn", x)
@@ -107,13 +150,15 @@ def fused_conv_gdn(x, w, b, gamma, beta, skip, *, inverse: bool):
     build.check_tensor("skip", skip, (bsz, h, wd, c), x.device, contiguous=True)
     build.check_params(x.device, w=(w, (c, c, 3, 3)), b=(b, (c,)), gamma=(gamma, (c, c)),
                        beta=(beta, (c,)))
+    t = _tile_index(tile, h, wd, c)
     wk = _hwio(w)
     bk, betak = b.detach().contiguous(), beta.detach().contiguous()
     gt = gamma.detach().t().contiguous()
-    out = torch.empty_like(x)
+    _check_aligned(b=bk, beta=betak, skip=skip)
+    y, out = torch.empty_like(x), torch.empty_like(x)
     rc = _lib().fused_conv_gdn_f32(
-        build.ptr(x), build.ptr(wk), build.ptr(bk), build.ptr(gt), build.ptr(betak), build.ptr(skip), build.ptr(out),
-        bsz, h, wd, c, int(inverse),
+        build.ptr(x), build.ptr(wk), build.ptr(bk), build.ptr(gt), build.ptr(betak),
+        build.ptr(skip), build.ptr(y), build.ptr(out), bsz, h, wd, c, int(inverse), t,
         build.stream(x),
     )
     if rc != 0:

@@ -168,7 +168,8 @@ def test_attention_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("c,hw", [(64, (96, 64)), (64, (13, 10)), (128, (24, 16)),
-                                  (128, (7, 9)), (96, (24, 16)), (96, (13, 10))])
+                                  (128, (7, 9)), (96, (24, 16)), (96, (13, 10)),
+                                  (64, (24, 16))])
 def test_b2_kernel_matches_plain_on_card(cuda, c, hw):
     x, w1, b1, w2, b2, *_ = conv_inputs(40, 2, *hw, c)
     t = lambda a: torch.from_numpy(a).to(cuda)  # noqa: E731
@@ -186,7 +187,7 @@ def test_b2_kernel_matches_plain_on_card(cuda, c, hw):
 @pytest.mark.parametrize("inverse", [False, True])
 @pytest.mark.parametrize("c,hw", [(128, (96, 64)), (128, (11, 9)), (64, (16, 24)),
                                   (192, (24, 16)), (192, (11, 9)), (256, (16, 24)),
-                                  (256, (13, 10))])
+                                  (256, (13, 10)), (128, (24, 16)), (256, (24, 16))])
 def test_b3_kernel_matches_plain_on_card(cuda, inverse, c, hw):
     x, w, b, _, _, gamma, beta, skip = conv_inputs(50, 1, *hw, c)
     t = lambda a: torch.from_numpy(a).to(cuda)  # noqa: E731
@@ -198,6 +199,30 @@ def test_b3_kernel_matches_plain_on_card(cuda, inverse, c, hw):
         torch.cuda.synchronize()
     assert PC.fused_conv_gdn.launches == before + 1
     err_ok(got.cpu().numpy(), want.cpu().numpy(), TOL_CARD)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,c", [("b2", 64), ("b2", 96), ("b2", 128), ("b3", 64),
+                                      ("b3", 128), ("b3", 192), ("b3", 256)])
+def test_b2_b3_bits_do_not_depend_on_the_tile(cuda, kernel, c):
+    """Each tile instance, forced on the same ragged input, gives the same
+    bits (one fmaf chain per output over ascending k, whatever the tile),
+    and both agree with the plain version."""
+    x, w1, b1, w2, b2, gamma, beta, skip = conv_inputs(70 + c, 1, 37, 45, c)
+    t = lambda a: torch.from_numpy(a).to(cuda)  # noqa: E731
+    with torch.no_grad():
+        if kernel == "b2":
+            args = (t(x), oihw(w1).to(cuda), t(b1), oihw(w2).to(cuda), t(b2))
+            want = PC.plain_residual_block(*args)
+            outs = [PC.fused_residual_block(*args, tile=tile) for tile in PC.TILES]
+        else:
+            args = (t(x), oihw(w1).to(cuda), t(b1), t(gamma), t(beta), t(skip))
+            want = PC.plain_conv_gdn(*args, inverse=c % 128 == 0)
+            outs = [PC.fused_conv_gdn(*args, inverse=c % 128 == 0, tile=tile)
+                    for tile in PC.TILES]
+        torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+    err_ok(outs[0].cpu().numpy(), want.cpu().numpy(), TOL_CARD)
 
 
 @pytest.mark.cuda
@@ -216,6 +241,8 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
             PC.fused_residual_block(t(x80), w80c, t(b80), w80c, t(b80))
         with pytest.raises(ValueError):  # nor a conv+GDN instance
             PC.fused_conv_gdn(t(x80), w80c, t(b80), t(g80), t(beta80), t(skip80), inverse=False)
+        with pytest.raises(ValueError):  # no such tile instance
+            PC.fused_residual_block(t(x), w1c, t(b1), w2c, t(b2), tile="huge")
         with pytest.raises(ValueError):  # B2 has no C = 256 instance (only B3 has)
             x256, w256, b256, *_ = conv_inputs(62, 1, 8, 8, 256)
             w256c = oihw(w256).to(cuda)

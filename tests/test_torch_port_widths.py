@@ -136,3 +136,35 @@ def test_cluster_split_is_chosen_from_the_shape(shape, head_dim, want):
     b, h, w, c = shape
     assert PF.cluster_size(c, head_dim, b * (h // 8) * (w // 8)) == want
     assert want in (1, PF.max_cluster(c, head_dim))
+
+
+def _conv_kernel_cases():
+    import chip_smoke
+
+    return [(k, s) for k, s, _, _ in chip_smoke.KERNEL_CASES
+            if k in ("fused_residual_block", "fused_conv_gdn")]
+
+
+@pytest.mark.parametrize("model,n", [("tcm", 64), ("tcm", 96), ("tcm", 128)])
+def test_conv_tile_choice_has_an_instance_at_every_shape(model, n):
+    """B2/B3's tile comes from (H, W, C) alone and names an instance that
+    takes C, at every B2/B3 shape of chip_smoke's KERNEL_CASES and at each
+    of their H x W for every width this model hands the wrappers."""
+    import inspect
+
+    assert list(inspect.signature(PC.tile_config).parameters) == ["h", "w", "c"]
+    shapes = routed_shapes(make_tcm(N=n, M=320, device="cpu").module)
+    widths = {c for kernel, _, c, _ in shapes if kernel in PC.KERNEL_CHANNELS}
+    cases = _conv_kernel_cases()
+    hws = {(s[1], s[2]) for _, s in cases}
+    for (h, w), c in [((s[1], s[2]), s[3]) for _, s in cases] + [
+            (hw, c) for hw in hws for c in widths]:
+        tile = PC.tile_config(h, w, c)
+        assert tile in PC.TILES
+        bm, bn = PC.tile_shape(tile, c)
+        assert c % bn == 0 and bm % 32 == 0, (h, w, c, tile)
+        assert PC.tile_config(h, w, c) == tile
+    # on the main path: the large tile at the two largest stages, the small
+    # one where the large would leave SMs idle
+    for _, (_, h, w, c) in cases:
+        assert PC.tile_config(h, w, c) == ("large" if h * w >= 192 * 128 else "small")
