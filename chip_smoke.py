@@ -19,12 +19,19 @@ Drives reslic_tcm_tpu_torch only (no JAX, no PIL), in eight phases:
    take (fp32 CUDA-core peak 67 TFLOP/s vs 3.35 TB/s, whichever binds),
    the achieved TFLOP/s and share of that bound (device time). B2 and B3
    also print the tile the wrapper chose and run the other tile on the same
-   input: the two outputs must be equal, bit for bit.
-   B1's LN+MLP kernel also runs with one CTA per window and with its
-   largest cluster on the same input at the SWAtten shape, at each g_a/g_s
-   shape and around the wrapper's threshold: the two outputs must be
-   equal, bit for bit, and the kernel's device time over 10 interleaved
-   pairs of launches is printed.
+   input: the two outputs must be equal, bit for bit. B1's attention-only
+   flavour runs at every cluster it has an instance for and B4 at every
+   (windows per CTA, CTAs per cluster): each output must equal the
+   wrapper's choice's, bit for bit. B4's library time is one
+   F.multi_head_attention_forward call (rel_bias + mask as its additive
+   attn_mask, built outside the timed region), held against the plain
+   version; B1's attention-only flavour gets the same call on the
+   pre-partitioned windows, with partition, roll and residual outside it.
+   Then each split of B1 (LN+MLP: one CTA per window and the largest
+   cluster; attention-only: every cluster) and of B4 runs on the same
+   input at the main-path shapes and around the choices' thresholds: the
+   outputs must be equal, bit for bit, and the kernel's device time over
+   10 interleaved rounds of launches is printed.
 4. TCM-S slice: TCM-S (N=64, M=320) with the committed lambda=0.013
    weights, update(), then evaluate() on two seeded 768x512 synthetic
    images, the forward estimate and then real compress -> decompress.
@@ -117,6 +124,8 @@ KERNEL_CASES = [
     ("flash_window_block", (1, 96, 64, 128), (32, True, True), 2),
     ("flash_window_block", (1, 192, 128, 192), (24, False, False), 0),
     ("flash_window_block", (1, 192, 128, 192), (24, True, False), 2),
+    ("flash_window_block", (1, 192, 128, 128), (16, False, False), 0),  # WACNN N=128
+    ("flash_window_block", (1, 192, 128, 128), (16, True, False), 0),
     ("fused_residual_block", (1, 384, 256, 64), None, 4),
     ("fused_residual_block", (1, 192, 128, 64), None, 4),
     ("fused_residual_block", (1, 96, 64, 64), None, 4),
@@ -146,6 +155,7 @@ KERNEL_CASES = [
 ]
 
 CONV_KERNELS = ("fused_residual_block", "fused_conv_gdn")  # B2, B3: one conv kernel, two tiles
+LIBRARY_KERNELS = ("fused_qkv_attention",)  # one PyTorch call computes the whole function
 
 KERNEL_SOURCES = {
     "flash_window_block": ("reslic_tcm_tpu_torch/csrc/flash_window_attn.cu",
@@ -269,6 +279,81 @@ def _inputs(torch, kernel, shape, option, dev, seed):
     return conv + (gamma, beta, r(b, h, w, c)), dict(inverse=option)
 
 
+def mha_mask(torch, rel_bias, mask, nw: int):
+    """The [Nw*heads, T, T] additive attn_mask of multi_head_attention_forward
+    for B4's rel_bias [heads, T, T] and mask [nW, T, T] (window i takes
+    mask[i % nW]) or None: row w*heads + h is rel_bias[h] (+ mask[w % nW])."""
+    heads, t, _ = rel_bias.shape
+    m = rel_bias[None].expand(nw, heads, t, t)
+    if mask is not None:
+        m = m + mask.repeat(nw // mask.shape[0], 1, 1)[:, None]
+    return m.reshape(nw * heads, t, t).contiguous()
+
+
+def library_qkv_attention(torch, windows, w_qkv, b_qkv, attn_mask, w_proj, b_proj, heads: int):
+    """B4's function as one PyTorch call: qkv in-projection, scores scaled by
+    head_dim^-0.5 plus attn_mask (mha_mask), softmax, P.v and the out
+    projection. windows [Nw, T, C] -> [Nw, T, C]. A yardstick only: the port
+    never calls it."""
+    x = windows.transpose(0, 1)
+    out, _ = torch.nn.functional.multi_head_attention_forward(
+        x, x, x, x.shape[-1], heads, w_qkv, b_qkv, None, None, False, 0.0, w_proj, b_proj,
+        training=False, need_weights=False, attn_mask=attn_mask)
+    return out.transpose(0, 1)
+
+
+def _library(torch, kernel, shape, option, args):
+    """(the library call on these inputs, its output -> the kernel's output's
+    layout) for B4 and B1's attention-only flavour; the attn_mask (and for
+    B1 the partition into windows) is built here, outside the timed call."""
+    from reslic_tcm_tpu_torch.ops import flash_window_attn as F
+
+    if kernel == "fused_qkv_attention":
+        windows, w_qkv, b_qkv, rel, w_proj, b_proj, mask = args
+        attn_mask = mha_mask(torch, rel, mask, shape[0])
+        return (lambda: library_qkv_attention(torch, windows, w_qkv, b_qkv, attn_mask, w_proj,
+                                              b_proj, option[0]), lambda out: out)
+    x, w_qkv, b_qkv, w_proj, b_proj, _, _, rel, _ = args
+    b, h, w, c = shape
+    hd, shifted, _ = option
+    windows = F.window_partition(x, 8).reshape(-1, 64, c)
+    blocked = None
+    if shifted:
+        blocked = torch.from_numpy(F.shift_window_mask(h // 8, w // 8, 8, 4)).to(x.device)
+        blocked = torch.where(blocked, F.NEG_INF, 0.0).float()
+    attn_mask = mha_mask(torch, rel, blocked, windows.shape[0])
+    return (lambda: library_qkv_attention(torch, windows, w_qkv, b_qkv, attn_mask, w_proj, b_proj,
+                                          c // hd),
+            lambda out: x + F.window_reverse(out.reshape(b, -1, 64, c), 8, h, w))
+
+
+def _splits(kernel, shape, option):
+    """{split: the wrapper's keyword that forces it} over every split the
+    kernel has an instance for at this shape (None where it has one way)."""
+    from reslic_tcm_tpu_torch.ops import flash_window_attn as F
+    from reslic_tcm_tpu_torch.ops import qkv_attention as Q
+
+    if kernel == "fused_qkv_attention":
+        return {s: {"split": s} for s in Q.GROUPS}
+    if kernel == "flash_window_block":
+        hd, _, full = option
+        ks = (1, F.max_cluster(shape[3], hd)) if full else F.ATTN_CLUSTERS
+        return {k: {"cluster": k} for k in dict.fromkeys(ks)}
+    return None
+
+
+def _chosen_split(kernel, shape, option):
+    from reslic_tcm_tpu_torch.ops import flash_window_attn as F
+    from reslic_tcm_tpu_torch.ops import qkv_attention as Q
+
+    if kernel == "fused_qkv_attention":
+        nw, t, c = shape
+        return Q.group_config(nw, t, c, c // option[0])
+    b, h, w, c = shape
+    hd, _, full = option
+    return (F.cluster_size if full else F.attn_cluster_size)(c, hd, b * (h // 8) * (w // 8))
+
+
 def _time_ms(torch, fn, reps: int) -> float:
     for _ in range(2):
         fn()
@@ -339,6 +424,17 @@ def phase_kernels(torch):
                 case["tile"] = C.tile_config(*shape[1:])
                 other = C.TILES[1 - C.TILES.index(case["tile"])]
                 case["equal_across_tiles"] = bool(torch.equal(got, kern(*args, **kw, tile=other)))
+            elif kernel == "fused_qkv_attention" or not option[2]:
+                # every split on the same input must give the chosen one's bits
+                case["split"] = _chosen_split(kernel, shape, option)
+                case["equal_across_splits"] = all(
+                    bool(torch.equal(got, kern(*args, **kw, **force)))
+                    for force in _splits(kernel, shape, option).values())
+                lib, to_out = _library(torch, kernel, shape, option, args)
+                case["library_ms"] = _time_ms(torch, lib, reps)
+                case["library_err"] = float((to_out(lib()) - want).abs().max())
+                if kernel == "flash_window_block":
+                    case["library_note"] = "partition, roll and residual outside the call"
             log("kernel_case " + json.dumps(case))
             if not err <= bound:
                 raise AssertionError(f"{kernel} {shape} {option}: max abs err {err:.3e} "
@@ -346,8 +442,14 @@ def phase_kernels(torch):
             if kernel in CONV_KERNELS and not case["equal_across_tiles"]:
                 raise AssertionError(f"{kernel} {shape} {option}: the {case['tile']} and "
                                      f"{other} tiles give different bits")
+            if "equal_across_splits" in case and not case["equal_across_splits"]:
+                raise AssertionError(f"{kernel} {shape} {option}: the splits give different bits")
+            if "library_err" in case and not case["library_err"] <= bound:
+                raise AssertionError(f"{kernel} {shape} {option}: the library call disagrees "
+                                     f"with the plain version by {case['library_err']:.3e}")
             k = per_kernel.setdefault(kernel, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
-                                               "t_ops": 0.0, "t_bytes": 0.0})
+                                               "library_ms": 0.0, "t_ops": 0.0, "t_bytes": 0.0})
+            k["library_ms"] += case.get("library_ms", 0.0) * per_pass
             k["max_abs_err"] = max(k["max_abs_err"], err)
             k["ms"] += ms * per_pass
             k["plain_ms"] += plain_ms * per_pass
@@ -356,72 +458,89 @@ def phase_kernels(torch):
     return per_kernel
 
 
-# B1 LN+MLP shapes at which phase 3 holds one CTA per window against the
-# largest cluster, and times both: the SWAtten shape (24 windows), each
+# Shapes at which phase 3 runs every split of a kernel on the same input,
+# holds the outputs to equal bits and times each. B1 LN+MLP (one CTA per
+# window against the largest cluster): the SWAtten shape (24 windows), each
 # g_a/g_s shape of TCM-S and TCM N=128 (96, 384 and 1536 windows), and
 # SWAtten's (128, 16) at 4, 32, 48 and 96 windows, around the wrapper's
-# threshold.
-SPLIT_CASES = [((1, 48, 32, 128), (16, True, True))] + [
-    ((1, h, w, c), (hd, False, True)) for c in (64, 128)
+# threshold. B1 attention-only (every cluster): WACNN N=192 and N=128's
+# g_a/g_s shape (384 windows) in both flavours, and 64 and 16 windows
+# (256x256 and 128x128 images). B4 (every (windows per CTA, CTAs per
+# cluster)): WACNN's 96 windows with and without a mask, and 16, 24, 48
+# and 192.
+SPLIT_CASES = [("flash_window_block", (1, 48, 32, 128), (16, True, True))] + [
+    ("flash_window_block", (1, h, w, c), (hd, False, True)) for c in (64, 128)
     for (h, w), hd in (((384, 256), 8), ((192, 128), 16), ((96, 64), 32))] + [
-    ((1, h, w, 128), (16, True, True)) for h, w in ((16, 16), (32, 64), (64, 48), (96, 64))]
-SPLIT_PAIRS = 10
+    ("flash_window_block", (1, h, w, 128), (16, True, True))
+    for h, w in ((16, 16), (32, 64), (64, 48), (96, 64))] + [
+    ("flash_window_block", (1, 192, 128, c), (c // 8, shifted, False))
+    for c in (192, 128) for shifted in (True, False)] + [
+    ("flash_window_block", (1, h, h, c), (c // 8, True, False))
+    for c in (192, 128) for h in (64, 32)] + [
+    ("fused_qkv_attention", (nw, 16, 320), (8, masked))
+    for nw, masked in ((96, True), (96, False), (16, True), (24, True), (48, True),
+                       (192, True))]
+SPLIT_ROUNDS = 10
 PROFILE_TRIES = 3
+KERNEL_SYMBOLS = {"flash_window_block": "swin_block_kernel",
+                  "fused_qkv_attention": "qkv_attention_kernel"}
 
 
-def phase_cluster_split(torch):
-    """B1's LN+MLP kernel with cluster 1 and with its largest cluster on the
-    same input: equal bit for bit, and the kernel's device time (profiler)
-    over SPLIT_PAIRS interleaved pairs of launches, beside the wrapper's
-    time per call (CUDA events, host work included)."""
+def phase_splits(torch):
+    """Every split of B1 (both flavours) and of B4 on the same input: equal
+    bit for bit, and each split's kernel device time (profiler) over
+    SPLIT_ROUNDS interleaved rounds of launches (each round runs every split
+    once, in turn forward and backward), beside the wrapper's time per call
+    (CUDA events, host work included) and the split the wrapper chooses."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from reslic_tcm_tpu_torch.ops import flash_window_attn as F
+    from reslic_tcm_tpu_torch.ops import qkv_attention as Q
 
     dev = torch.device("cuda")
+    wrappers = {"flash_window_block": F.flash_window_block,
+                "fused_qkv_attention": Q.fused_qkv_attention}
     with torch.no_grad():
-        for i, (shape, option) in enumerate(SPLIT_CASES):
-            args, kw = _inputs(torch, "flash_window_block", shape, option, dev, SEED + 100 + i)
-            b, h, w, c = shape
-            km = F.max_cluster(c, option[0])
+        for i, (kernel, shape, option) in enumerate(SPLIT_CASES):
+            args, kw = _inputs(torch, kernel, shape, option, dev, SEED + 100 + i)
+            fn = wrappers[kernel]
+            splits = _splits(kernel, shape, option)
+            names = list(splits)
             outs, call_ms = {}, {}
-            for k in (1, km):
-                outs[k] = F.flash_window_block(*args, **kw, cluster=k)
-                call_ms[k] = _time_ms(
-                    torch, lambda: F.flash_window_block(*args, **kw, cluster=k), 20)
+            for name in names:
+                force = splits[name]
+                outs[name] = fn(*args, **kw, **force)
+                call_ms[name] = _time_ms(torch, lambda: fn(*args, **kw, **force), 20)
             torch.cuda.synchronize()
-            equal = bool(torch.equal(outs[1], outs[km]))
-            # pair p launches (1, km) for even p and (km, 1) for odd p
-            order = [k for p in range(SPLIT_PAIRS) for k in ((1, km) if p % 2 == 0 else (km, 1))]
+            equal = all(bool(torch.equal(outs[names[0]], outs[n])) for n in names)
+            order = [n for r in range(SPLIT_ROUNDS) for n in (names if r % 2 == 0 else names[::-1])]
             for _ in range(PROFILE_TRIES):  # the profiler can lose a kernel's record
                 with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                    for k in order:
-                        F.flash_window_block(*args, **kw, cluster=k)
+                    for n in order:
+                        fn(*args, **kw, **splits[n])
                     torch.cuda.synchronize()
                 runs = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
-                               and "swin_block_kernel" in e.name),
+                               and KERNEL_SYMBOLS[kernel] in e.name),
                               key=lambda e: e.time_range.start)
                 if len(runs) == len(order):
                     break
-                log(f"cluster_split {list(shape)}: the profiler saw {len(runs)} kernel runs "
+                log(f"split {kernel} {list(shape)}: the profiler saw {len(runs)} kernel runs "
                     f"of {len(order)}; profiling again")
             else:
-                raise AssertionError(f"B1 {shape}: the profiler saw {len(runs)} kernel runs "
-                                     f"of {len(order)} in {PROFILE_TRIES} tries")
-            dev_ms = {1: [], km: []}
-            for k, e in zip(order, runs):
-                dev_ms[k].append(e.time_range.elapsed_us() / 1e3)
-            wins = sum(s < o for o, s in zip(dev_ms[1], dev_ms[km]))
-            log("cluster_split " + json.dumps({
-                "shape": list(shape), "head_dim": option[0], "shifted": option[1],
-                "windows": b * (h // 8) * (w // 8), "clusters": [1, km], "equal": equal,
-                "call_ms": [call_ms[1], call_ms[km]],
-                "device_ms_median": [float(np.median(dev_ms[1])), float(np.median(dev_ms[km]))],
-                "device_ms": [dev_ms[1], dev_ms[km]], "split_wins": wins,
-                "chosen": F.cluster_size(c, option[0], b * (h // 8) * (w // 8))}))
+                raise AssertionError(f"{kernel} {shape}: the profiler saw {len(runs)} kernel "
+                                     f"runs of {len(order)} in {PROFILE_TRIES} tries")
+            dev_ms = {n: [] for n in names}
+            for n, e in zip(order, runs):
+                dev_ms[n].append(e.time_range.elapsed_us() / 1e3)
+            log("split " + json.dumps({
+                "kernel": kernel, "shape": list(shape), "option": option,
+                "splits": names, "equal": equal, "call_ms": [call_ms[n] for n in names],
+                "device_ms_median": [float(np.median(dev_ms[n])) for n in names],
+                "device_ms": [dev_ms[n] for n in names],
+                "chosen": _chosen_split(kernel, shape, option)}))
             if not equal:
-                raise AssertionError(f"B1 {shape}: cluster 1 and cluster {km} disagree")
+                raise AssertionError(f"{kernel} {shape} {option}: the splits {names} disagree")
 
 
 # ------------------------------- phase 4 --------------------------------
@@ -639,7 +758,7 @@ def main() -> int:
     name, smi = phase_device(torch)
     phase_build()
     per_kernel = phase_kernels(torch)
-    phase_cluster_split(torch)
+    phase_splits(torch)
 
     paths, codecs = {}, {}
     codecs["tcm"], paths["tcm"] = phase_slice(torch, "cuda", IMAGE_HW)
@@ -665,15 +784,17 @@ def main() -> int:
             "launches": n, "max_abs_err": k["max_abs_err"],
             "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": max(k["t_ops"], k["t_bytes"]),
             "bound_by": "operations" if k["t_ops"] >= k["t_bytes"] else "bytes",
-            "library_ms": None,
+            "library_ms": k["library_ms"] if kernel in LIBRARY_KERNELS else None,
         })
         log(f"kernel {kernel}: {n} launches on the main paths, max abs err "
             f"{k['max_abs_err']:.2e}, {k['ms'] * 1e3:.0f} us per forward pass "
             f"(plain {k['plain_ms'] * 1e3:.0f} us, bound {max(k['t_ops'], k['t_bytes']) * 1e3:.0f} us)")
     log("launches: the three slices' main-path runs (two images each, all three passes); "
-        "ms, plain_ms and bound_ms: the kernel's launches in one 768x512 forward pass of "
-        "TCM-S plus one of TCM N=128 plus one of WACNN, at their main-path shapes; "
-        "library_ms null: no single PyTorch call computes it")
+        "ms, plain_ms, library_ms and bound_ms: the kernel's launches in one 768x512 forward "
+        "pass of TCM-S plus one of TCM N=128 plus one of WACNN, at their main-path shapes; "
+        "library_ms: one F.multi_head_attention_forward call per B4 launch; null for B1-B3: "
+        "no single PyTorch call computes them (the kernel_case lines time that call for B1's "
+        "attention-only flavour, with partition, roll and residual outside it)")
     log(json.dumps({"kernels": kernels}))
     log(f"card: {smi}")
     log(f"wall: {time.perf_counter() - t0:.1f} s")

@@ -9,8 +9,9 @@ plain C interface, loaded with ``ctypes``:
 
 Nothing includes PyTorch's headers, so each build takes seconds. The
 objects go to ``reslic_tcm_tpu_torch/_build/`` (listed in ``.gitignore``)
-under a name that carries a hash of the source and the flags, so an edited
-source is rebuilt and a stale object is never loaded. Each compiler writes
+under a name that carries a hash of the source, of every local header it
+includes (``#include "..."``, followed recursively) and of the flags, so an
+edited source or header is rebuilt and a stale object is never loaded. Each compiler writes
 to a private temporary name that is renamed into place when it succeeds:
 no lock files, and concurrent builders (pytest workers) cannot see a
 half-written object. All missing objects are compiled in parallel, one
@@ -22,6 +23,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -69,12 +71,35 @@ def _command(name: str, out: str) -> list[str]:
     return ["g++", *GXX_FLAGS, src, "-o", out]
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def source_files(name: str) -> list[str]:
+    """The library's source and the local headers it includes, recursively
+    (paths relative to the package, in the order first reached)."""
+    files: list[str] = []
+
+    def visit(rel: str) -> None:
+        if rel in files:
+            return
+        files.append(rel)
+        with open(os.path.join(_PKG, rel), "rb") as f:
+            text = f.read()
+        for inc in _INCLUDE.findall(text):
+            visit(os.path.normpath(os.path.join(os.path.dirname(rel), inc.decode())))
+
+    visit(SOURCES[name][0])
+    return files
+
+
 def library_path(name: str) -> str:
-    src, compiler = SOURCES[name]
+    compiler = SOURCES[name][1]
     flags = NVCC_FLAGS if compiler == "nvcc" else GXX_FLAGS
     h = hashlib.sha256()
-    with open(os.path.join(_PKG, src), "rb") as f:
-        h.update(f.read())
+    for rel in source_files(name):
+        h.update(rel.encode() + b"\0")
+        with open(os.path.join(_PKG, rel), "rb") as f:
+            h.update(f.read())
     h.update(" ".join((compiler,) + flags).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 

@@ -11,12 +11,16 @@ CPU tensor it runs ``plain_window_block``, the plain PyTorch version
 written with explicit einsums. Launches of either flavour are counted in
 ``flash_window_block.launches``.
 
-The LN+MLP kernel splits each window over a cluster of K CTAs when the
-grid would be small (``cluster_size``: fewer than ``CLUSTER_BELOW_WINDOWS``
-windows x batch), K chosen from the shape alone; its output is the same,
+Both flavours split each window over a cluster of K CTAs, K chosen from
+the shape alone: the LN+MLP flavour when the grid would be small
+(``cluster_size``: fewer than ``CLUSTER_BELOW_WINDOWS`` windows x batch),
+the attention-only flavour by ``attn_cluster_size``. The output is the same,
 bit for bit, for every K.
 
-Weights come in torch layout ([out, in] linears) straight from the modules.
+Weights come in torch layout ([out, in] linears) straight from the modules;
+``prepare_window_block`` gives them in the kernel's layout, which a caller
+may build once and pass as ``prepared`` (window_attention.py caches it per
+module).
 """
 
 from __future__ import annotations
@@ -39,6 +43,23 @@ KERNEL_SHAPES_ATTN = {(128, 16), (192, 24)}  # with_ln=False, mlp=None
 # CTAs pays at 4 and 24 windows (TCM's SWAtten at 768x512) and loses from
 # 48 windows on, where one CTA per window is faster.
 CLUSTER_BELOW_WINDOWS = 32
+
+
+# attention-only: the clusters with an instance, for each (C, head_dim) of
+# KERNEL_SHAPES_ATTN
+ATTN_CLUSTERS = (1, 2, 4)
+
+
+def attn_cluster_size(c: int, head_dim: int, windows: int) -> int:
+    """CTAs per window of the attention-only kernel for ``windows`` windows
+    x batch. On an H100 (kernel device time, PERF.md §6) 4 pays below 32
+    windows (16: 0.046 ms at C=192 against 0.070 at 2), 2 below 192 (64:
+    0.071 against 0.115 at 4 and 0.133 at 1) and at C=128 at every count
+    (two such CTAs share an SM; 384: 0.196 against 0.211 at 1), and 1 at
+    C=192 from 192 on (384: 0.406 against 0.427 at 2)."""
+    if windows < 32:
+        return 4
+    return 2 if windows < 192 or c == 128 else 1
 
 
 def max_cluster(c: int, head_dim: int) -> int:
@@ -123,24 +144,55 @@ def _lib() -> ctypes.CDLL:
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.flash_window_block_f32.argtypes = [vp] * 15 + [i] * 7 + [vp]
         lib.flash_window_block_f32.restype = ctypes.c_int
-        lib.window_attention_block_f32.argtypes = [vp] * 7 + [i] * 6 + [vp]
+        lib.window_attention_block_f32.argtypes = [vp] * 7 + [i] * 7 + [vp]
         lib.window_attention_block_f32.restype = ctypes.c_int
         lib._argtypes_set = True
     return lib
 
 
+def prepare_window_block(wqkv, bqkv, wproj, bproj, ln_scale, ln_bias, rel_bias, mlp=None,
+                         *, head_dim: int) -> tuple:
+    """The kernel's weights from the wrapper's (torch layout, checked here):
+    [in, out] matrices, contiguous, head_dim^-0.5 folded into the q columns
+    of wqkv and bqkv; LN1 and the MLP's only when ``mlp`` is given. The
+    order is the C interface's after x and out."""
+    c = wproj.shape[0]
+    dev = wqkv.device
+    t = rel_bias.shape[-1]
+    build.check_params(
+        dev, wqkv=(wqkv, (3 * c, c)), bqkv=(bqkv, (3 * c,)), wproj=(wproj, (c, c)),
+        bproj=(bproj, (c,)), rel_bias=(rel_bias, (c // head_dim, t, t)))
+    with torch.no_grad():
+        colscale = torch.ones(3 * c, device=dev)
+        colscale[:c] = head_dim ** -0.5
+        attn = [(wqkv.t() * colscale).contiguous(), (bqkv * colscale).contiguous(),
+                wproj.detach().t().contiguous(), bproj.detach().contiguous()]
+        if mlp is None:
+            return (*attn, rel_bias.detach().contiguous())
+        ln2_scale, ln2_bias, w1, b1, w2, b2 = mlp
+        build.check_params(
+            dev, ln_scale=(ln_scale, (c,)), ln_bias=(ln_bias, (c,)),
+            ln2_scale=(ln2_scale, (c,)), ln2_bias=(ln2_bias, (c,)), w1=(w1, (4 * c, c)),
+            b1=(b1, (4 * c,)), w2=(w2, (c, 4 * c)), b2=(b2, (c,)))
+        rest = [ln_scale, ln_bias, rel_bias, ln2_scale, ln2_bias, w1.t(), b1, w2.t(), b2]
+        return (*attn, *(a.detach().contiguous() for a in rest))
+
+
 def flash_window_block(x, wqkv, bqkv, wproj, bproj, ln_scale, ln_bias, rel_bias, mlp=None,
                        *, head_dim: int, window: int, shifted: bool, with_ln: bool = True,
-                       cluster: int | None = None):
+                       cluster: int | None = None, prepared: tuple | None = None):
     """x: [B, H, W, C] NHWC float32 (pre-rolled for the shifted flavour);
     wqkv: [3C, C]; bqkv: [3C]; wproj: [C, C]; bproj, ln_*: [C];
     rel_bias: [C/head_dim, w*w, w*w]; mlp = (ln2_scale, ln2_bias,
     w1 [4C, C], b1 [4C], w2 [C, 4C], b2 [C]) or None. The kernel has two
     flavours: LN1 and the MLP (``with_ln=True`` and an ``mlp``), or neither
     (``with_ln=False, mlp=None``; ln_* may be None). ``cluster`` forces the
-    LN+MLP kernel's CTAs per window (1 or ``max_cluster``; default
-    ``cluster_size`` of the shape); the result is the same for each. Returns
-    the block's output."""
+    kernel's CTAs per window (LN+MLP: 1 or ``max_cluster``, default
+    ``cluster_size``; attention-only: one of ``ATTN_CLUSTERS``, default
+    ``attn_cluster_size``); the result is the same for each. ``prepared``:
+    ``prepare_window_block`` of these weights, built by the caller (the
+    kernel then reads it instead of preparing the weights again). Returns the
+    block's output."""
     if x.device.type == "cpu":
         return plain_window_block(x, wqkv, bqkv, wproj, bproj, ln_scale, ln_bias, rel_bias,
                                   mlp, head_dim=head_dim, window=window, shifted=shifted,
@@ -158,44 +210,29 @@ def flash_window_block(x, wqkv, bqkv, wproj, bproj, ln_scale, ln_bias, rel_bias,
     if x.data_ptr() % 16:
         raise ValueError("flash_window_block kernel reads x in 16-byte vectors: x must be "
                          "16-byte aligned")
-    t = window * window
     windows = bsz * (h // window) * (wd // window)
-    if not full:
-        cluster = 1
-    elif cluster is None:
-        cluster = cluster_size(c, head_dim, windows)
-    elif cluster not in (1, max_cluster(c, head_dim)):
+    clusters = (1, max_cluster(c, head_dim)) if full else ATTN_CLUSTERS
+    if cluster is None:
+        cluster = (cluster_size if full else attn_cluster_size)(c, head_dim, windows)
+    elif cluster not in clusters:
         raise ValueError(f"flash_window_block kernel at (C, head_dim) = ({c}, {head_dim}) "
-                         f"takes cluster 1 or {max_cluster(c, head_dim)}, got {cluster}")
+                         f"takes cluster {' or '.join(map(str, sorted(set(clusters))))}, "
+                         f"got {cluster}")
     build.check_inference(x, wqkv, bqkv, wproj, bproj, rel_bias, *(mlp or ()),
                           *((ln_scale, ln_bias) if with_ln else ()))
     build.check_tensor("x", x, (bsz, h, wd, c), x.device, contiguous=True)
-    build.check_params(
-        x.device, wqkv=(wqkv, (3 * c, c)), bqkv=(bqkv, (3 * c,)), wproj=(wproj, (c, c)),
-        bproj=(bproj, (c,)), rel_bias=(rel_bias, (c // head_dim, t, t)))
-    # [in, out] weights with head_dim^-0.5 folded into the q columns
-    colscale = torch.ones(3 * c, device=x.device)
-    colscale[:c] = head_dim ** -0.5
-    attn = [(wqkv.detach().t() * colscale).contiguous(), (bqkv.detach() * colscale).contiguous(),
-            wproj.detach().t().contiguous(), bproj.detach().contiguous()]
-    rel = rel_bias.detach().contiguous()
+    if prepared is None:
+        prepared = prepare_window_block(wqkv, bqkv, wproj, bproj, ln_scale, ln_bias, rel_bias,
+                                        mlp, head_dim=head_dim)
+    t = window * window
+    if (len(prepared) != (13 if full else 5) or prepared[0].device != x.device
+            or prepared[6 if full else 4].shape != (c // head_dim, t, t)):
+        raise ValueError(f"prepared: expected prepare_window_block's weights for this flavour, "
+                         f"C={c}, head_dim {head_dim} and {t} tokens, on {x.device}")
     out = torch.empty_like(x)
-    if full:
-        ln2_scale, ln2_bias, w1, b1, w2, b2 = mlp
-        build.check_params(
-            x.device, ln_scale=(ln_scale, (c,)), ln_bias=(ln_bias, (c,)),
-            ln2_scale=(ln2_scale, (c,)), ln2_bias=(ln2_bias, (c,)), w1=(w1, (4 * c, c)),
-            b1=(b1, (4 * c,)), w2=(w2, (c, 4 * c)), b2=(b2, (c,)))
-        rest = [ln_scale, ln_bias, rel, ln2_scale, ln2_bias, w1.detach().t(), b1,
-                w2.detach().t(), b2]
-        rest = [a.detach().contiguous() for a in rest]
-        rc = _lib().flash_window_block_f32(
-            build.ptr(x), build.ptr(out), *[build.ptr(a) for a in attn + rest],
+    fn = _lib().flash_window_block_f32 if full else _lib().window_attention_block_f32
+    rc = fn(build.ptr(x), build.ptr(out), *[build.ptr(a) for a in prepared],
             bsz, h, wd, c, head_dim, cluster, int(shifted), build.stream(x))
-    else:
-        rc = _lib().window_attention_block_f32(
-            build.ptr(x), build.ptr(out), *[build.ptr(a) for a in attn], build.ptr(rel),
-            bsz, h, wd, c, head_dim, int(shifted), build.stream(x))
     if rc != 0:
         raise RuntimeError(f"flash_window_block kernel launch failed: cudaError {rc}")
     flash_window_block.launches += 1

@@ -16,7 +16,9 @@ Routing follows the JAX package:
   B4).
 
 Each kernel wrapper runs the kernel on a CUDA tensor and its plain PyTorch
-version on a CPU tensor.
+version on a CPU tensor. Each module builds its kernel's weights (the
+transposed, q-scaled matrices and the gathered relative-position bias) once,
+through ``cached``, and rebuilds them only when a parameter changes.
 """
 
 from __future__ import annotations
@@ -28,10 +30,32 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .flash_window_attn import (KERNEL_WINDOW, flash_window_block, shift_window_mask,
-                                window_partition, window_reverse)
+from .flash_window_attn import (KERNEL_WINDOW, flash_window_block, prepare_window_block,
+                                shift_window_mask, window_partition, window_reverse)
 from .layers import ResidualUnit, conv1x1, to_nchw, to_nhwc
-from .qkv_attention import fused_qkv_attention
+from .qkv_attention import fused_qkv_attention, prepare_qkv_attention
+
+
+def cached(owner: nn.Module, name: str, sources, make):
+    """``make()``, built once for ``owner`` under ``name`` and returned again
+    while every tensor of ``sources`` keeps its ``data_ptr()`` and
+    ``_version``: an in-place update (``load_snapshot_into``, an optimiser
+    step), a move to another device or a swapped tensor builds it anew. The
+    entry holds the sources, so no address it was keyed on is reused while
+    it lives. With autograd recording and a source that wants a gradient it
+    is built afresh on every call, so the plain path sees the live
+    parameters."""
+    sources = tuple(sources)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in sources):
+        return make()
+    stamp = tuple((t.data_ptr(), t._version) for t in sources)
+    store = owner.__dict__.setdefault("_prepared", {})
+    hit = store.get(name)
+    if hit is None or hit[0] != stamp:
+        with torch.no_grad():
+            hit = (stamp, sources, make())
+        store[name] = hit
+    return hit[2]
 
 
 def relative_position_index(w: int) -> np.ndarray:
@@ -109,16 +133,27 @@ class SwinTransformerBlock(nn.Module):
         shifted = msa.type != "W"
         if shifted:
             x = torch.roll(x, shifts=(-(w // 2), -(w // 2)), dims=(1, 2))
-        out = flash_window_block(
-            x.contiguous(), msa.embedding_layer.weight, msa.embedding_layer.bias,
-            msa.linear.weight, msa.linear.bias, self.ln1.weight, self.ln1.bias, msa.rel_bias(),
-            (self.ln2.weight, self.ln2.bias, self.mlp[0].weight, self.mlp[0].bias,
-             self.mlp[2].weight, self.mlp[2].bias),
-            head_dim=msa.head_dim, window=w, shifted=shifted,
-        )
+        args, prepared = self.kernel_weights()
+        out = flash_window_block(x.contiguous(), *args, head_dim=msa.head_dim, window=w,
+                                 shifted=shifted, prepared=prepared)
         if shifted:
             out = torch.roll(out, shifts=(w // 2, w // 2), dims=(1, 2))
         return out
+
+
+    def kernel_weights(self):
+        """(flash_window_block's weight arguments, prepare_window_block of
+        them), built once while the parameters are unchanged."""
+        msa = self.msa
+
+        def make():
+            args = (msa.embedding_layer.weight, msa.embedding_layer.bias, msa.linear.weight,
+                    msa.linear.bias, self.ln1.weight, self.ln1.bias, msa.rel_bias(),
+                    (self.ln2.weight, self.ln2.bias, self.mlp[0].weight, self.mlp[0].bias,
+                     self.mlp[2].weight, self.mlp[2].bias))
+            return args, prepare_window_block(*args, head_dim=msa.head_dim)
+
+        return cached(self, "flash_window_block", self.parameters(), make)
 
 
 class SwinBlock(nn.Module):
@@ -166,11 +201,32 @@ class WindowAttention(nn.Module):
         return self.relative_position_bias_table[self._rel_index].reshape(
             t, t, self.num_heads).permute(2, 0, 1)
 
+    def kernel_weights(self):
+        """(fused_qkv_attention's weight arguments, prepare_qkv_attention of
+        them), built once while the parameters are unchanged."""
+        def make():
+            args = (self.qkv.weight, self.qkv.bias, self.rel_bias(), self.proj.weight,
+                    self.proj.bias)
+            return args, prepare_qkv_attention(*args)
+
+        return cached(self, "fused_qkv_attention", self.parameters(), make)
+
+    def window_block_weights(self):
+        """(flash_window_block's attention-only weight arguments,
+        prepare_window_block of them), built once while the parameters are
+        unchanged."""
+        def make():
+            args = (self.qkv.weight, self.qkv.bias, self.proj.weight, self.proj.bias, None,
+                    None, self.rel_bias(), None)
+            return args, prepare_window_block(*args, head_dim=self.dim // self.num_heads)
+
+        return cached(self, "flash_window_block", self.parameters(), make)
+
     def forward(self, x, mask=None):
         """x: [B_, N, C] windows; mask: [nW, N, N] additive (window i takes
         mask[i % nW]) or None."""
-        return fused_qkv_attention(x.contiguous(), self.qkv.weight, self.qkv.bias,
-                                   self.rel_bias(), self.proj.weight, self.proj.bias, mask)
+        args, prepared = self.kernel_weights()
+        return fused_qkv_attention(x.contiguous(), *args, mask, prepared=prepared)
 
 
 @functools.lru_cache(maxsize=16)
@@ -229,11 +285,9 @@ class WinBasedAttention(nn.Module):
         w, s = self.window_size, self.shift_size
         if s > 0:
             x = torch.roll(x, shifts=(-s, -s), dims=(1, 2))
-        a = self.attn
-        out = flash_window_block(
-            x.contiguous(), a.qkv.weight, a.qkv.bias, a.proj.weight, a.proj.bias, None, None,
-            a.rel_bias(), None, head_dim=self.dim // self.num_heads, window=w, shifted=s > 0,
-            with_ln=False)
+        args, prepared = self.attn.window_block_weights()
+        out = flash_window_block(x.contiguous(), *args, head_dim=self.dim // self.num_heads,
+                                 window=w, shifted=s > 0, with_ln=False, prepared=prepared)
         if s > 0:
             out = torch.roll(out, shifts=(s, s), dims=(1, 2))
         return out

@@ -127,11 +127,59 @@ def test_b1_attention_only_kernel_at_128_channels_matches_plain_on_card(cuda, sh
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("nw,n_mask", [(20, 4), (7, 0), (96, 96)])
+@pytest.mark.parametrize("shifted", [False, True])
+@pytest.mark.parametrize("c,head_dim", sorted(PF.KERNEL_SHAPES_ATTN))
+def test_b1_attention_only_bits_do_not_depend_on_the_cluster(cuda, shifted, c, head_dim):
+    """Every attention-only cluster, forced on the same input, gives the
+    bits of the wrapper's choice, and they agree with the plain version."""
+    x, wts = attn_inputs(c + 2 * head_dim, 2, 16, 24, c)
+    rel = np.random.default_rng(c + 1).normal(0, 0.5, (c // head_dim, 64, 64)).astype(np.float32)
+    wqkv, bqkv, wproj, bproj, _, _, relc, _ = port_attn_args(wts, rel, lambda t: t.to(cuda))
+    args = (wqkv, bqkv, wproj, bproj, None, None, relc, None)
+    kw = dict(head_dim=head_dim, window=8, shifted=shifted, with_ln=False)
+    xc = torch.from_numpy(x).to(cuda)
+    with torch.no_grad():
+        want = PF.plain_window_block(xc, *args, **kw)
+        chosen = PF.flash_window_block(xc, *args, **kw)
+        outs = {k: PF.flash_window_block(xc, *args, **kw, cluster=k) for k in PF.ATTN_CLUSTERS}
+        torch.cuda.synchronize()
+        with pytest.raises(ValueError):  # a cluster with no instance
+            PF.flash_window_block(xc, *args, **kw, cluster=3)
+    for k, out in outs.items():
+        assert torch.equal(out, chosen), k
+    err_ok(chosen.cpu().numpy(), want.cpu().numpy(), TOL_CARD)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nw,n_mask", [(96, 96), (96, 0), (34, 2), (7, 0), (1, 1)])
+def test_b4_bits_do_not_depend_on_the_split(cuda, nw, n_mask):
+    """Every (windows per CTA, CTAs per cluster), forced on the same input,
+    gives the bits of the wrapper's choice, at WACNN's 96 windows with and
+    without a mask and at window counts that leave a ragged last group."""
+    windows, wqkv, bqkv, rel, wproj, bproj, mask = qkv_inputs(36 + nw, nw, 16, 320, 8,
+                                                              max(n_mask, 1))
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)  # noqa: E731
+    args = (t(windows), t(wqkv.T), t(bqkv), t(rel), t(wproj.T), t(bproj),
+            t(mask) if n_mask else None)
+    with torch.no_grad():
+        want = PQ.plain_qkv_attention(*args)
+        chosen = PQ.fused_qkv_attention(*args)
+        outs = {s: PQ.fused_qkv_attention(*args, split=s) for s in PQ.GROUPS}
+        torch.cuda.synchronize()
+        with pytest.raises(ValueError):  # a split with no instance
+            PQ.fused_qkv_attention(*args, split=(3, 8))
+    for split, out in outs.items():
+        assert torch.equal(out, chosen), split
+    err_ok(chosen.cpu().numpy(), want.cpu().numpy(), TOL_CARD)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nw,n_mask", [(20, 4), (7, 0), (96, 96), (34, 2)])
 def test_b4_kernel_matches_plain_on_card(cuda, nw, n_mask):
     """WACNN's window-4 attention at C=320, 8 heads (head_dim 40): with an
-    image's mask shared by 5 images, without a mask, and with one mask per
-    window."""
+    image's mask shared by 5 images, without a mask, with one mask per
+    window, and with 34 windows (a ragged last group) under a 2-window
+    mask."""
     windows, wqkv, bqkv, rel, wproj, bproj, mask = qkv_inputs(34, nw, 16, 320, 8,
                                                               max(n_mask, 1))
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)  # noqa: E731

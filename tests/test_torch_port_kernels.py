@@ -195,3 +195,112 @@ def test_wrappers_run_plain_version_on_cpu_and_count_nothing():
     PC.fused_residual_block(torch.from_numpy(x), oihw(w1), torch.from_numpy(b1), oihw(w2),
                             torch.from_numpy(b2))
     assert PC.fused_residual_block.launches == before
+
+
+# ------------------- B1/B4 yardsticks, build and cache -------------------
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_b4_library_call_matches_plain(masked):
+    """One F.multi_head_attention_forward call with rel_bias (+ the mask) as
+    its additive attn_mask computes B4's function: chip_smoke.py times it as
+    B4's library yardstick, so it must agree with the plain version."""
+    import chip_smoke
+
+    windows, wqkv, bqkv, rel, wproj, bproj, mask = qkv_inputs(29, 12, 16, 40, 8, 4)
+    t = torch.from_numpy
+    args = (t(windows), t(wqkv.T.copy()), t(bqkv), t(rel), t(wproj.T.copy()), t(bproj),
+            t(mask) if masked else None)
+    want = PQ.plain_qkv_attention(*args)
+    attn_mask = chip_smoke.mha_mask(torch, args[3], args[6], 12)
+    got = chip_smoke.library_qkv_attention(torch, args[0], args[1], args[2], attn_mask, args[4],
+                                           args[5], 8)
+    err_ok(got.numpy(), want.numpy(), TOL_CPU)
+
+
+@pytest.mark.parametrize("shifted", [False, True])
+def test_b1_attention_only_library_call_matches_plain(shifted):
+    """The same call on the pre-partitioned 8x8 windows, with the -1e9 SW
+    mask and rel_bias as attn_mask and the residual added outside, computes
+    B1's attention-only flavour (chip_smoke.py's library time for it)."""
+    import chip_smoke
+
+    c, head_dim, shape = 48, 24, (2, 16, 24, 48)
+    x, wts = attn_inputs(45, *shape)
+    rel = np.random.default_rng(46).normal(0, 0.5, (c // head_dim, 64, 64)).astype(np.float32)
+    wqkv, bqkv, wproj, bproj, _, _, relc, _ = port_attn_args(wts, rel, lambda u: u)
+    args = (torch.from_numpy(x), wqkv, bqkv, wproj, bproj, None, None, relc, None)
+    want = PF.plain_window_block(*args, head_dim=head_dim, window=8, shifted=shifted,
+                                 with_ln=False)
+    lib, to_out = chip_smoke._library(torch, "flash_window_block", shape,
+                                      (head_dim, shifted, False), args)
+    err_ok(to_out(lib()).numpy(), want.numpy(), TOL_CPU)
+
+
+def test_library_path_hashes_the_headers_a_source_includes(tmp_path, monkeypatch):
+    """An edited header gives both kernel sources that include it a new
+    object name, and leaves the others' names alone."""
+    from reslic_tcm_tpu_torch.ops import build
+
+    import shutil
+
+    shutil.copytree(os.path.join(build._PKG, "csrc"), tmp_path / "csrc")
+    shutil.copytree(os.path.join(build._PKG, "coding", "csrc"), tmp_path / "coding" / "csrc")
+    monkeypatch.setattr(build, "_PKG", str(tmp_path))
+    assert build.source_files("qkv_attention") == ["csrc/qkv_attention.cu",
+                                                   "csrc/window_attn_common.cuh"]
+    before = {name: build.library_path(name) for name in build.SOURCES}
+    with open(tmp_path / "csrc" / "window_attn_common.cuh", "a") as f:
+        f.write("\n// edited\n")
+    after = {name: build.library_path(name) for name in build.SOURCES}
+    changed = {name for name in build.SOURCES if before[name] != after[name]}
+    assert changed == {"flash_window_attn", "qkv_attention"}
+
+
+def _cached_module(kind):
+    from reslic_tcm_tpu_torch.ops import window_attention as PW
+
+    torch.manual_seed(3)
+    if kind == "swin":
+        m = PW.SwinTransformerBlock(32, 16, 8, "SW")
+        return m, m.kernel_weights, m.msa.relative_position_params
+    if kind == "qkv":
+        m = PW.WindowAttention(40, 4, 8)
+        return m, m.kernel_weights, m.qkv.weight
+    m = PW.WindowAttention(32, 8, 2)
+    return m, m.window_block_weights, m.relative_position_bias_table
+
+
+@pytest.mark.parametrize("kind", ["swin", "qkv", "attention_only"])
+def test_prepared_weights_are_cached_until_a_parameter_changes(kind):
+    """A module builds its kernel's weights once: an unchanged call returns
+    the same tensors; an in-place update of a parameter (as an optimiser step
+    or load_snapshot_into makes) gives a new result, equal to preparing the
+    updated weights afresh."""
+    m, weights, param = _cached_module(kind)
+    with torch.no_grad():
+        args, prepared = weights()
+        again_args, again = weights()
+        assert again is prepared and again_args is args
+        old = [p.clone() for p in prepared]
+        param.add_(0.25)
+        args2, prepared2 = weights()
+    assert prepared2 is not prepared
+    assert any(not torch.equal(a, b) for a, b in zip(prepared2, old))
+    with torch.no_grad():
+        if kind == "qkv":
+            fresh = PQ.prepare_qkv_attention(*args2)
+        else:
+            hd = m.msa.head_dim if kind == "swin" else m.dim // m.num_heads
+            fresh = PF.prepare_window_block(*args2, head_dim=hd)
+    assert all(torch.equal(a, b) for a, b in zip(prepared2, fresh))
+
+
+def test_prepared_weights_follow_autograd():
+    """With autograd recording, the cache is bypassed: the weight arguments
+    carry the graph back to the parameters."""
+    m, weights, param = _cached_module("qkv")
+    args, _ = weights()
+    rel = args[2]
+    rel.sum().backward()
+    assert m.relative_position_bias_table.grad is not None

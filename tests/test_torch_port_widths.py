@@ -168,3 +168,41 @@ def test_conv_tile_choice_has_an_instance_at_every_shape(model, n):
     # one where the large would leave SMs idle
     for _, (_, h, w, c) in cases:
         assert PC.tile_config(h, w, c) == ("large" if h * w >= 192 * 128 else "small")
+
+
+@pytest.mark.parametrize("model,n", [("wacnn", 128), ("wacnn", 192)])
+def test_attention_split_choice_has_an_instance_at_every_shape(model, n):
+    """B1's attention-only cluster and B4's (windows per CTA, CTAs per
+    cluster) come from their arguments alone and name an instance, at every
+    attention shape of chip_smoke's KERNEL_CASES and, for every width this
+    model hands the wrappers, at window counts from 1 to 6144."""
+    import inspect
+
+    import chip_smoke
+
+    assert list(inspect.signature(PF.attn_cluster_size).parameters) == [
+        "c", "head_dim", "windows"]
+    assert list(inspect.signature(PQ.group_config).parameters) == [
+        "windows", "t", "c", "head_dim"]
+    counts = (1, 2, 3, 7, 16, 24, 34, 48, 64, 96, 97, 192, 384, 1536, 6144)
+    checked = 0
+    for kernel, flavour, c, hd in routed_shapes(make_wacnn(N=n, M=320, device="cpu").module):
+        for windows in counts:
+            if kernel == "flash_window_block":
+                k = PF.attn_cluster_size(c, hd, windows)
+                assert k in PF.ATTN_CLUSTERS and (c // hd) % k == 0
+                assert PF.attn_cluster_size(c, hd, windows) == k
+            else:
+                split = PQ.group_config(windows, flavour, c, hd)
+                assert split in PQ.GROUPS
+                assert PQ.group_config(windows, flavour, c, hd) == split
+            checked += 1
+    assert checked == 2 * len(counts)
+    for kernel, shape, option, _ in chip_smoke.KERNEL_CASES:
+        if kernel == "fused_qkv_attention":
+            nw, t, c = shape
+            assert PQ.group_config(nw, t, c, c // option[0]) in PQ.GROUPS
+        elif kernel == "flash_window_block" and not option[2]:
+            b, h, w, c = shape
+            assert (c, option[0]) in PF.KERNEL_SHAPES_ATTN
+            assert PF.attn_cluster_size(c, option[0], b * (h // 8) * (w // 8)) in PF.ATTN_CLUSTERS
