@@ -2,9 +2,9 @@
 """Smoke run of the PyTorch + CUDA port on one NVIDIA GPU (built for H100).
 
     python3 chip_smoke.py                 # on a machine with the card
-    python3 chip_smoke.py --cpu-rehearsal # phases 4, 4b and 5 on the CPU, no card
+    python3 chip_smoke.py --cpu-rehearsal # phases 4, 4b, 5 and 5b on the CPU, no card
 
-Drives reslic_tcm_tpu_torch only (no JAX, no PIL), in eight phases:
+Drives reslic_tcm_tpu_torch only (no JAX, no PIL), in nine phases:
 
 1. Device: the card's name and power limit; TF32 off, cuDNN deterministic.
 2. Build: the four CUDA kernels' three sources (nvcc, one process per
@@ -51,9 +51,23 @@ Drives reslic_tcm_tpu_torch only (no JAX, no PIL), in eight phases:
    agreement with the CPU plain path on a small image. Real vs estimated
    bpp is printed, not held to a limit: with random weights tail symbols
    may take the coder's bypass.
+5b. Train: TCM-S from the committed weights, remat on, lambda 0.013, batch
+   16 of 256x256 crops of seeded synthetic images (the train CLI's
+   defaults), through training/step.py (what cli/train.py runs): 3
+   warm-up and 10 timed steps (loss, bpp, mse, aux per step; ms per step
+   on the host clock ending in a synchronise, images/s, peak memory), one
+   step with remat off; the wrappers' launch counters must stay at 0
+   (every layer is composed under autograd). Then one step at 1x256x256 on
+   the card and on the CPU from the same weights and noise (drawn on the
+   CPU): loss within 1e-4 relative, pre-clip gradient norm within 1e-3.
+   Then a no_grad validation forward on 2 images of 256x256 at the updated
+   weights: B1, B2 and B3 launched 32, 18 and 9 times, and agreement with
+   the CPU plain path as in the slices' reference check. --cpu-rehearsal
+   runs it at batch 2 of 128x128.
 6. Profile: torch.profiler over one warm forward, compress and decompress
-   of each slice at 768x512: the device's busy time and idle share of each
-   pass, and the kernels that take the most device time.
+   of each slice at 768x512 and over one train step: the device's busy
+   time and idle share of each, and the kernels that take the most device
+   time.
 7. Summary: the kernels line, the card line, the wall time, and last the
    {"ok": true, "device": ...} line.
 
@@ -83,6 +97,7 @@ PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
 SNAPSHOT = os.path.join("checkpoints", "tcm_s_lambda0.013_r5.npz")
 IMAGE_HW = (768, 512)
 SEED = 0
+PROFILE_TRIES = 3  # the profiler can lose a kernel's record; profile again up to this often
 
 def _launches(b1, b2, b3, b4):
     return {"flash_window_block": b1, "fused_residual_block": b2, "fused_conv_gdn": b3,
@@ -367,18 +382,25 @@ def _time_ms(torch, fn, reps: int) -> float:
 
 
 def _device_ms(torch, fn, reps: int) -> float:
-    """Device time per call of fn: all its kernels and copies (profiler)."""
+    """Device time per call of fn: all its kernels and copies (profiler),
+    profiled again (up to PROFILE_TRIES times) when the profiler recorded
+    no device event at all."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == DeviceType.CUDA) / 1e3 / reps
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA)
+        if us > 0:
+            return us / 1e3 / reps
+        log("profiler: no device events recorded; profiling again")
+    raise AssertionError(f"the profiler recorded no device events in {PROFILE_TRIES} tries")
 
 
 def phase_kernels(torch):
@@ -481,7 +503,6 @@ SPLIT_CASES = [("flash_window_block", (1, 48, 32, 128), (16, True, True))] + [
     for nw, masked in ((96, True), (96, False), (16, True), (24, True), (48, True),
                        (192, True))]
 SPLIT_ROUNDS = 10
-PROFILE_TRIES = 3
 KERNEL_SYMBOLS = {"flash_window_block": "swin_block_kernel",
                   "fused_qkv_attention": "qkv_attention_kernel"}
 
@@ -688,6 +709,161 @@ def _make_wacnn_cpu():
     return make_wacnn(N=192, M=320, device="cpu", seed=SEED)
 
 
+# -------------------------------- train ---------------------------------
+
+TRAIN_LAMBDA = 0.013
+TRAIN_WARMUP, TRAIN_STEPS = 3, 10
+# the eval forward's launches (B1, B2, B3 as in TCM-S's forward pass)
+VALIDATION_LAUNCHES = _TCM_LAUNCHES["forward"]
+
+
+def _train_module(torch, device, remat=True):
+    """TCM-S from the committed weights, as the trainer builds it."""
+    from reslic_tcm_tpu_torch.models.tcm import make_tcm
+    from reslic_tcm_tpu_torch.utils.torch_convert import load_snapshot_into
+
+    module = make_tcm(N=64, M=320, device=device, remat=remat).module
+    load_snapshot_into(module, SNAPSHOT)
+    return module
+
+
+def _crops(n, hw, seed):
+    """n crops of hw from seeded synthetic 384x384 images (the trainer's
+    random crop), as an NHWC float32 batch."""
+    from reslic_tcm_tpu_torch.data.datasets import random_crop
+    from reslic_tcm_tpu_torch.data.synthetic import synth_image
+
+    rng = np.random.default_rng(seed)
+    images = [synth_image(np.random.default_rng(seed + i), 384, 384) for i in range(-(-n // 4))]
+    return np.stack([random_crop(images[i // 4], hw, rng) for i in range(n)])
+
+
+def _set_remat(module, on: bool) -> None:
+    for m in module.modules():
+        if hasattr(m, "remat"):
+            m.remat = on
+
+
+def _timed_step(torch, state, batch, seed, device):
+    """One train step through training/step.py; (metrics as floats, host ms
+    ending in a synchronise)."""
+    from reslic_tcm_tpu_torch.training.step import step_noise, train_step
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    m = train_step(state, batch, TRAIN_LAMBDA, step_noise(seed, state.step, device))
+    sync()
+    ms = (time.perf_counter() - t0) * 1e3
+    m = {k: float(v) for k, v in m.items()}
+    if not all(np.isfinite(v) for v in m.values()):
+        raise AssertionError(f"train step {state.step}: non-finite metrics {m}")
+    return m, ms
+
+
+def phase_train(torch, device, batch_size, hw):
+    """TCM-S training from the committed weights through training/step.py
+    (the step cli/train.py runs): warm-up and timed steps with remat, one
+    step without, the card's step against the CPU's from the same weights
+    and noise, then validation through the eval kernels against the CPU
+    plain path at the updated weights. Returns the train state."""
+    from reslic_tcm_tpu_torch.cli.train import to_device
+    from reslic_tcm_tpu_torch.models.base import replayed_noise, uniform_noise
+    from reslic_tcm_tpu_torch.ops.launches import launch_counts, reset_launch_counts
+    from reslic_tcm_tpu_torch.training.step import create_train_state, eval_step, train_step
+
+    on_card = device == "cuda"
+    t0 = time.perf_counter()
+    state = create_train_state(_train_module(torch, device))
+    batch = to_device(_crops(batch_size, hw, SEED), device)
+    log(f"train: TCM-S N=64 M=320 from {SNAPSHOT} on {device}, remat on, lambda "
+        f"{TRAIN_LAMBDA}, batch {batch_size} x {hw[0]}x{hw[1]} synthetic crops (seed {SEED}), "
+        f"Adam lr 1e-4 / aux 1e-3, clip 1.0; set-up {time.perf_counter() - t0:.1f} s")
+    log(f"train numerics (cli/train.py sets the same on the card): matmul TF32 "
+        f"{torch.backends.cuda.matmul.allow_tf32}, cuDNN TF32 {torch.backends.cudnn.allow_tf32}, "
+        f"deterministic {torch.backends.cudnn.deterministic}, benchmark "
+        f"{torch.backends.cudnn.benchmark}")
+
+    reset_launch_counts()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    times = []
+    for k in range(TRAIN_WARMUP + TRAIN_STEPS):
+        m, ms = _timed_step(torch, state, batch, SEED, device)
+        if k >= TRAIN_WARMUP:
+            times.append(ms)
+        log(f"train step {state.step} ({'timed' if k >= TRAIN_WARMUP else 'warm-up'}): "
+            f"loss {m['loss']:.4f}, bpp {m['bpp_loss']:.4f}, mse {m['mse_loss']:.6f}, "
+            f"aux {m['aux_loss']:.3f}, grad norm {m['grad_norm']:.3f}, {ms:.1f} ms")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else float("nan")
+    med = float(np.median(times))
+    log(f"train remat on: median {med:.1f} ms per step (min {min(times):.1f}, max "
+        f"{max(times):.1f}, {len(times)} steps), {batch_size * 1e3 / med:.2f} images/s, "
+        f"peak memory {peak:.2f} GiB")
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    _set_remat(state.module, False)
+    m, ms = _timed_step(torch, state, batch, SEED, device)
+    _set_remat(state.module, True)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else float("nan")
+    log(f"train remat off: step {state.step}: loss {m['loss']:.4f}, {ms:.1f} ms, "
+        f"{batch_size * 1e3 / ms:.2f} images/s, peak memory {peak:.2f} GiB")
+    launches = launch_counts()
+    log(f"train launches (composed under autograd): {json.dumps(launches)}")
+    if any(launches.values()):
+        raise AssertionError(f"the train steps launched kernels: {launches}")
+
+    # the card's step against the CPU's, from the same weights and noise
+    check_hw = (256, 256) if on_card else hw
+    x = _crops(1, check_hw, SEED + 1)
+    drawn = []
+    cpu_noise = uniform_noise(torch.Generator().manual_seed(SEED))
+    cpu_state = create_train_state(_train_module(torch, "cpu"))
+    want = train_step(cpu_state, to_device(x, "cpu"), TRAIN_LAMBDA,
+                      lambda shape: drawn.append(cpu_noise(shape)) or drawn[-1])
+    dev_state = create_train_state(_train_module(torch, device))
+    got = train_step(dev_state, to_device(x, device), TRAIN_LAMBDA,
+                     replayed_noise([u.to(device) for u in drawn]))
+    for key, tol in (("loss", 1e-4), ("grad_norm", 1e-3)):
+        a, b = float(got[key]), float(want[key])
+        log(f"train step {device} vs CPU (1x{check_hw[0]}x{check_hw[1]}): {key} {a:.6f} vs {b:.6f}, relative "
+            f"{abs(a - b) / abs(b):.2e} (limit {tol:.0e})")
+        if not abs(a - b) <= tol * abs(b):
+            raise AssertionError(f"train step {key} on {device} differs from the CPU's")
+
+    # validation after the steps: the eval kernels at the updated weights
+    val = to_device(_crops(2, check_hw, SEED + 2), device)
+    module = state.module
+    reset_launch_counts()
+    with torch.no_grad():
+        out = module(val)
+    launches = launch_counts()
+    losses = eval_step(module, val, TRAIN_LAMBDA)
+    want_launches = {k: v if on_card else 0 for k, v in VALIDATION_LAUNCHES.items()}
+    log(f"validation forward (2x{check_hw[0]}x{check_hw[1]}): launches {json.dumps(launches)}, loss "
+        f"{float(losses['loss']):.4f}, bpp {float(losses['bpp_loss']):.4f}, PSNR "
+        f"{float(losses['psnr']):.3f} dB")
+    if launches != want_launches:
+        raise AssertionError(f"validation launches {launches}, expected {want_launches}")
+    cpu = _train_module(torch, "cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in module.state_dict().items()})
+    with torch.no_grad():
+        ref = cpu(val.cpu())
+    cpu_loss = float(eval_step(cpu, val.cpu(), TRAIN_LAMBDA)["loss"])
+    err = float((out["x_hat"].cpu() - ref["x_hat"]).abs().max())
+    log(f"validation vs CPU plain path at the updated weights: x_hat max abs err {err:.3e} "
+        f"(limit 1.000e-03), loss {float(losses['loss']):.4f} vs {cpu_loss:.4f}")
+    if not (bool(torch.isfinite(out["x_hat"]).all()) and err <= 1e-3):
+        raise AssertionError("validation forward disagrees with the CPU plain path")
+    for key in ("y", "z"):
+        bits_a = float(-torch.log2(out["likelihoods"][key].cpu()).sum())
+        bits_b = float(-torch.log2(ref["likelihoods"][key]).sum())
+        log(f"validation: {key} bits card {bits_a:.2f} vs CPU {bits_b:.2f}")
+        if not abs(bits_a - bits_b) <= 1e-3 * bits_b + 1.0:
+            raise AssertionError(f"validation {key} rate disagrees with the CPU plain path")
+    return state, batch
+
+
 # ------------------------------- profile --------------------------------
 
 
@@ -696,9 +872,6 @@ def phase_profile(torch, codecs: dict):
     of each slice's codec: the device's busy time and idle share of the
     window (host clock, ending in a synchronise), and the kernels that take
     the most device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from reslic_tcm_tpu_torch.data.synthetic import synth_image
 
     img = synth_image(np.random.default_rng(SEED), *IMAGE_HW)[None]
@@ -709,22 +882,31 @@ def phase_profile(torch, codecs: dict):
                   "decompress": lambda: codec.decompress(enc["strings"], enc["shape"])}
         for pass_name, fn in passes.items():
             fn()
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                fn()
-                torch.cuda.synchronize()
-                wall = (time.perf_counter() - t0) * 1e3
-            kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-            if not kernels:
-                log(f"profile {slice_name} {pass_name}: the profiler recorded no device "
-                    f"kernels; busy time and idle share not measured")
-                continue
-            busy = sum(e.self_device_time_total for e in kernels) / 1e3
-            log(f"profile {slice_name} {pass_name}: window {wall:.2f} ms, device busy "
-                f"{busy:.2f} ms, idle share {1 - busy / wall:.3f}, {len(kernels)} kernel names")
-            for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
-                log(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x  {e.key[:90]}")
+            _profile_window(torch, f"{slice_name} {pass_name}", fn)
+
+
+def _profile_window(torch, label: str, fn) -> None:
+    """torch.profiler over one call of fn: the window (host clock, ending in
+    a synchronise), the device's busy time and idle share, the top kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        log(f"profile {label}: the profiler recorded no device kernels; busy time and idle "
+            f"share not measured")
+        return
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    log(f"profile {label}: window {wall:.2f} ms, device busy {busy:.2f} ms, idle share "
+        f"{1 - busy / wall:.3f}, {len(kernels)} kernel names")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x  {e.key[:90]}")
 
 
 # --------------------------------- main ---------------------------------
@@ -733,8 +915,8 @@ def phase_profile(torch, codecs: dict):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
-                    help="run phases 4, 4b and 5 on the CPU at 256x256 (plain versions); "
-                         "never prints the ok line")
+                    help="run phases 4, 4b and 5 on the CPU at 256x256 (plain versions) and "
+                         "5b at batch 2 of 128x128; never prints the ok line")
     args = ap.parse_args()
     faulthandler.dump_traceback_later(BUDGET_S, exit=True)
     t0 = time.perf_counter()
@@ -745,6 +927,7 @@ def main() -> int:
         _, tcm = phase_slice(torch, "cpu", (256, 256))
         _, tcm128 = phase_slice(torch, "cpu", (256, 256), "tcm128")
         _, wacnn = phase_wacnn(torch, "cpu", (256, 256))
+        phase_train(torch, "cpu", 2, (128, 128))
         log("kernels " + json.dumps({"launches": {"tcm": tcm, "tcm128": tcm128,
                                                    "wacnn": wacnn}}))
         log(f"rehearsal done in {time.perf_counter() - t0:.1f} s (no ok line: no card)")
@@ -773,7 +956,10 @@ def main() -> int:
         for kernel in PATH_KERNELS[path]:
             if launches[kernel] == 0:
                 raise AssertionError(f"{kernel} was never launched on the {path} path")
+    train_state, train_batch = phase_train(torch, "cuda", 16, (256, 256))
     phase_profile(torch, codecs)
+    _profile_window(torch, "train step (TCM-S, 16x256x256, remat on)",
+                    lambda: _timed_step(torch, train_state, train_batch, SEED, "cuda"))
 
     kernels = []
     for kernel, k in per_kernel.items():

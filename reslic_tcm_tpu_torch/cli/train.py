@@ -1,0 +1,190 @@
+"""Training CLI (port of reslic_tcm_tpu/cli/train.py).
+
+The JAX trainer's flags (``utils/parser.py``) and recipe: epochs over an
+ImageFolder of random crops, a random rate level per batch (Python's
+``random`` seeded by ``--seed``), the main and aux Adam with global-norm
+clipping (``training/step.py``), validation per lambda with each image
+padded to a multiple of 128, ``ReduceLROnPlateau`` on the mean validation
+loss, best and very-best checkpoints and the two newest epoch files.
+``--tester`` validates and stops; ``--checkpoint`` takes a ``.npz``
+snapshot of JAX parameters (a warm start) or the port's own checkpoint,
+whose optimisers, scheduler, step and epoch ``--continue_train`` resumes.
+Runs on the CUDA device unless ``--platform cpu``. wandb is not ported.
+
+    python -m reslic_tcm_tpu_torch.cli.train -m tcm --N 64 -d <root with
+        train/data and test/data> --lambda_list 0.013 --save_path runs/
+"""
+
+from __future__ import annotations
+
+import os
+import random
+import sys
+import time
+
+import numpy as np
+import torch
+
+from .eval import _device  # the card (TF32 off, cuDNN deterministic) or the CPU
+from .eval import load_checkpoint as load_snapshot
+
+# options the port does not run yet, with the ROADMAP item that brings each
+_NOT_YET = {
+    "bf16": "ROADMAP queue A item 15 (bf16 throughput mode)",
+    "coordinator": "ROADMAP queue A item 13 (parallel: multi-host training)",
+    "freeze": "ROADMAP queue A item 10 (STanH)",
+}
+
+
+def to_device(batch: np.ndarray, device) -> torch.Tensor:
+    """An NHWC numpy batch -> an NCHW float32 tensor on ``device``."""
+    return torch.from_numpy(np.ascontiguousarray(batch.transpose(0, 3, 1, 2))).to(device)
+
+
+def main(argv=None):
+    from ..models import NOT_PORTED
+    from ..utils.parser import parse_args
+
+    args = parse_args(argv if argv is not None else sys.argv[1:])
+    if args.model in NOT_PORTED:
+        raise NotImplementedError(f"--model {args.model} is not ported yet: "
+                                  f"{NOT_PORTED[args.model]}")
+    for flag, item in _NOT_YET.items():
+        if getattr(args, flag):
+            raise NotImplementedError(f"--{flag} is not ported yet: {item}")
+    device = _device(args)
+
+    from ..data.datasets import ImageFolder, KodakDataset, Loader
+    from ..models import get_model
+    from ..training.optimizer import set_learning_rate
+    from ..training.step import create_train_state, step_noise, train_step
+    from ..utils.checkpoint import ReduceLROnPlateau, load_checkpoint, restore
+    from ..utils.helper import AverageMeter, sec_to_hours
+
+    for arg in vars(args):
+        print(arg, ":", getattr(args, arg))
+    seed = int(args.seed)
+    random.seed(seed)
+    np.random.seed(seed)
+
+    patch = tuple(args.patch_size)
+    train_ds = ImageFolder(args.dataset, num_images=args.num_images, split="train",
+                           patch_size=patch, train=True)
+    valid_ds = ImageFolder(args.dataset, num_images=args.num_images_val, split="test",
+                           patch_size=patch, train=False)
+    train_loader = Loader(train_ds, args.batch_size, seed=seed)
+    valid_loader = Loader(valid_ds, args.test_batch_size, seed=0, shuffle=False,
+                          drop_last=False)
+    kodak = KodakDataset(args.kodak) if os.path.isdir(args.kodak) else None
+
+    codec, *_ = get_model(args, device=device)
+    module = codec.module
+    restored = None
+    if args.checkpoint != "none":
+        print("Loading", args.checkpoint)
+        if args.checkpoint.endswith((".npz", ".pth", ".pth.tar", ".pt")):
+            load_snapshot(codec, args.checkpoint)  # weights only: a warm start
+        else:
+            restored = load_checkpoint(args.checkpoint)
+            module.load_state_dict(restored["state_dict"])
+
+    state = create_train_state(module, args.learning_rate, float(args.aux_learning_rate),
+                               args.clip_max_norm)
+    scheduler = ReduceLROnPlateau(args.learning_rate, "min", factor=0.5, patience=4)
+    first_epoch = 0
+    if restored is not None and args.continue_train:
+        first_epoch = restore(state, restored, scheduler)
+        print(f"resuming from epoch {first_epoch}, step {state.step}, lr={scheduler.lr}")
+
+    lambda_list = list(args.lambda_list)
+    if args.tester:
+        _validate(module, valid_loader, lambda_list, args.type, device)
+        return 0
+
+    best_loss = float("inf")
+    for epoch in range(first_epoch, args.epochs):
+        start = time.time()
+        print(f"Learning rate: {scheduler.lr}")
+        meters = {k: AverageMeter() for k in ("loss", "bpp_loss", "mse_loss")}
+        for i, batch in enumerate(train_loader):
+            p = random.randint(0, len(lambda_list) - 1)
+            metrics = train_step(state, to_device(batch, device), lambda_list[p],
+                                 step_noise(seed, state.step, device), args.type)
+            for k in meters:
+                if k in metrics:
+                    meters[k].update(float(metrics[k]))
+            if i % 1000 == 0:
+                print(f"Train epoch {epoch}: [{i * len(batch)}/{len(train_ds)}]"
+                      f"\tLoss: {float(metrics['loss']):.3f} |"
+                      f"\tBpp loss: {float(metrics['bpp_loss']):.2f} |"
+                      f"\tAux loss: {float(metrics['aux_loss']):.2f} |")
+
+        val_loss = _validate(module, valid_loader, lambda_list, args.type, device, epoch)
+        if kodak is not None:
+            _validate(module, kodak, lambda_list, args.type, device, epoch, tag="test")
+        set_learning_rate(state.optimizer, scheduler.step(val_loss))
+        is_best = val_loss < best_loss
+        best_loss = min(val_loss, best_loss)
+        if args.save:
+            _save(args, state, scheduler, epoch, val_loss, is_best)
+        sec_to_hours(time.time() - start)
+        print("END OF EPOCH ", epoch)
+    return 0
+
+
+def _save(args, state, scheduler, epoch: int, val_loss: float, is_best: bool) -> None:
+    """The epoch's checkpoint (best and very-best when it is the best so
+    far), keeping the very-best file and the two newest epoch files."""
+    import re
+
+    from ..utils.checkpoint import save_checkpoint
+    from ..utils.helper import create_savepath
+
+    check = "pret" if args.checkpoint != "none" else "zero"
+    name_folder = (check + args.model + "_" + str(args.N) + "_" + str(args.symmetry) + "_"
+                   + str(args.gauss_gp) + "_" + str(args.lambda_list))
+    folder = os.path.join(args.save_path, re.sub(r"[\[\]\s,']+", "_", name_folder))
+    os.makedirs(folder, exist_ok=True)
+    filename, filename_best, very_best = create_savepath(args, epoch, folder)
+    if is_best:
+        save_checkpoint(filename_best, state, scheduler, epoch, val_loss)
+        save_checkpoint(very_best, state, scheduler, epoch, val_loss)
+    else:
+        save_checkpoint(filename, state, scheduler, epoch, val_loss)
+    epochs_on_disk = sorted(
+        (e for e in os.listdir(folder) if e.endswith(".ckpt") and e != os.path.basename(very_best)),
+        key=lambda e: os.path.getmtime(os.path.join(folder, e)), reverse=True)
+    for entry in epochs_on_disk[2:]:
+        os.remove(os.path.join(folder, entry))
+
+
+def _validate(module, loader, lambda_list, loss_type, device, epoch=0, tag="valid") -> float:
+    """Mean over the lambdas of the average eval loss; each batch is padded
+    to a multiple of 128, the model's windowing contract."""
+    from ..ops.math import compute_padding, pad_nhwc
+    from ..training.step import eval_step
+    from ..utils.helper import AverageMeter
+
+    total = 0.0
+    for j, lmbda in enumerate(lambda_list):
+        loss_m, bpp_m, psnr_m = AverageMeter(), AverageMeter(), AverageMeter()
+        for batch in loader:
+            x = torch.from_numpy(np.ascontiguousarray(batch))
+            h, w = x.shape[1], x.shape[2]
+            if h % 128 or w % 128:
+                x = pad_nhwc(x, compute_padding(h, w, 128)[0])
+            out = eval_step(module, x.permute(0, 3, 1, 2).contiguous().to(device), lmbda,
+                            loss_type)
+            loss_m.update(float(out["loss"]))
+            bpp_m.update(float(out["bpp_loss"]))
+            psnr_m.update(float(out["psnr"]))
+        print(f"{tag} epoch {epoch} (lv {j}): Average losses:"
+              f"\tLoss: {loss_m.avg:.3f} |"
+              f"\tBpp loss: {bpp_m.avg:.2f} |"
+              f"\tPSNR: {psnr_m.avg:.2f}")
+        total += loss_m.avg
+    return total / len(lambda_list)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

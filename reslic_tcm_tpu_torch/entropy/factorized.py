@@ -1,4 +1,4 @@
-"""Factorized-prior entropy bottleneck, eval mode (port of
+"""Factorized-prior entropy bottleneck (port of
 reslic_tcm_tpu/entropy/factorized.py).
 
 The learned CDF is CompressAI's matrix/bias/factor monotone chain; the
@@ -32,13 +32,16 @@ class CodingTables:
 
 
 class EntropyBottleneck(nn.Module):
-    """Learned factorized prior over an NCHW latent, eval mode: values are
-    rounded around the medians and their likelihoods returned."""
+    """Learned factorized prior over an NCHW latent. Eval rounds the values
+    around the medians; training adds U(-0.5, 0.5) noise instead. Either
+    way the likelihoods of the quantized values are returned."""
 
     def __init__(self, channels: int, filters: Tuple[int, ...] = (3, 3, 3, 3),
-                 init_scale: float = 10.0, likelihood_bound: float = 1e-9):
+                 init_scale: float = 10.0, tail_mass: float = 1e-9,
+                 likelihood_bound: float = 1e-9):
         super().__init__()
         self.filters = tuple(filters)
+        self.tail_mass = tail_mass
         self.likelihood_bound = likelihood_bound
         f = (1,) + self.filters + (1,)
         scale = init_scale ** (1 / (len(self.filters) + 1))
@@ -60,13 +63,20 @@ class EntropyBottleneck(nn.Module):
         return {name.lstrip("_"): p.detach().cpu().numpy().astype(np.float32)
                 for name, p in self.named_parameters()}
 
-    def _logits_cumulative(self, inputs):
+    def _logits_cumulative(self, inputs, detach: bool = False):
+        """The chain c(x) on [C, 1, n] inputs; ``detach`` keeps the chain's
+        own parameters out of the gradient (the aux loss)."""
         logits = inputs
         for i in range(len(self.filters) + 1):
-            matrix = getattr(self, f"_matrix{i}")
-            logits = torch.matmul(F.softplus(matrix), logits) + getattr(self, f"_bias{i}")
+            matrix, bias = getattr(self, f"_matrix{i}"), getattr(self, f"_bias{i}")
+            if detach:
+                matrix, bias = matrix.detach(), bias.detach()
+            logits = torch.matmul(F.softplus(matrix), logits) + bias
             if i < len(self.filters):
-                logits = logits + torch.tanh(getattr(self, f"_factor{i}")) * torch.tanh(logits)
+                factor = getattr(self, f"_factor{i}")
+                if detach:
+                    factor = factor.detach()
+                logits = logits + torch.tanh(factor) * torch.tanh(logits)
         return logits
 
     def medians(self) -> torch.Tensor:
@@ -79,18 +89,41 @@ class EntropyBottleneck(nn.Module):
         sign = -torch.sign(lower + upper).detach()
         return torch.abs(torch.sigmoid(sign * upper) - torch.sigmoid(sign * lower))
 
-    def forward(self, x: torch.Tensor):
-        """x: NCHW. Returns (x_hat, likelihoods), both NCHW."""
+    def noise_shape(self, x: torch.Tensor) -> tuple:
+        """Shape of the training noise for the NCHW latent x: [C, 1, B*H*W],
+        its values in (c, b, h, w) order, as the JAX module draws it."""
+        b, c, h, w = x.shape
+        return (c, 1, b * h * w)
+
+    def forward(self, x: torch.Tensor, training: bool = False, noise=None):
+        """x: NCHW. Returns (x_hat, likelihoods), both NCHW. With
+        ``training`` the values are x + noise, ``noise`` being U(-0.5, 0.5)
+        of ``noise_shape(x)``; without, they are rounded around the
+        medians."""
         b, c, h, w = x.shape
         values = x.permute(1, 0, 2, 3).reshape(c, 1, -1)
-        medians = self.medians()[:, None, None]
-        values_hat = torch.round(values - medians) + medians
+        if training:
+            if noise is None or tuple(noise.shape) != values.shape:
+                raise ValueError(f"training needs noise of shape {tuple(values.shape)}")
+            values_hat = values + noise
+        else:
+            medians = self.medians()[:, None, None]
+            values_hat = torch.round(values - medians) + medians
         likelihood = self._likelihood(values_hat)
         if self.likelihood_bound > 0:
             likelihood = lower_bound(likelihood, self.likelihood_bound)
         values_hat = values_hat.reshape(c, b, h, w).permute(1, 0, 2, 3)
         likelihood = likelihood.reshape(c, b, h, w).permute(1, 0, 2, 3)
         return values_hat, likelihood
+
+    def aux_loss(self) -> torch.Tensor:
+        """Quantile-fitting loss of the aux optimiser:
+        sum |c(quantiles) - [-t, 0, t]| with t = log(2 / tail_mass - 1) and
+        the chain detached, so that only ``quantiles`` gets a gradient."""
+        logits = self._logits_cumulative(self.quantiles, detach=True)
+        t = math.log(2 / self.tail_mass - 1)
+        target = torch.tensor([-t, 0.0, t], dtype=logits.dtype, device=logits.device)
+        return torch.sum(torch.abs(logits - target))
 
 
 # ----------------------------------------------------------------------------

@@ -37,6 +37,8 @@ def get_model(args, device="cuda"):
     if name == "tcm":
         from .tcm import make_tcm
 
-        # the JAX registry's TCM: M fixed at 320, the reference's depths
-        return make_tcm(N=args.N, M=320, device=device), None, None, None, None
+        # the JAX registry's TCM: M fixed at 320, the reference's depths, no
+        # drop-path, remat unless --no-remat
+        return (make_tcm(N=args.N, M=320, device=device, drop_path_rate=0.0,
+                         remat=bool(getattr(args, "remat", True))), None, None, None, None)
     raise ValueError(f"unknown model {name!r}")

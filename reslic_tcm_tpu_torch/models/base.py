@@ -1,8 +1,11 @@
 """Channel-autoregressive codec base (port of reslic_tcm_tpu/models/base.py,
-eval and host-codec paths).
+the rate-distortion forward (eval and training) and the host-codec paths).
 
 ``ChannelARModule`` holds the rate-distortion forward and the per-slice
-helpers shared by the encoder and the decoder, in NCHW. ``ChannelARCodec``
+helpers shared by the encoder and the decoder, in NCHW. Its training
+forward takes the uniform noise from a ``noise`` callable (``uniform_noise``
+or ``replayed_noise``), drawn in the JAX module's order: z first, then the
+slices in order. ``ChannelARCodec``
 pairs a module on a device with the host rANS coder behind the
 reference's ``update()`` / ``compress()`` / ``decompress()`` API; its
 public tensors are NHWC, like the JAX package's.
@@ -46,6 +49,27 @@ def fp32_numerics():
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
+def uniform_noise(generator: torch.Generator):
+    """A ``noise`` callable for the training forward: U(-0.5, 0.5) tensors of
+    the asked shape drawn from ``generator``, on its device."""
+    return lambda shape: torch.rand(shape, generator=generator, device=generator.device) - 0.5
+
+
+def replayed_noise(tensors):
+    """A ``noise`` callable that hands out ``tensors`` in order, each checked
+    against the shape asked for (noise recorded elsewhere, e.g. the JAX
+    module's draws)."""
+    it = iter(tensors)
+
+    def draw(shape):
+        u = next(it)
+        if tuple(u.shape) != tuple(shape):
+            raise ValueError(f"replayed noise has shape {tuple(u.shape)}, the forward asks "
+                             f"for {tuple(shape)}")
+        return u
+    return draw
+
+
 class ChannelARModule(nn.Module):
     """Base of the channel-AR codecs. Subclasses create g_a, g_s, h_a,
     h_mean_s, h_scale_s, entropy_bottleneck, cc_mean_transforms,
@@ -85,12 +109,19 @@ class ChannelARModule(nn.Module):
         lrp = self.lrp_transforms[i](torch.cat([mean_support, y_hat_slice], dim=1))
         return y_hat_slice + 0.5 * torch.tanh(lrp)
 
-    def forward(self, x):
-        """Rate-distortion forward in eval mode (NCHW): the bpp estimate."""
+    def forward(self, x, training: bool = False, noise=None):
+        """Rate-distortion forward (NCHW). Eval (the bpp estimate) takes the
+        likelihoods at the rounded values; ``training`` at the values plus
+        U(-0.5, 0.5) noise from ``noise(shape)``, called for z and then for
+        each slice. y_hat is the STE round around mu either way."""
+        if training and noise is None:
+            raise ValueError("the training forward needs a noise callable")
         y = self.g_a(x)
         y_shape = y.shape[2:]
         z = self.h_a(y)
-        _, z_likelihoods = self.entropy_bottleneck(z)
+        eb = self.entropy_bottleneck
+        z_noise = noise(eb.noise_shape(z)) if training else None
+        _, z_likelihoods = eb(z, training=training, noise=z_noise)
         z_offset = self._z_offset()
         z_hat = ste_round(z - z_offset) + z_offset
         latent_scales = self.h_scale_s(z_hat)
@@ -103,7 +134,10 @@ class ChannelARModule(nn.Module):
                                                      y_shape)
             mu_list.append(mu)
             scale_list.append(sigma)
-            lik_point = torch.round(y_slice - mu) + mu
+            if training:
+                lik_point = y_slice + noise(y_slice.shape)
+            else:
+                lik_point = torch.round(y_slice - mu) + mu
             y_lik.append(gaussian_likelihood(lik_point, sigma, mu))
             y_hat_slice = ste_round(y_slice - mu) + mu
             y_hat_slices.append(self._lrp(i, mean_support, y_hat_slice))
@@ -115,6 +149,10 @@ class ChannelARModule(nn.Module):
             "para": {"means": torch.cat(mu_list, dim=1), "scales": torch.cat(scale_list, dim=1),
                      "y": y},
         }
+
+    def aux_loss(self) -> torch.Tensor:
+        """The entropy bottleneck's quantile loss (the aux optimiser's)."""
+        return self.entropy_bottleneck.aux_loss()
 
     # ------------------------- codec-path pieces -------------------------
 

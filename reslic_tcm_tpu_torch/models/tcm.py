@@ -1,4 +1,4 @@
-"""LIC-TCM (port of reslic_tcm_tpu/models/tcm.py), eval path.
+"""LIC-TCM (port of reslic_tcm_tpu/models/tcm.py).
 
   g_a: RBWS(3->2N) -> [ConvTransBlock x2, RBWS] x2 -> ConvTransBlock x2 -> conv3x3(->M, s2)
   g_s: the mirror with ResidualBlockUpsample and a subpel output
@@ -9,18 +9,27 @@
 Modules are NCHW and carry the reference PyTorch state-dict names, so the
 bridge in ``utils/torch_convert.py`` fills them from the JAX package's
 parameters and a released ``.pth.tar`` loads with ``load_state_dict``.
+
+Training: with ``remat`` each ConvTransBlock runs under
+``torch.utils.checkpoint`` while autograd records (its activations are
+recomputed in the backward pass), the JAX module's ``nn.remat``.
+Drop-path is the identity (``ops/layers.py::DropPath``), as in the JAX
+module, whose Sequentials leave ``deterministic`` at its default.
 """
 
 from __future__ import annotations
 
 from typing import Sequence
 
+import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..entropy.factorized import EntropyBottleneck
 from ..ops.layers import (ResidualBlock, ResidualBlockUpsample, ResidualBlockWithStride,
-                          ResidualUnit, conv, conv1x1, subpel_conv3x3, to_nchw, to_nhwc)
+                          ResidualUnit, conv, conv1x1, records_grad, subpel_conv3x3, to_nchw,
+                          to_nhwc)
 from ..ops.window_attention import SwinBlock, SwinTransformerBlock
 from .base import ChannelARCodec, ChannelARModule
 
@@ -31,16 +40,23 @@ class ConvTransBlock(nn.Module):
     residual add."""
 
     def __init__(self, conv_dim: int, trans_dim: int, head_dim: int, window_size: int,
-                 type: str = "W"):
+                 type: str = "W", drop_path: float = 0.0, remat: bool = False):
         super().__init__()
         both = conv_dim + trans_dim
         self.conv_dim = conv_dim
+        self.remat = remat
         self.conv1_1 = conv1x1(both, both)
         self.conv1_2 = conv1x1(both, both)
         self.conv_block = ResidualBlock(conv_dim)
-        self.trans_block = SwinTransformerBlock(trans_dim, head_dim, window_size, type)
+        self.trans_block = SwinTransformerBlock(trans_dim, head_dim, window_size, type,
+                                                drop_path)
 
     def forward(self, x):
+        if self.remat and records_grad(self):
+            return checkpoint(self._forward, x, use_reentrant=False)
+        return self._forward(x)
+
+    def _forward(self, x):
         h = self.conv1_1(x)
         conv_x, trans_x = h[:, : self.conv_dim], h[:, self.conv_dim :]
         conv_x = self.conv_block(conv_x) + conv_x
@@ -82,18 +98,22 @@ class TCM(ChannelARModule):
     def __init__(self, config: Sequence[int] = (2, 2, 2, 2, 2, 2),
                  head_dim: Sequence[int] = (8, 16, 32, 32, 16, 8), N: int = 128, M: int = 320,
                  num_slices: int = 5, max_support_slices: int = 5, hyper_ch: int = 192,
-                 atten_inter_dim: int = 128):
+                 atten_inter_dim: int = 128, drop_path_rate: float = 0.0,
+                 remat: bool = False):
         super().__init__()
         self.N, self.M, self.hyper_ch = N, M, hyper_ch
         self.num_slices, self.max_support_slices = num_slices, max_support_slices
         window = 8
+        # the JAX module's schedule: each stage's i-th block takes dpr[i]
+        dpr = [float(r) for r in np.linspace(0, drop_path_rate, sum(config))]
 
         def ctb_stage(stage: int):
-            return [ConvTransBlock(N, N, head_dim[stage], window, "W" if i % 2 == 0 else "SW")
+            return [ConvTransBlock(N, N, head_dim[stage], window, "W" if i % 2 == 0 else "SW",
+                                   dpr[i], remat)
                     for i in range(config[stage])]
 
         def hyper_ctbs():
-            return [ConvTransBlock(N, N, 32, 4, "W" if i % 2 == 0 else "SW")
+            return [ConvTransBlock(N, N, 32, 4, "W" if i % 2 == 0 else "SW", 0.0, remat)
                     for i in range(config[0])]
 
         self.g_a = nn.Sequential(
@@ -132,14 +152,17 @@ class TCM(ChannelARModule):
 
 def make_tcm(N: int = 128, M: int = 320, config=(2, 2, 2, 2, 2, 2),
              head_dim=(8, 16, 32, 32, 16, 8), num_slices: int = 5, hyper_ch: int = 192,
-             atten_inter_dim: int = 128, device="cuda", seed: int = 0) -> ChannelARCodec:
+             atten_inter_dim: int = 128, device="cuda", seed: int = 0,
+             drop_path_rate: float = 0.0, remat: bool = False) -> ChannelARCodec:
     """Build a TCM codec on ``device`` with random weights drawn from
-    ``seed`` (load trained weights with ``utils.torch_convert``)."""
+    ``seed`` (load trained weights with ``utils.torch_convert``); ``remat``
+    checkpoints the ConvTransBlocks in training."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         module = TCM(config=tuple(config), head_dim=tuple(head_dim), N=N, M=M,
-                     num_slices=num_slices, hyper_ch=hyper_ch, atten_inter_dim=atten_inter_dim)
+                     num_slices=num_slices, hyper_ch=hyper_ch, atten_inter_dim=atten_inter_dim,
+                     drop_path_rate=drop_path_rate, remat=remat)
     return ChannelARCodec(module, device)

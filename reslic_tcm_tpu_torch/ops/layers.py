@@ -6,6 +6,13 @@ Module and parameter names follow the reference PyTorch state dict
 ResidualBlockUpsample reach the fused-conv kernels (``ops/fused_conv.py``)
 through their wrappers, which run the kernel on a CUDA tensor and the plain
 PyTorch version on a CPU tensor.
+
+Routing, for these blocks and the window-attention modules: while autograd
+records (``records_grad``: grad mode on and a parameter that wants a
+gradient) a module takes its composed branch, the JAX package's unfused
+layers, on either device; otherwise it calls the kernel wrapper. The
+kernels have no backward, and their wrappers raise on tensors that want a
+gradient, so a routing mistake fails loudly.
 """
 
 from __future__ import annotations
@@ -25,6 +32,28 @@ def gelu(x):
 
 def leaky_relu(x):
     return F.leaky_relu(x, negative_slope=0.01)
+
+
+def records_grad(module: nn.Module) -> bool:
+    """True while autograd records through ``module``: grad mode is on and
+    one of its parameters wants a gradient (the composed branch's cue)."""
+    return torch.is_grad_enabled() and any(p.requires_grad for p in module.parameters())
+
+
+class DropPath(nn.Module):
+    """Per-sample stochastic depth, as the JAX package's DropPath is called:
+    its one caller, SwinTransformerBlock, sits in the transforms'
+    Sequentials, which pass only x, so ``deterministic`` keeps its default
+    and drop-path is the identity at any rate. The module keeps ``rate``
+    for the schedule's names; its random branch is not ported, since
+    neither package draws it."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = float(rate)
+
+    def forward(self, x):
+        return x
 
 
 def to_nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -123,7 +152,7 @@ class ResidualUnit(nn.Module):
 class ResidualBlock(nn.Module):
     """conv3x3 -> lrelu -> conv3x3 -> lrelu + x (CompressAI ResidualBlock
     with in_ch == out_ch, the ConvTransBlock conv branch), as one fused
-    kernel (B2) on the card."""
+    kernel (B2) on the card; composed while autograd records."""
 
     def __init__(self, channels: int):
         super().__init__()
@@ -131,6 +160,8 @@ class ResidualBlock(nn.Module):
         self.conv2 = conv3x3(channels, channels)
 
     def forward(self, x):
+        if records_grad(self):
+            return leaky_relu(self.conv2(leaky_relu(self.conv1(x)))) + x
         out = fused_residual_block(
             to_nhwc(x), self.conv1.weight, self.conv1.bias,
             self.conv2.weight, self.conv2.bias,
@@ -152,6 +183,8 @@ class ResidualBlockWithStride(nn.Module):
     def forward(self, x):
         out = leaky_relu(self.conv1(x))
         skip = self.skip(x) if self.skip is not None else x
+        if records_grad(self):
+            return self.gdn(self.conv2(out)) + skip
         beta, gamma = self.gdn.derived()
         res = fused_conv_gdn(
             to_nhwc(out), self.conv2.weight, self.conv2.bias, gamma, beta,
@@ -174,6 +207,8 @@ class ResidualBlockUpsample(nn.Module):
     def forward(self, x):
         out = leaky_relu(self.subpel_conv(x))
         identity = self.upsample(x)
+        if records_grad(self):
+            return self.igdn(self.conv(out)) + identity
         beta, gamma = self.igdn.derived()
         res = fused_conv_gdn(
             to_nhwc(out), self.conv.weight, self.conv.bias, gamma, beta,

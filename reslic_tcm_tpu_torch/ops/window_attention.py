@@ -15,6 +15,13 @@ Routing follows the JAX package:
 * WindowAttention on a batch of windows is ``fused_qkv_attention`` (kernel
   B4).
 
+While autograd records (``layers.records_grad``) each module takes its
+composed branch instead, on either device, as the JAX package does in
+training: SwinTransformerBlock LN -> WMSA (-inf mask) -> DropPath -> LN ->
+MLP -> DropPath, WinBasedAttention its pad/roll/-100-mask path, and
+WindowAttention the composed qkv -> softmax -> proj (B4's plain version on
+the live parameters).
+
 Each kernel wrapper runs the kernel on a CUDA tensor and its plain PyTorch
 version on a CPU tensor. Each module builds its kernel's weights (the
 transposed, q-scaled matrices and the gathered relative-position bias) once,
@@ -32,8 +39,8 @@ from torch import nn
 
 from .flash_window_attn import (KERNEL_WINDOW, flash_window_block, prepare_window_block,
                                 shift_window_mask, window_partition, window_reverse)
-from .layers import ResidualUnit, conv1x1, to_nchw, to_nhwc
-from .qkv_attention import fused_qkv_attention, prepare_qkv_attention
+from .layers import DropPath, ResidualUnit, conv1x1, records_grad, to_nchw, to_nhwc
+from .qkv_attention import fused_qkv_attention, plain_qkv_attention, prepare_qkv_attention
 
 
 def cached(owner: nn.Module, name: str, sources, make):
@@ -114,22 +121,26 @@ class WMSA(nn.Module):
 
 
 class SwinTransformerBlock(nn.Module):
-    """LN -> WMSA -> +res; LN -> MLP(4x, GELU) -> +res (the reference's
-    ``Block``), NHWC, eval only (drop-path is the identity)."""
+    """LN -> WMSA -> DropPath -> +res; LN -> MLP(4x, GELU) -> DropPath ->
+    +res (the reference's ``Block``), NHWC. A window-8 block runs as kernel
+    B1 unless autograd records; drop-path is the identity, as in the JAX
+    module's deterministic call."""
 
-    def __init__(self, dim: int, head_dim: int, window_size: int, type: str = "W"):
+    def __init__(self, dim: int, head_dim: int, window_size: int, type: str = "W",
+                 drop_path: float = 0.0):
         super().__init__()
         self.ln1 = nn.LayerNorm(dim)
         self.msa = WMSA(dim, head_dim, window_size, type)
         self.ln2 = nn.LayerNorm(dim)
         self.mlp = nn.Sequential(nn.Linear(dim, 4 * dim), nn.GELU(), nn.Linear(4 * dim, dim))
+        self.drop_path = DropPath(drop_path)
 
     def forward(self, x):
         msa = self.msa
         w = msa.window_size
-        if w != KERNEL_WINDOW:
-            x = x + msa(self.ln1(x))
-            return x + self.mlp(self.ln2(x))
+        if w != KERNEL_WINDOW or records_grad(self):
+            x = x + self.drop_path(msa(self.ln1(x)))
+            return x + self.drop_path(self.mlp(self.ln2(x)))
         shifted = msa.type != "W"
         if shifted:
             x = torch.roll(x, shifts=(-(w // 2), -(w // 2)), dims=(1, 2))
@@ -160,11 +171,11 @@ class SwinBlock(nn.Module):
     """W + SW block pair on an NHWC map. Pads to a window multiple and crops
     back (the JAX package's behaviour, not the reference's no-crop bug)."""
 
-    def __init__(self, dim: int, head_dim: int, window_size: int):
+    def __init__(self, dim: int, head_dim: int, window_size: int, drop_path: float = 0.0):
         super().__init__()
         self.window_size = window_size
-        self.block_1 = SwinTransformerBlock(dim, head_dim, window_size, "W")
-        self.block_2 = SwinTransformerBlock(dim, head_dim, window_size, "SW")
+        self.block_1 = SwinTransformerBlock(dim, head_dim, window_size, "W", drop_path)
+        self.block_2 = SwinTransformerBlock(dim, head_dim, window_size, "SW", drop_path)
 
     def forward(self, x):
         w = self.window_size
@@ -225,6 +236,9 @@ class WindowAttention(nn.Module):
     def forward(self, x, mask=None):
         """x: [B_, N, C] windows; mask: [nW, N, N] additive (window i takes
         mask[i % nW]) or None."""
+        if records_grad(self):
+            return plain_qkv_attention(x, self.qkv.weight, self.qkv.bias, self.rel_bias(),
+                                       self.proj.weight, self.proj.bias, mask)
         args, prepared = self.kernel_weights()
         return fused_qkv_attention(x.contiguous(), *args, mask, prepared=prepared)
 
@@ -257,7 +271,7 @@ class WinBasedAttention(nn.Module):
     def forward(self, x):
         w, s = self.window_size, self.shift_size
         if w % KERNEL_WINDOW == 0 and s in (0, w // 2) and x.shape[1] % w == 0 \
-                and x.shape[2] % w == 0:
+                and x.shape[2] % w == 0 and not records_grad(self):
             return self._fused(x)
         shortcut = x
         oh, ow = x.shape[1], x.shape[2]

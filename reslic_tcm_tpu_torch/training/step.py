@@ -1,0 +1,99 @@
+"""Train and eval steps (port of reslic_tcm_tpu/training/step.py).
+
+One train step is the JAX step's sequence: the training forward and the
+rate-distortion loss, backward, optax's global-norm clip, the main Adam
+step; then the aux loss at the updated parameters, its backward (only
+``quantiles`` gets a gradient) and the aux Adam step. While autograd
+records, every layer runs its composed branch (``ops/layers.py``), so the
+kernels are not on this path; ``eval_step`` runs the eval forward under
+``torch.no_grad()``, which on the card goes through them.
+
+The noise of step k comes from a ``torch.Generator`` on the batch's device
+seeded from (seed, k) (``step_noise``), as the JAX trainer keys step k with
+``PRNGKey(k)``: a run resumed from a checkpoint repeats the uninterrupted
+one. Both steps run in full fp32 (``fp32_numerics``) whatever the caller's
+TF32 flags.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..models.base import ChannelARModule, fp32_numerics, uniform_noise
+from .loss import rate_distortion_loss
+from .optimizer import clip_by_global_norm, configure_optimizers
+
+
+@dataclasses.dataclass
+class TrainState:
+    module: ChannelARModule
+    optimizer: torch.optim.Optimizer  # main Adam: all but quantiles
+    aux_optimizer: torch.optim.Optimizer  # aux Adam: quantiles
+    clip_max_norm: float = 1.0
+    step: int = 0
+
+
+def create_train_state(module: ChannelARModule, learning_rate: float = 1e-4,
+                       aux_learning_rate: float = 1e-3,
+                       clip_max_norm: float = 1.0) -> TrainState:
+    optimizer, aux_optimizer = configure_optimizers(module, learning_rate, aux_learning_rate)
+    return TrainState(module, optimizer, aux_optimizer, clip_max_norm)
+
+
+def step_seed(seed: int, step: int) -> int:
+    """A 63-bit generator seed from (seed, step)."""
+    return int(np.random.SeedSequence([int(seed), int(step)]).generate_state(1, np.uint64)[0]
+               >> np.uint64(1))
+
+
+def step_noise(seed: int, step: int, device):
+    """The training forward's noise for step ``step``: U(-0.5, 0.5) from a
+    generator on ``device`` seeded from (seed, step)."""
+    generator = torch.Generator(device=device)
+    generator.manual_seed(step_seed(seed, step))
+    return uniform_noise(generator)
+
+
+@fp32_numerics()
+def train_step(state: TrainState, batch: torch.Tensor, lmbda: float, noise,
+               loss_type: str = "mse") -> dict:
+    """One step on ``batch`` (NCHW in [0, 1], on the module's device) with
+    the ``noise`` callable of the training forward. Updates the state in
+    place; returns the metrics as 0-d tensors: loss, bpp_loss, mse_loss (or
+    ms_ssim_loss), grad_norm (the main gradients' global norm before the
+    clip) and aux_loss (after the aux step)."""
+    module = state.module
+    state.optimizer.zero_grad(set_to_none=True)
+    out = module(batch, training=True, noise=noise)
+    losses = rate_distortion_loss(out, batch, lmbda, loss_type)
+    losses["loss"].backward()
+    grad_norm = clip_by_global_norm(state.optimizer.param_groups[0]["params"],
+                                    state.clip_max_norm)
+    state.optimizer.step()
+
+    state.aux_optimizer.zero_grad(set_to_none=True)
+    module.aux_loss().backward()
+    state.aux_optimizer.step()
+
+    metrics = {k: v.detach() for k, v in losses.items()}
+    metrics["grad_norm"] = grad_norm
+    with torch.no_grad():
+        metrics["aux_loss"] = module.aux_loss()
+    state.step += 1
+    return metrics
+
+
+@torch.no_grad()
+@fp32_numerics()
+def eval_step(module: ChannelARModule, batch: torch.Tensor, lmbda: float,
+              loss_type: str = "mse") -> dict:
+    """The eval forward's losses on ``batch`` (NCHW) and the PSNR of the
+    clipped x_hat."""
+    out = module(batch)
+    losses = rate_distortion_loss(out, batch, lmbda, loss_type)
+    mse = torch.mean((torch.clamp(out["x_hat"], 0, 1) - batch) ** 2)
+    losses["psnr"] = -10.0 * torch.log10(mse)
+    return losses

@@ -418,3 +418,87 @@ def test_stream_encoded_with_tf32_on_decodes_exactly_with_it_off(cuda):
     dec = codec.decompress(enc["strings"], enc["shape"])
     assert torch.equal(enc["y_hat"], dec["y_hat"])
     assert not torch.equal(y_hat_tf32, dec["y_hat"])
+
+
+# ------------------------------- training -------------------------------
+
+SNAPSHOT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "checkpoints", "tcm_s_lambda0.013_r5.npz")
+
+
+def _tcm_s(device):
+    from reslic_tcm_tpu_torch.models.tcm import make_tcm
+    from reslic_tcm_tpu_torch.utils.torch_convert import load_snapshot_into
+
+    module = make_tcm(N=64, M=320, device=device, remat=True).module
+    load_snapshot_into(module, SNAPSHOT)
+    return module
+
+
+def _train_step_card_vs_cpu(cuda):
+    """One TCM-S train step (committed weights, 1x128x128, lambda 0.013) on
+    the card and on the CPU with the same noise, drawn on the CPU: the two
+    metric dicts and the card's train state."""
+    from reslic_tcm_tpu_torch.data.synthetic import synth_image
+    from reslic_tcm_tpu_torch.models.base import replayed_noise, uniform_noise
+    from reslic_tcm_tpu_torch.ops.launches import launch_counts
+    from reslic_tcm_tpu_torch.training.step import create_train_state, train_step
+
+    img = synth_image(np.random.default_rng(4), 128, 128)[None]
+    x = torch.from_numpy(np.ascontiguousarray(img.transpose(0, 3, 1, 2)))
+    drawn = []
+    draw = uniform_noise(torch.Generator().manual_seed(0))
+    want = train_step(create_train_state(_tcm_s("cpu")), x, 0.013,
+                      lambda shape: drawn.append(draw(shape)) or drawn[-1])
+    state = create_train_state(_tcm_s(cuda))
+    before = launch_counts()
+    got = train_step(state, x.to(cuda), 0.013, replayed_noise([u.to(cuda) for u in drawn]))
+    assert launch_counts() == before  # composed under autograd
+    return got, want, state
+
+
+def _assert_steps_agree(got, want):
+    for key, tol in (("loss", 1e-4), ("bpp_loss", 1e-4), ("grad_norm", 1e-3)):
+        a, b = float(got[key]), float(want[key])
+        assert np.isfinite(a) and abs(a - b) <= tol * abs(b), (key, a, b)
+
+
+@pytest.mark.cuda
+def test_tcm_train_step_on_card_matches_cpu(cuda):
+    got, want, _ = _train_step_card_vs_cpu(cuda)
+    _assert_steps_agree(got, want)
+
+
+@pytest.mark.cuda
+def test_kernel_forward_after_a_train_step_matches_cpu(cuda):
+    """The cached kernel weights follow the optimiser: after a step the
+    no_grad forward on the card (B1, B2, B3 at the forward's counts) equals
+    the CPU plain forward at the updated weights."""
+    from reslic_tcm_tpu_torch.data.synthetic import synth_image
+    from reslic_tcm_tpu_torch.ops.launches import launch_counts, launches_since
+
+    _, _, state = _train_step_card_vs_cpu(cuda)
+    img = synth_image(np.random.default_rng(5), 128, 128)[None]
+    x = torch.from_numpy(np.ascontiguousarray(img.transpose(0, 3, 1, 2)))
+    cpu = _tcm_s("cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in state.module.state_dict().items()})
+    before = launch_counts()
+    with torch.no_grad():
+        got = state.module(x.to(cuda))["x_hat"].cpu()
+        assert launches_since(before) == {"flash_window_block": 32, "fused_residual_block": 18,
+                                          "fused_conv_gdn": 9, "fused_qkv_attention": 0}
+        want = cpu(x)["x_hat"]
+    err_ok(got, want, TOL_SLICE)
+
+
+@pytest.mark.cuda
+def test_train_step_pins_fp32_under_a_callers_tf32(cuda):
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got, want, _ = _train_step_card_vs_cpu(cuda)
+        assert torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    _assert_steps_agree(got, want)
