@@ -60,6 +60,10 @@
 //    gathers the heads' output over x (qkv no longer needs it) and reads x's
 //    residual from global memory again in proj's epilogue: 223 KB at C =
 //    192, K = 1 (2 stages), 112 KB at K = 4 (3 stages, two CTAs per SM).
+//    With the MLP at C = 192 one CTA would need 266 KB (the two window
+//    buffers 98 KB, qkv and the scores 166 KB), more than a block may have,
+//    so that width always runs on a cluster of at least 2: 200 KB per CTA
+//    at K = 2.
 // 3. Results independent of K, bit for bit. Every output element is summed
 //    by one thread in one fmaf chain over k ascending (the second MLP layer
 //    runs its chain across the hidden steps, whose units are gathered in
@@ -399,13 +403,15 @@ cudaError_t launch_swin(const SwinArgs& a, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// Instances (C, head_dim, K) of the LN+MLP flavour: one CTA per window, and
-// the cluster that the wrapper (ops/flash_window_attn.py::max_cluster) gives
-// each (C, head_dim).
+// Instances (C, head_dim, K) of the LN+MLP flavour: the smallest cluster
+// (ops/flash_window_attn.py::min_cluster: one CTA per window, or two at
+// C = 192, whose CTA does not fit one SM's shared memory alone) and the
+// largest (max_cluster) for each (C, head_dim).
 #define SWIN_INSTANCES(X)                                                                  \
   X(64, 8, 1) X(64, 8, 8) X(64, 16, 1) X(64, 16, 4) X(64, 32, 1) X(64, 32, 2) X(96, 8, 1)  \
   X(96, 8, 4) X(96, 16, 1) X(96, 16, 2) X(96, 32, 1) X(128, 8, 1) X(128, 8, 8)             \
-  X(128, 16, 1) X(128, 16, 8) X(128, 32, 1) X(128, 32, 4)
+  X(128, 16, 1) X(128, 16, 8) X(128, 32, 1) X(128, 32, 4) X(192, 8, 2) X(192, 8, 8)        \
+  X(192, 16, 2) X(192, 16, 4) X(192, 32, 2)
 
 // Instances (C, head_dim, K) of the attention-only flavour: every cluster
 // that ops/flash_window_attn.py::ATTN_CLUSTERS lists for (C, head_dim).
@@ -416,12 +422,12 @@ cudaError_t launch_swin(const SwinArgs& a, int B, cudaStream_t stream) {
 
 extern "C" {
 
-// x, out: [B][H][W][C] (H, W multiples of 8; C 64, 96 or 128; head_dim 8,
-// 16 or 32). wqkv: [C][3C] with the q columns pre-scaled; bqkv: [3C];
-// wproj: [C][C]; w1: [C][4C]; w2: [4C][C] (all [in][out], 16-byte aligned);
-// relb: [C/head_dim][64][64]; ln*, bproj, b2: [C]; b1: [4C]. cluster: CTAs
-// per window, one of SWIN_INSTANCES' K for (C, head_dim); the result does
-// not depend on it.
+// x, out: [B][H][W][C] (H, W multiples of 8; C 64, 96, 128 or 192;
+// head_dim 8, 16 or 32). wqkv: [C][3C] with the q columns pre-scaled;
+// bqkv: [3C]; wproj: [C][C]; w1: [C][4C]; w2: [4C][C] (all [in][out],
+// 16-byte aligned); relb: [C/head_dim][64][64]; ln*, bproj, b2: [C]; b1:
+// [4C]. cluster: CTAs per window, one of SWIN_INSTANCES' K for (C,
+// head_dim); the result does not depend on it.
 int flash_window_block_f32(const float* x, float* out, const float* wqkv, const float* bqkv,
                            const float* wproj, const float* bproj, const float* ln1s,
                            const float* ln1b, const float* relb, const float* ln2s,

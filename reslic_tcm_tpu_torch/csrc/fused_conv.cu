@@ -12,8 +12,8 @@
 // Both convolutions use torch padding 1, slope 0.01, NHWC activations and
 // HWIO weights ([3][3][Cin][Cout] = a [9C][C] matrix).
 //
-// What bounds it on this card: at TCM's widths (C = 64..256) a 3x3 conv does
-// 2*9*C = 1152..4608 FLOP for each 8 bytes of activation it reads and writes,
+// What bounds it on this card: at TCM's widths (C = 64..384) a 3x3 conv does
+// 2*9*C = 1152..6912 FLOP for each 8 bytes of activation it reads and writes,
 // far above the 20 FLOP/byte where the H100's fp32 CUDA cores (67 TFLOP/s)
 // meet its 3.35 TB/s memory: operations bind it. So the kernel is a GEMM
 // tuned for the FMA pipe: per image, M = H*W output pixels, N = C output
@@ -324,7 +324,7 @@ int conv_gdn_tiled(const float* x, const float* w, const float* b, const float* 
 extern "C" {
 
 // x, mid, out: [B][H][W][C]; w1, w2: [3][3][C][C] (HWIO); b1, b2: [C].
-// C is 64, 96 or 128; tile 0 = large, 1 = small. mid is scratch.
+// C is 64, 96, 128 or 192; tile 0 = large, 1 = small. mid is scratch.
 int fused_residual_block_f32(const float* x, const float* w1, const float* b1, const float* w2,
                              const float* b2, float* mid, float* out, int B, int H, int W, int C,
                              int tile, void* stream) {
@@ -333,12 +333,13 @@ int fused_residual_block_f32(const float* x, const float* w1, const float* b1, c
   if (C == 64) return residual_block_tiled<64>(x, w1, b1, w2, b2, mid, out, M, H, W, tile, s);
   if (C == 96) return residual_block_tiled<96>(x, w1, b1, w2, b2, mid, out, M, H, W, tile, s);
   if (C == 128) return residual_block_tiled<128>(x, w1, b1, w2, b2, mid, out, M, H, W, tile, s);
+  if (C == 192) return residual_block_tiled<192>(x, w1, b1, w2, b2, mid, out, M, H, W, tile, s);
   return cudaErrorInvalidValue;
 }
 
 // x, skip, y, out: [B][H][W][C]; w: [3][3][C][C] (HWIO); b, beta: [C];
 // gt: [C][C] = gamma^T (gt[j][k] weighs input channel j into output k).
-// C is 64, 128, 192 or 256; tile 0 = large, 1 = small. y is scratch.
+// C is 64, 128, 192, 256 or 384; tile 0 = large, 1 = small. y is scratch.
 int fused_conv_gdn_f32(const float* x, const float* w, const float* b, const float* gt,
                        const float* beta, const float* skip, float* y, float* out, int B, int H,
                        int W, int C, int inverse, int tile, void* stream) {
@@ -351,6 +352,8 @@ int fused_conv_gdn_f32(const float* x, const float* w, const float* b, const flo
     return conv_gdn_tiled<192>(x, w, b, gt, beta, skip, y, out, M, H, W, inverse, tile, s);
   if (C == 256)
     return conv_gdn_tiled<256>(x, w, b, gt, beta, skip, y, out, M, H, W, inverse, tile, s);
+  if (C == 384)
+    return conv_gdn_tiled<384>(x, w, b, gt, beta, skip, y, out, M, H, W, inverse, tile, s);
   return cudaErrorInvalidValue;
 }
 

@@ -4,8 +4,9 @@
 registry's constructor arguments and returns the same five-tuple
 (codec, gaussian_configuration, annealing_strategy_gaussian,
 factorized_configuration, annealing_strategy_factorized). The port builds
-TCM and WACNN; every other registry name raises ``NotImplementedError``
-naming the ROADMAP item that brings it.
+TCM, WACNN and the Balle-2018 family (factorized, scale_hyperprior,
+mean_scale_hyperprior); every other registry name raises
+``NotImplementedError`` naming the ROADMAP item that brings it.
 """
 
 from __future__ import annotations
@@ -18,10 +19,10 @@ NOT_PORTED = {
     "scale_gain": "ROADMAP queue A item 11 (gain codecs)",
     "wacnn_gain": "ROADMAP queue A item 11 (gain codecs)",
     "scale_gain_sc": "ROADMAP queue A item 11 (gain codecs)",
-    "factorized": "ROADMAP queue A item 9 (Balle-2018)",
-    "scale_hyperprior": "ROADMAP queue A item 9 (Balle-2018)",
-    "mean_scale_hyperprior": "ROADMAP queue A item 9 (Balle-2018)",
 }
+# the Balle-2018 registry names -> make_balle's kind
+BALLE_KINDS = {"factorized": "factorized", "scale_hyperprior": "scale",
+               "mean_scale_hyperprior": "mean-scale"}
 
 
 def get_model(args, device="cuda"):
@@ -34,6 +35,11 @@ def get_model(args, device="cuda"):
         from .wacnn import make_wacnn
 
         return make_wacnn(N=args.N, M=args.M, device=device), None, None, None, None
+    if name in BALLE_KINDS:
+        from .balle2018 import make_balle
+
+        codec = make_balle(BALLE_KINDS[name], N=args.N, M=args.M, device=device)
+        return codec, None, None, None, None
     if name == "tcm":
         from .tcm import make_tcm
 

@@ -94,7 +94,7 @@ class WACNN(ChannelARModule):
 
 
 @torch.no_grad()
-def _draw_weights(module: nn.Module, gen: torch.Generator) -> None:
+def draw_weights(module: nn.Module, gen: torch.Generator) -> None:
     """Redraw every randomly initialised parameter from ``gen``, in module
     order, with torch's default distributions: convolution and linear
     weights and biases U(-1/sqrt(fan_in), 1/sqrt(fan_in)) (fan_in over the
@@ -131,5 +131,5 @@ def make_wacnn(N: int = 192, M: int = 320, device="cuda", seed: int = 0,
         raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
     with torch.random.fork_rng(devices=[]):  # leave the caller's global RNG as it was
         module = WACNN(N=N, M=M, **ladders)
-    _draw_weights(module, torch.Generator().manual_seed(seed))
+    draw_weights(module, torch.Generator().manual_seed(seed))
     return ChannelARCodec(module, device)

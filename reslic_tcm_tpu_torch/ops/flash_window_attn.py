@@ -13,9 +13,10 @@ written with explicit einsums. Launches of either flavour are counted in
 
 Both flavours split each window over a cluster of K CTAs, K chosen from
 the shape alone: the LN+MLP flavour when the grid would be small
-(``cluster_size``: fewer than ``CLUSTER_BELOW_WINDOWS`` windows x batch),
-the attention-only flavour by ``attn_cluster_size``. The output is the same,
-bit for bit, for every K.
+(``cluster_size``: fewer than ``CLUSTER_BELOW_WINDOWS`` windows x batch)
+and at C=192 always (``min_cluster``: its window needs two CTAs' shared
+memory), the attention-only flavour by ``attn_cluster_size``. The output is
+the same, bit for bit, for every K.
 
 Weights come in torch layout ([out, in] linears) straight from the modules;
 ``prepare_window_block`` gives them in the kernel's layout, which a caller
@@ -36,13 +37,16 @@ from . import build
 NEG_INF = -1e9
 KERNEL_WINDOW = 8
 # (C, head_dim) instances of the kernel, per flavour
-KERNEL_SHAPES_FULL = {(c, hd) for c in (64, 96, 128) for hd in (8, 16, 32)}  # LN1 + MLP
+KERNEL_SHAPES_FULL = {(c, hd) for c in (64, 96, 128, 192) for hd in (8, 16, 32)}  # LN1 + MLP
 KERNEL_SHAPES_ATTN = {(128, 16), (192, 24)}  # with_ln=False, mlp=None
 # LN+MLP: split each window over a cluster below this many windows x batch.
 # On an H100 (kernel device time, PERF.md) the split of (128, 16) over 8
 # CTAs pays at 4 and 24 windows (TCM's SWAtten at 768x512) and loses from
 # 48 windows on, where one CTA per window is faster.
 CLUSTER_BELOW_WINDOWS = 32
+# C=192 (whose window needs a cluster of at least 2): the largest split
+# pays while the grid has at most this many CTAs (``cluster_size``)
+CLUSTER_CTAS_192 = 64
 
 
 # attention-only: the clusters with an instance, for each (C, head_dim) of
@@ -68,10 +72,26 @@ def max_cluster(c: int, head_dim: int) -> int:
     return next(k for k in (8, 4, 2, 1) if heads % k == 0)
 
 
+def min_cluster(c: int) -> int:
+    """The smallest cluster of the LN+MLP kernel at C channels: 2 at
+    C=192, whose window does not fit one CTA's shared memory (266 KB against
+    227 KB; 200 KB per CTA split in two), else 1."""
+    return 2 if c == 192 else 1
+
+
 def cluster_size(c: int, head_dim: int, windows: int) -> int:
     """CTAs per window of the LN+MLP kernel for ``windows`` windows x batch:
-    the largest split below CLUSTER_BELOW_WINDOWS, else none."""
-    return max_cluster(c, head_dim) if windows < CLUSTER_BELOW_WINDOWS else 1
+    the largest split below CLUSTER_BELOW_WINDOWS, else one CTA. At C=192
+    the largest split while it makes at most CLUSTER_CTAS_192 CTAs, else
+    two: on an H100 (kernel device time over 10 interleaved rounds,
+    PERF.md §6) 8 beats 2 at 4 windows (hd 8: 0.138 against 0.227 ms) and
+    loses at 16 (0.264 against 0.227), 4 beats 2 at 16 (hd 16: 0.173
+    against 0.215) and loses at 32 (0.346 against 0.216), and 2 wins from
+    there on (1536 windows: 5.37 against 13.00 at 8)."""
+    k = max_cluster(c, head_dim)
+    if c == 192:
+        return k if windows * k <= CLUSTER_CTAS_192 else min_cluster(c)
+    return k if windows < CLUSTER_BELOW_WINDOWS else 1
 
 
 def window_partition(x: torch.Tensor, w: int) -> torch.Tensor:
@@ -187,7 +207,7 @@ def flash_window_block(x, wqkv, bqkv, wproj, bproj, ln_scale, ln_bias, rel_bias,
     w1 [4C, C], b1 [4C], w2 [C, 4C], b2 [C]) or None. The kernel has two
     flavours: LN1 and the MLP (``with_ln=True`` and an ``mlp``), or neither
     (``with_ln=False, mlp=None``; ln_* may be None). ``cluster`` forces the
-    kernel's CTAs per window (LN+MLP: 1 or ``max_cluster``, default
+    kernel's CTAs per window (LN+MLP: ``min_cluster`` or ``max_cluster``, default
     ``cluster_size``; attention-only: one of ``ATTN_CLUSTERS``, default
     ``attn_cluster_size``); the result is the same for each. ``prepared``:
     ``prepare_window_block`` of these weights, built by the caller (the
@@ -211,7 +231,7 @@ def flash_window_block(x, wqkv, bqkv, wproj, bproj, ln_scale, ln_bias, rel_bias,
         raise ValueError("flash_window_block kernel reads x in 16-byte vectors: x must be "
                          "16-byte aligned")
     windows = bsz * (h // window) * (wd // window)
-    clusters = (1, max_cluster(c, head_dim)) if full else ATTN_CLUSTERS
+    clusters = (min_cluster(c), max_cluster(c, head_dim)) if full else ATTN_CLUSTERS
     if cluster is None:
         cluster = (cluster_size if full else attn_cluster_size)(c, head_dim, windows)
     elif cluster not in clusters:

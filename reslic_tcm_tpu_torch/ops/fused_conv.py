@@ -27,10 +27,10 @@ import torch.nn.functional as F
 from . import build
 
 _NEG_SLOPE = 0.01
-# channel counts each kernel has an instance for (TCM N=64, 96 and 128 run
-# B2 at C = N and B3 at C = 2N)
-KERNEL_CHANNELS = {"fused_residual_block": (64, 96, 128),
-                   "fused_conv_gdn": (64, 128, 192, 256)}
+# channel counts each kernel has an instance for (TCM N=64, 96, 128 and 192
+# run B2 at C = N and B3 at C = 2N)
+KERNEL_CHANNELS = {"fused_residual_block": (64, 96, 128, 192),
+                   "fused_conv_gdn": (64, 128, 192, 256, 384)}
 # the kernel's tile instances, in the order of the C entries' `tile` argument
 TILES = ("large", "small")
 SMS = 132  # streaming multiprocessors of an H100 SXM

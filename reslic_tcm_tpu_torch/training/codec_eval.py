@@ -17,8 +17,10 @@ from ..utils.metrics import ms_ssim, psnr
 
 
 def bpp_calculation(num_pixels: int, strings) -> tuple[float, float, float]:
-    """(total, hyper, main) bpp from stream lengths."""
-    bpp_hyper = sum(len(s) for s in strings[1]) * 8.0 / num_pixels
+    """(total, hyper, main) bpp from stream lengths. A codec with one stream
+    group (FactorizedPrior: y alone) has a hyper bpp of 0; the JAX function
+    reads ``strings[1]`` whatever the codec and raises there."""
+    bpp_hyper = sum(len(s) for s in strings[1]) * 8.0 / num_pixels if len(strings) > 1 else 0.0
     bpp_main = len(strings[0][0]) * 8.0 / num_pixels
     return bpp_hyper + bpp_main, bpp_hyper, bpp_main
 

@@ -21,22 +21,23 @@ import dataclasses
 
 import numpy as np
 import torch
+from torch import nn
 
-from ..models.base import ChannelARModule, fp32_numerics, uniform_noise
+from ..models.base import fp32_numerics, uniform_noise
 from .loss import rate_distortion_loss
 from .optimizer import clip_by_global_norm, configure_optimizers
 
 
 @dataclasses.dataclass
 class TrainState:
-    module: ChannelARModule
+    module: nn.Module  # a ChannelARModule or a Balle-2018 module
     optimizer: torch.optim.Optimizer  # main Adam: all but quantiles
     aux_optimizer: torch.optim.Optimizer  # aux Adam: quantiles
     clip_max_norm: float = 1.0
     step: int = 0
 
 
-def create_train_state(module: ChannelARModule, learning_rate: float = 1e-4,
+def create_train_state(module: nn.Module, learning_rate: float = 1e-4,
                        aux_learning_rate: float = 1e-3,
                        clip_max_norm: float = 1.0) -> TrainState:
     optimizer, aux_optimizer = configure_optimizers(module, learning_rate, aux_learning_rate)
@@ -88,7 +89,7 @@ def train_step(state: TrainState, batch: torch.Tensor, lmbda: float, noise,
 
 @torch.no_grad()
 @fp32_numerics()
-def eval_step(module: ChannelARModule, batch: torch.Tensor, lmbda: float,
+def eval_step(module: nn.Module, batch: torch.Tensor, lmbda: float,
               loss_type: str = "mse") -> dict:
     """The eval forward's losses on ``batch`` (NCHW) and the PSNR of the
     clipped x_hat."""

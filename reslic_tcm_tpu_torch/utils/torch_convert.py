@@ -12,6 +12,12 @@ its converter uses, run the other way:
   LayerNorm scale -> weight; GDN, entropy-bottleneck chain and relative
   position tables copy as they are.
 
+The same table carries TCM, WACNN and the Balle-2018 family (g_a/g_s
+convolutions and Deconvs, GDN beta/gamma, h_a/h_s, the entropy
+bottleneck): their flax paths are Sequential indices over bare Conv,
+Deconv and GDN layers (``g_a/layers_0/conv/kernel`` -> ``g_a.0.weight``,
+``g_s/layers_0/kernel`` -> a Deconv's ``g_s.0.weight``).
+
 ``load_snapshot`` reads the committed fp16 snapshots
 (``checkpoints/*.npz``: one array per '/'-joined flax parameter path) and
 upcasts them to float32.

@@ -6,10 +6,10 @@ CUDA device). No JAX here: the card's machine has none, so run
 (``--noconftest`` skips tests/conftest.py, which imports JAX).
 
 Each kernel is held against its plain PyTorch version on the same CUDA
-tensors, with TF32 off, at every width of TCM N=64/96/128 and WACNN
+tensors, with TF32 off, at every width of TCM N=64/96/128/192 and WACNN
 N=128/192, at shapes of their main paths and at ragged ones.
 Tolerance 1e-4 * max(1, max |plain|): the kernels sum in another fixed
-order than cuDNN/cuBLAS, over up to 9*128 = 1152 terms per output.
+order than cuDNN/cuBLAS, over up to 9*384 = 3456 terms per output.
 """
 
 from __future__ import annotations
@@ -106,6 +106,36 @@ def test_b1_kernel_is_bit_identical_across_cluster_sizes(cuda, shifted, c, head_
             PF.flash_window_block(xc, *args, **kw, cluster=3)
     assert torch.equal(one, split)
     err_ok(one.cpu().numpy(), want.cpu().numpy(), TOL_CARD)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shifted", [False, True])
+@pytest.mark.parametrize("head_dim,hw", [(8, (16, 16)), (8, (32, 32)), (16, (16, 24)),
+                                         (32, (8, 16)), (8, (64, 64))])
+def test_b1_kernel_at_192_channels_matches_plain_for_every_cluster(cuda, shifted, head_dim,
+                                                                   hw):
+    """TCM N=192's LN+MLP instances: every cluster the kernel has at C=192
+    (2 and the largest: one CTA per window does not fit) gives the same
+    bits, agrees with the plain version, and the wrapper's own choice
+    launches the kernel; cluster 1 has no instance and raises."""
+    c = 192
+    x, wts = attn_inputs(c + head_dim, 2, *hw, c)
+    rel = np.random.default_rng(c + 1).normal(0, 0.5, (c // head_dim, 64, 64)).astype(np.float32)
+    args = port_attn_args(wts, rel, lambda t: t.to(cuda))
+    xc = torch.from_numpy(x).to(cuda)
+    kw = dict(head_dim=head_dim, window=8, shifted=shifted)
+    ks = sorted({PF.min_cluster(c), PF.max_cluster(c, head_dim)})
+    with torch.no_grad():
+        want = PF.plain_window_block(xc, *args, **kw)
+        before = PF.flash_window_block.launches
+        chosen = PF.flash_window_block(xc, *args, **kw)
+        outs = [PF.flash_window_block(xc, *args, **kw, cluster=k) for k in ks]
+        torch.cuda.synchronize()
+        assert PF.flash_window_block.launches == before + 1 + len(ks)
+        with pytest.raises(ValueError):  # one CTA per window: no instance at C=192
+            PF.flash_window_block(xc, *args, **kw, cluster=1)
+    assert all(torch.equal(chosen, o) for o in outs)
+    err_ok(chosen.cpu().numpy(), want.cpu().numpy(), TOL_CARD)
 
 
 @pytest.mark.cuda
@@ -217,7 +247,8 @@ def test_attention_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("c,hw", [(64, (96, 64)), (64, (13, 10)), (128, (24, 16)),
                                   (128, (7, 9)), (96, (24, 16)), (96, (13, 10)),
-                                  (64, (24, 16))])
+                                  (64, (24, 16)), (192, (24, 16)), (192, (96, 64)),
+                                  (192, (13, 10))])
 def test_b2_kernel_matches_plain_on_card(cuda, c, hw):
     x, w1, b1, w2, b2, *_ = conv_inputs(40, 2, *hw, c)
     t = lambda a: torch.from_numpy(a).to(cuda)  # noqa: E731
@@ -235,7 +266,8 @@ def test_b2_kernel_matches_plain_on_card(cuda, c, hw):
 @pytest.mark.parametrize("inverse", [False, True])
 @pytest.mark.parametrize("c,hw", [(128, (96, 64)), (128, (11, 9)), (64, (16, 24)),
                                   (192, (24, 16)), (192, (11, 9)), (256, (16, 24)),
-                                  (256, (13, 10)), (128, (24, 16)), (256, (24, 16))])
+                                  (256, (13, 10)), (128, (24, 16)), (256, (24, 16)),
+                                  (384, (24, 16)), (384, (96, 64)), (384, (11, 9))])
 def test_b3_kernel_matches_plain_on_card(cuda, inverse, c, hw):
     x, w, b, _, _, gamma, beta, skip = conv_inputs(50, 1, *hw, c)
     t = lambda a: torch.from_numpy(a).to(cuda)  # noqa: E731
@@ -250,8 +282,9 @@ def test_b3_kernel_matches_plain_on_card(cuda, inverse, c, hw):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel,c", [("b2", 64), ("b2", 96), ("b2", 128), ("b3", 64),
-                                      ("b3", 128), ("b3", 192), ("b3", 256)])
+@pytest.mark.parametrize("kernel,c", [("b2", 64), ("b2", 96), ("b2", 128), ("b2", 192),
+                                      ("b3", 64), ("b3", 128), ("b3", 192), ("b3", 256),
+                                      ("b3", 384)])
 def test_b2_b3_bits_do_not_depend_on_the_tile(cuda, kernel, c):
     """Each tile instance, forced on the same ragged input, gives the same
     bits (one fmaf chain per output over ascending k, whatever the tile),
@@ -360,9 +393,9 @@ def test_wacnn_codec_on_card_matches_cpu_and_decodes_exactly(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("model,n", [("tcm", 96), ("tcm", 128), ("wacnn", 128)])
+@pytest.mark.parametrize("model,n", [("tcm", 96), ("tcm", 128), ("tcm", 192), ("wacnn", 128)])
 def test_wider_codecs_on_card_match_cpu_and_decode_exactly(cuda, model, n):
-    """TCM N=96 and N=128 and WACNN N=128 (M=320) with seeded random
+    """TCM N=96, 128 and 192 and WACNN N=128 (M=320) with seeded random
     weights on a 256x256 image: every kernel-routed layer runs on the card
     (no width without an instance), the forward agrees with the CPU's plain
     path, and compress -> decompress reproduces y_hat exactly."""

@@ -86,6 +86,26 @@ def test_b1_plain_matches_jax_kernel_interpret_at_wider_channels(shifted, c, hea
 
 
 @pytest.mark.parametrize("shifted", [False, True])
+@pytest.mark.parametrize("head_dim", [8, 16, 32])
+def test_b1_plain_matches_jax_kernel_interpret_at_192_channels(shifted, head_dim):
+    """B1's LN+MLP flavour at TCM N=192's ConvTransBlocks, on a 16x16 map."""
+    c = 192
+    x, wts = attn_inputs(c + head_dim, 1, 16, 16, c)
+    rel = np.random.default_rng(c + 1).normal(0, 0.5, (c // head_dim, 64, 64)).astype(
+        np.float32)
+    j = {k: jnp.asarray(v) for k, v in wts.items()}
+    want = JF.flash_window_block(
+        jnp.asarray(x), j["wqkv"], j["bqkv"], j["wproj"], j["bproj"], j["ln_scale"],
+        j["ln_bias"], jnp.asarray(rel),
+        mlp=(j["ln2_scale"], j["ln2_bias"], j["w1"], j["b1"], j["w2"], j["b2"]),
+        head_dim=head_dim, window=8, shifted=shifted, compute_dtype=jnp.float32,
+        interpret=True)
+    got = PF.flash_window_block(torch.from_numpy(x), *port_attn_args(wts, rel, lambda t: t),
+                                head_dim=head_dim, window=8, shifted=shifted)
+    err_ok(got.numpy(), want, TOL_CPU)
+
+
+@pytest.mark.parametrize("shifted", [False, True])
 def test_b1_attention_only_plain_matches_jax_kernel_interpret(shifted):
     """B1's with_ln=False, mlp=None flavour (WACNN's WinBasedAttention) at
     head_dim 24, the width of WACNN's N=192 attention."""
@@ -140,6 +160,16 @@ def test_b2_plain_matches_jax_kernel_interpret_at_96_channels():
     err_ok(got.numpy(), want, TOL_CPU)
 
 
+def test_b2_plain_matches_jax_kernel_interpret_at_192_channels():
+    """B2 at the width of TCM N=192's ConvTransBlocks."""
+    x, w1, b1, w2, b2, *_ = conv_inputs(29, 1, 16, 16, 192)
+    want = JC.fused_residual_block(*map(jnp.asarray, (x, w1, b1, w2, b2)),
+                                   compute_dtype=jnp.float32, interpret=True)
+    got = PC.fused_residual_block(torch.from_numpy(x), oihw(w1), torch.from_numpy(b1),
+                                  oihw(w2), torch.from_numpy(b2))
+    err_ok(got.numpy(), want, TOL_CPU)
+
+
 def test_b2_plain_matches_jax_composed_on_ragged_shape():
     """13x10 is no multiple of 8, which the Pallas kernel refuses (JAX falls
     back to its composed ResidualBlock); the port's kernel masks the ragged
@@ -176,10 +206,10 @@ def test_b3_plain_matches_jax(inverse, hw):
 
 
 @pytest.mark.parametrize("inverse", [False, True])
-@pytest.mark.parametrize("c", [192, 256])
+@pytest.mark.parametrize("c", [192, 256, 384])
 def test_b3_plain_matches_jax_kernel_interpret_at_wider_channels(inverse, c):
-    """B3 at 2N of TCM N=96 and N=128 (the ResidualBlockWithStride and
-    ResidualBlockUpsample tails)."""
+    """B3 at 2N of TCM N=96, N=128 and N=192 (the ResidualBlockWithStride
+    and ResidualBlockUpsample tails)."""
     x, w, b, _, _, gamma, beta, skip = conv_inputs(28, 1, 16, 24, c)
     want = JC.fused_conv_gdn(*map(jnp.asarray, (x, w, b, gamma, beta, skip)), inverse=inverse,
                              compute_dtype=jnp.float32, interpret=True)

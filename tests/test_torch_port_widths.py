@@ -57,7 +57,7 @@ def has_instance(shape) -> bool:
     return c in PC.KERNEL_CHANNELS[kernel]
 
 
-@pytest.mark.parametrize("model,n", [("tcm", 64), ("tcm", 96), ("tcm", 128),
+@pytest.mark.parametrize("model,n", [("tcm", 64), ("tcm", 96), ("tcm", 128), ("tcm", 192),
                                      ("wacnn", 128), ("wacnn", 192)])
 def test_every_routed_width_has_a_kernel_instance(model, n):
     make = make_tcm if model == "tcm" else make_wacnn
@@ -131,11 +131,24 @@ def test_module_walk_matches_the_wrappers_calls(monkeypatch, model):
     ((1, 64, 64, 128), 16, 1),    # 64 windows
     ((1, 96, 64, 64), 32, 1),     # 96 windows (TCM-S g_a stage 2)
     ((1, 384, 256, 64), 8, 1),    # 1536 windows
+    ((1, 384, 256, 192), 8, 2),   # TCM N=192 at 768x512: one CTA per window does not fit
+    ((1, 192, 128, 192), 16, 2),  # 384 windows
+    ((1, 96, 64, 192), 32, 2),    # 96 windows, 6 heads
+    ((2, 128, 128, 192), 8, 2),   # 512 windows x batch
+    ((1, 32, 32, 192), 8, 2),     # 16 windows x 8 CTAs: too many for the largest split
+    ((1, 32, 32, 192), 16, 4),    # 16 windows x 4 CTAs: the largest split
+    ((1, 32, 32, 192), 32, 2),
+    ((1, 16, 16, 192), 8, 8),     # 4 windows
+    ((2, 32, 32, 192), 16, 2),    # 16 windows x batch 2
 ])
 def test_cluster_split_is_chosen_from_the_shape(shape, head_dim, want):
     b, h, w, c = shape
     assert PF.cluster_size(c, head_dim, b * (h // 8) * (w // 8)) == want
-    assert want in (1, PF.max_cluster(c, head_dim))
+    assert want in (PF.min_cluster(c), PF.max_cluster(c, head_dim))
+    if c == 192:  # its window needs two CTAs' shared memory at every window count
+        assert all(PF.cluster_size(c, head_dim, n) >= 2 for n in range(1, 6145))
+    else:
+        assert PF.min_cluster(c) == 1
 
 
 def _conv_kernel_cases():
@@ -145,7 +158,7 @@ def _conv_kernel_cases():
             if k in ("fused_residual_block", "fused_conv_gdn")]
 
 
-@pytest.mark.parametrize("model,n", [("tcm", 64), ("tcm", 96), ("tcm", 128)])
+@pytest.mark.parametrize("model,n", [("tcm", 64), ("tcm", 96), ("tcm", 128), ("tcm", 192)])
 def test_conv_tile_choice_has_an_instance_at_every_shape(model, n):
     """B2/B3's tile comes from (H, W, C) alone and names an instance that
     takes C, at every B2/B3 shape of chip_smoke's KERNEL_CASES and at each
@@ -164,10 +177,12 @@ def test_conv_tile_choice_has_an_instance_at_every_shape(model, n):
         bm, bn = PC.tile_shape(tile, c)
         assert c % bn == 0 and bm % 32 == 0, (h, w, c, tile)
         assert PC.tile_config(h, w, c) == tile
-    # on the main path: the large tile at the two largest stages, the small
-    # one where the large would leave SMs idle
+    # on the main path: the large tile at the two largest stages (and at
+    # 96x64 for C=192 and 384, whose three column blocks make 144 blocks),
+    # the small one where the large would leave SMs idle
     for _, (_, h, w, c) in cases:
-        assert PC.tile_config(h, w, c) == ("large" if h * w >= 192 * 128 else "small")
+        large = h * w >= 192 * 128 or (h * w >= 96 * 64 and c in (192, 384))
+        assert PC.tile_config(h, w, c) == ("large" if large else "small"), (h, w, c)
 
 
 @pytest.mark.parametrize("model,n", [("wacnn", 128), ("wacnn", 192)])
