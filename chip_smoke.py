@@ -4,7 +4,7 @@
     python3 chip_smoke.py                 # on a machine with the card
     python3 chip_smoke.py --cpu-rehearsal # the slices and train phases on the CPU, no card
 
-Drives reslic_tcm_tpu_torch only (no JAX, no PIL), in nine phases:
+Drives reslic_tcm_tpu_torch only (no JAX, no PIL), in these phases:
 
 1. Device: the card's name and power limit; TF32 off, cuDNN deterministic.
 2. Build: the four CUDA kernels' three sources (nvcc, one process per
@@ -53,14 +53,35 @@ Drives reslic_tcm_tpu_torch only (no JAX, no PIL), in nine phases:
    CPU plain path on a small image. Real vs estimated bpp is printed, not
    held to a limit: with random weights tail symbols may take the coder's
    bypass.
+5a. STanH slices, each level of three in turn on the same two images:
+   WACNN-STanH (N=192, M=320) with the committed trained
+   checkpoints/wacnn_stanh_vr_r5.npz (16 steps per level, extrema 32/16/8,
+   lambda 0.0025/0.013/0.05): the forward estimate,
+   forward_codec_consistent, compress and decompress; exact y_hat (also
+   forward_codec_consistent's), real bpp within 3% of the codec-consistent
+   estimate, bpp and PSNR per level, both rising from level 0 to level 2
+   (finer steps buy quality with rate), the share of y symbols where the
+   monolithic forward's staircase differs from the codec's (printed), and
+   WACNN's launches per pass (forward_codec_consistent: g_a and g_s); then
+   the card's forward at level 1 against the CPU plain path on a 256x256
+   image (symbols that round the other way counted and held to 0.1%).
+   TCM-STanH N=128 (the registry's `-m stanh` with three lambdas: 160
+   steps at extrema 80) with random weights: TCM's launches per pass and
+   an exact decode at each level. The scale hyperprior with STanH on y and
+   z (`-m scale_stanh`, N=192, M=320, random weights): the z and y streams
+   decoded to the encoder's symbols.
 5b. Train, through training/step.py (what cli/train.py runs), lambda
    0.013, crops of seeded synthetic images: TCM-S from the committed
    weights at batch 16 of 256x256 (the train CLI's defaults; 3 warm-up and
    10 timed steps with remat, one step without), TCM N=192 with random
-   weights at batch 2 of 256x256 (1 and 3 steps, then one without remat)
-   and the mean-scale hyperprior (N=192, M=320) at batch 16 of 256x256 (3
-   and 10 steps): loss, bpp, mse, aux per step, ms per step on the host
-   clock ending in a synchronise, images/s, peak memory; the wrappers'
+   weights at batch 2 of 256x256 (1 and 3 steps, then one without remat),
+   the mean-scale hyperprior (N=192, M=320) at batch 16 of 256x256 (3 and
+   10 steps) and WACNN-STanH from the committed snapshot at batch 16 of
+   256x256 (3 and 10 steps; a level per step from random.Random(0) and its
+   lambda, beta from a gap_stoc schedule (beta 10, factor 25) that each
+   step's gap advances, both printed per step): loss, bpp, mse, aux per
+   step, ms per step on the host clock ending in a synchronise, images/s,
+   peak memory; the wrappers'
    launch counters must stay at 0 (every layer is composed under
    autograd). Then one step at 1x256x256 on the card and on the CPU from
    the same weights and noise (drawn on the CPU): loss within 1e-4
@@ -97,7 +118,7 @@ import time
 
 import numpy as np
 
-BUDGET_S = 600
+BUDGET_S = 900
 TOL = 1e-4
 PEAK_FLOPS = 67e12  # H100 SXM fp32, CUDA cores (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
@@ -123,6 +144,13 @@ PASS_LAUNCHES = {
     "tcm192": _TCM_LAUNCHES,  # and at three times
     "wacnn": {"forward": _launches(2, 0, 0, 2), "compress": _launches(1, 0, 0, 1),
               "decompress": _launches(1, 0, 0, 1)},
+    # the STanH codecs launch as their backbones do; forward_codec_consistent
+    # runs g_a and g_s
+    "wacnn-stanh": {"forward": _launches(2, 0, 0, 2),
+                    "forward_codec_consistent": _launches(2, 0, 0, 2),
+                    "compress": _launches(1, 0, 0, 1), "decompress": _launches(1, 0, 0, 1)},
+    "tcm-stanh": _TCM_LAUNCHES,
+    "scale-stanh": _NO_LAUNCHES,
     # no kernel lies on the Balle-2018 path (5x5 stride-2 convolutions, unfused GDN)
     **{f"balle-{kind}": _NO_LAUNCHES for kind in BALLE_KINDS},
 }
@@ -756,6 +784,273 @@ def phase_reference(torch, codec, make):
             raise AssertionError(f"{key} rate disagrees with the CPU reference")
 
 
+# -------------------------------- STanH ---------------------------------
+
+STANH_SNAPSHOT = os.path.join("checkpoints", "wacnn_stanh_vr_r5.npz")
+# the snapshot's configuration (its .json): three levels trained at these
+# lambdas, 16 sigmoids each, extrema 32 / 16 / 8
+STANH_LAMBDAS = (0.0025, 0.013, 0.05)
+STANH_LEVELS = [{"beta": 10, "num_sigmoids": 16, "annealing": "gap_stoc", "symmetry": False,
+                 "gap_factor": 25, "extrema": e, "trainable": True, "removing_mean": False}
+                for e in (32, 16, 8)]
+FLIP_SHARE = 1e-3  # STanH symbols that may round the other way on the other device
+
+
+def _make_wacnn_stanh(device):
+    """WACNN-STanH (N=192, M=320, three levels) with the committed trained
+    weights; every snapshot entry placed."""
+    from reslic_tcm_tpu_torch.models.stanh.variants import make_wacnn_stanh
+    from reslic_tcm_tpu_torch.utils.torch_convert import load_snapshot_into
+
+    codec = make_wacnn_stanh(STANH_LEVELS, N=192, M=320, device=device, seed=SEED)
+    unused = load_snapshot_into(codec.module, STANH_SNAPSHOT)
+    if unused:
+        raise AssertionError(f"{STANH_SNAPSHOT}: entries left over: {unused}")
+    codec.update()
+    return codec
+
+
+def _registry_args(argv):
+    from reslic_tcm_tpu_torch.utils.parser import parse_args
+
+    return parse_args(argv)
+
+
+def _make_tcm_stanh(device):
+    """TCM-STanH N=128 from the registry (`-m stanh`, three lambdas, the
+    train parser's quantizer defaults), random weights."""
+    from reslic_tcm_tpu_torch.models import get_model
+
+    codec, *_ = get_model(_registry_args(["-m", "stanh", "--N", "128", "--lambda_list",
+                                          *map(str, STANH_LAMBDAS)]), device=device)
+    codec.update()
+    return codec
+
+
+def _make_scale_stanh(device):
+    """The registry's scale-STanH (`-m scale_stanh`, STanH on z), N=192,
+    M=320, random weights."""
+    from reslic_tcm_tpu_torch.models import get_model
+
+    codec, *_ = get_model(_registry_args(["-m", "scale_stanh", "--N", "192", "--M", "320"]),
+                          device=device)
+    codec.update()
+    return codec
+
+
+def _bits(torch, likelihoods) -> float:
+    return sum(float(-torch.log2(lik).sum()) for lik in likelihoods.values())
+
+
+def _stanh_symbols(module, out, lv):
+    """The STanH level indexes of an eval forward's y around its means
+    (NCHW tensors or the codec's NHWC ones, as given)."""
+    return module.gaussian_conditional.symbols(out["para"]["y"], out["para"]["means"], lv)
+
+
+def _timed(torch, device, fn):
+    """(fn(), ms on the host clock ending in a synchronise, launches)."""
+    from reslic_tcm_tpu_torch.ops.launches import launch_counts, launches_since
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    sync()
+    before, t0 = launch_counts(), time.perf_counter()
+    out = fn()
+    sync()
+    return out, (time.perf_counter() - t0) * 1e3, launches_since(before)
+
+
+def phase_stanh_wacnn(torch, device, hw):
+    """WACNN-STanH with the committed trained weights, each level in turn on
+    the two seeded images: the forward estimate, forward_codec_consistent,
+    compress and decompress; exact y_hat, real bpp within 3% of the
+    codec-consistent estimate, bpp and PSNR per level (both must rise from
+    level 0 to level 2: finer steps buy quality with rate), the share of y
+    symbols where the monolithic forward's staircase differs from the
+    codec's (printed), the launches per pass."""
+    from reslic_tcm_tpu_torch.data.synthetic import synth_image
+    from reslic_tcm_tpu_torch.ops.launches import launch_counts, reset_launch_counts
+    from reslic_tcm_tpu_torch.utils.metrics import compute_psnr
+
+    t0 = time.perf_counter()
+    codec = _make_wacnn_stanh(device)
+    images = [synth_image(np.random.default_rng(SEED + i), *hw) for i in range(2)]
+    log(f"slice wacnn-stanh: WACNN-STanH N=192 M=320 from {STANH_SNAPSHOT} (3 levels, lambda "
+        f"{STANH_LAMBDAS}, 16 steps, extrema 32/16/8) on {device}; the same two {hw[0]}x{hw[1]} "
+        f"images; set-up {time.perf_counter() - t0:.1f} s")
+    on_card = device == "cuda"
+    want = {p: {k: v if on_card else 0 for k, v in n.items()}
+            for p, n in PASS_LAUNCHES["wacnn-stanh"].items()}
+    px = hw[0] * hw[1]
+    levels = []
+    reset_launch_counts()
+    for lv in range(3):
+        recs = []
+        for j, img in enumerate(images):
+            x = img[None]
+            rec, launches = {}, {}
+            fwd, rec["forward_ms"], launches["forward"] = _timed(
+                torch, device, lambda: codec.forward(x, lv=lv))
+            cc, rec["cc_ms"], launches["forward_codec_consistent"] = _timed(
+                torch, device, lambda: codec.forward_codec_consistent(x, lv=lv))
+            enc, rec["encode_ms"], launches["compress"] = _timed(
+                torch, device, lambda: codec.compress(x, lv=lv))
+            dec, rec["decode_ms"], launches["decompress"] = _timed(
+                torch, device, lambda: codec.decompress(enc["strings"], enc["shape"], lv=lv))
+            if launches != want:
+                raise AssertionError(f"level {lv} image {j}: launches {launches}, "
+                                     f"expected {want}")
+            if not (torch.equal(enc["y_hat"], dec["y_hat"])
+                    and torch.equal(cc["y_hat"], dec["y_hat"])):
+                raise AssertionError(f"level {lv} image {j}: the decoded y_hat is not the "
+                                     f"encoder's (or forward_codec_consistent's)")
+            sym_fwd = _stanh_symbols(codec.module, fwd, lv).permute(0, 3, 1, 2)
+            rec["forward_flip_share"] = float(
+                (sym_fwd != cc["symbols"].reshape(sym_fwd.shape)).float().mean())
+            rec["bpp_estimate"] = _bits(torch, fwd["likelihoods"]) / px
+            rec["bpp_cc"] = _bits(torch, cc["likelihoods"]) / px
+            rec["bpp"] = (len(enc["strings"][0][0])
+                          + sum(len(s) for s in enc["strings"][1])) * 8.0 / px
+            rec["psnr"] = compute_psnr(torch.as_tensor(x, device=dec["x_hat"].device),
+                                       dec["x_hat"])
+            log(f"wacnn-stanh level {lv} image {j}: real {rec['bpp']:.4f} bpp, "
+                f"codec-consistent estimate {rec['bpp_cc']:.4f}, forward estimate "
+                f"{rec['bpp_estimate']:.4f}, PSNR {rec['psnr']:.3f} dB, forward "
+                f"{rec['forward_ms']:.1f} ms, codec-consistent {rec['cc_ms']:.1f} ms, encode "
+                f"{rec['encode_ms']:.1f} ms, decode {rec['decode_ms']:.1f} ms, y symbols where "
+                f"the forward's staircase differs from the codec's: "
+                f"{rec['forward_flip_share']:.2e}")
+            if not abs(rec["bpp"] - rec["bpp_cc"]) <= 0.03 * rec["bpp_cc"]:
+                raise AssertionError(f"level {lv} image {j}: real bpp {rec['bpp']:.4f} not "
+                                     f"within 3% of the estimate {rec['bpp_cc']:.4f}")
+            recs.append(rec)
+        levels.append({k: float(np.mean([r[k] for r in recs])) for k in recs[0]})
+        log("stanh_level " + json.dumps({"slice": "wacnn-stanh", "lv": lv, **levels[-1]}))
+    launches = launch_counts()
+    bpp, psnr = [lvl["bpp"] for lvl in levels], [lvl["psnr"] for lvl in levels]
+    if not (bpp[0] < bpp[1] < bpp[2] and psnr[0] < psnr[1] < psnr[2]):
+        raise AssertionError(f"levels 0-2 are not a rate ladder: bpp {bpp}, PSNR {psnr}")
+    log(f"launches per pass (each image and level): {json.dumps(want)}")
+    return codec, launches
+
+
+def _stanh_flips(torch, module_a, a, module_b, b, lv, label):
+    """Symbols of two eval forwards (same weights, other devices) that round
+    the other way; printed, held to FLIP_SHARE. Returns the count."""
+    sa, sb = _stanh_symbols(module_a, a, lv).cpu(), _stanh_symbols(module_b, b, lv).cpu()
+    flips = int((sa != sb).sum())
+    log(f"{label}: STanH symbols card vs CPU differing {flips} of {sa.numel()}")
+    if not flips <= FLIP_SHARE * sa.numel():
+        raise AssertionError(f"{label}: {flips} STanH symbols differ card vs CPU")
+    return flips
+
+
+def phase_stanh_reference(torch, codec, make, lv):
+    """The card's forward at level lv against the CPU plain path at the
+    same weights on a 256x256 image: symbols that round the other way
+    counted and held to 0.1%; x_hat within 1e-3 (where a symbol flipped,
+    its neighbourhood may move by more: then the 99th percentile of the
+    error is held to 1e-3) and the rate within 1e-3 relative."""
+    from reslic_tcm_tpu_torch.data.synthetic import synth_image
+
+    img = synth_image(np.random.default_rng(SEED + 7), 256, 256)[None]
+    got = codec.forward(img, lv=lv)
+    cpu = make("cpu")
+    want = cpu.forward(img, lv=lv)
+    flips = _stanh_flips(torch, codec.module, got, cpu.module, want, lv,
+                         f"reference level {lv}")
+    err = (got["x_hat"].cpu() - want["x_hat"]).abs()
+    worst, p99 = float(err.max()), float(err.flatten().quantile(0.99))
+    log(f"reference level {lv}: 256x256 x_hat card vs CPU plain path, max abs err {worst:.3e}, "
+        f"99th percentile {p99:.3e} (limit 1.000e-03 on the max, on the 99th percentile "
+        f"where a symbol flipped)")
+    if not (bool(torch.isfinite(got["x_hat"]).all()) and (worst if flips == 0 else p99) <= 1e-3):
+        raise AssertionError(f"card forward disagrees with the CPU reference: {worst:.3e}")
+    bits_a, bits_b = _bits(torch, got["likelihoods"]), _bits(torch, want["likelihoods"])
+    log(f"reference level {lv}: bits card {bits_a:.2f} vs CPU {bits_b:.2f}")
+    if not abs(bits_a - bits_b) <= 1e-3 * bits_b + 1.0 + 64.0 * flips:
+        raise AssertionError("rate disagrees with the CPU reference")
+
+
+def phase_stanh_tcm(torch, device, hw):
+    """TCM-STanH N=128 (random weights, the registry's defaults: 160 steps
+    at extrema 80, three levels) on the two images at each level: the
+    forward, compress and decompress, exact y_hat, TCM's launches per
+    pass."""
+    from reslic_tcm_tpu_torch.data.synthetic import synth_image
+    from reslic_tcm_tpu_torch.ops.launches import launch_counts, reset_launch_counts
+
+    t0 = time.perf_counter()
+    codec = _make_tcm_stanh(device)
+    images = [synth_image(np.random.default_rng(SEED + i), *hw) for i in range(2)]
+    log(f"slice tcm-stanh: TCM-STanH N=128 M=320 (registry -m stanh, 3 levels, "
+        f"{codec.module.gaussian_conditional.stanh.w.shape[1]} steps), random weights (seed "
+        f"{SEED}) on {device}; set-up {time.perf_counter() - t0:.1f} s")
+    on_card = device == "cuda"
+    px = hw[0] * hw[1]
+    reset_launch_counts()
+    for lv in range(3):
+        for j, img in enumerate(images):
+            x = img[None]
+            fwd, fwd_ms, l_fwd = _timed(torch, device, lambda: codec.forward(x, lv=lv))
+            enc, enc_ms, l_enc = _timed(torch, device, lambda: codec.compress(x, lv=lv))
+            dec, dec_ms, l_dec = _timed(
+                torch, device, lambda: codec.decompress(enc["strings"], enc["shape"], lv=lv))
+            for name, got in (("forward", l_fwd), ("compress", l_enc), ("decompress", l_dec)):
+                _check_launches(j, f"level {lv} {name}", got, PASS_LAUNCHES["tcm-stanh"][name],
+                                on_card)
+            if not torch.equal(enc["y_hat"], dec["y_hat"]):
+                raise AssertionError(f"tcm-stanh level {lv} image {j}: inexact decode")
+            real = (len(enc["strings"][0][0]) + sum(len(s) for s in enc["strings"][1])) * 8 / px
+            log(f"tcm-stanh level {lv} image {j}: real {real:.4f} bpp, estimate "
+                f"{_bits(torch, fwd['likelihoods']) / px:.4f}, forward {fwd_ms:.1f} ms, encode "
+                f"{enc_ms:.1f} ms, decode {dec_ms:.1f} ms, y_hat exact")
+    log(f"launches per pass (each image and level): {json.dumps(PASS_LAUNCHES['tcm-stanh'])}")
+    return codec, launch_counts()
+
+
+def phase_stanh_scale(torch, device, hw):
+    """The scale hyperprior with STanH on y and z (random weights): exact
+    decode, and the z and y streams decoded to the encoder's symbols."""
+    from reslic_tcm_tpu_torch.data.synthetic import synth_image
+    from reslic_tcm_tpu_torch.entropy import stanh as sq
+    from reslic_tcm_tpu_torch.ops.launches import launch_counts, reset_launch_counts
+
+    codec = _make_scale_stanh(device)
+    m = codec.module
+    reset_launch_counts()
+    for j in range(2):
+        x = synth_image(np.random.default_rng(SEED + j), *hw)[None]
+        enc, enc_ms, l_enc = _timed(torch, device, lambda: codec.compress(x))
+        dec, dec_ms, l_dec = _timed(torch, device,
+                                    lambda: codec.decompress(enc["strings"], enc["shape"]))
+        with torch.no_grad():
+            y, z = m.analyze(codec._input(x))
+            z_sym = sq.to_symbols(z, codec._z_state())
+        z_dec = codec._decode(enc["strings"][1], codec._z_indexes(1, enc["shape"]),
+                              codec.eb_tables)
+        z_exact = bool(torch.equal(z_dec, z_sym))
+        y_exact = bool(torch.equal(enc["y_hat"], dec["y_hat"]))
+        px = hw[0] * hw[1]
+        log(f"scale-stanh image {j}: y {len(enc['strings'][0][0]) * 8 / px:.4f} bpp, z "
+            f"{len(enc['strings'][1][0]) * 8 / px:.4f} bpp ({len(np.unique(z_sym.cpu()))} z "
+            f"levels used), encode {enc_ms:.1f} ms, decode {dec_ms:.1f} ms, z symbols decoded "
+            f"exactly {z_exact}, y_hat exact {y_exact}, launches {json.dumps(l_enc)} / "
+            f"{json.dumps(l_dec)}")
+        if not (z_exact and y_exact):
+            raise AssertionError(f"scale-stanh image {j}: inexact decode")
+    return codec, launch_counts()
+
+
+# the STanH eval slices: (phase, the codec's maker for the card-vs-CPU
+# reference check at level 1, or None: random weights, no reference)
+STANH_SLICES = {
+    "wacnn-stanh": (phase_stanh_wacnn, _make_wacnn_stanh),
+    "tcm-stanh": (phase_stanh_tcm, None),
+    "scale-stanh": (phase_stanh_scale, None),
+}
+
+
 # -------------------------------- train ---------------------------------
 
 TRAIN_LAMBDA = 0.013
@@ -783,6 +1078,17 @@ def _train_balle(device, remat=True):
     return make_balle("mean-scale", N=192, M=320, device=device, seed=SEED).module
 
 
+def _train_wacnn_stanh(device, remat=True):
+    """WACNN-STanH from the committed trained weights, as the trainer
+    builds it for the snapshot's configuration."""
+    from reslic_tcm_tpu_torch.models.stanh.variants import make_wacnn_stanh
+    from reslic_tcm_tpu_torch.utils.torch_convert import load_snapshot_into
+
+    module = make_wacnn_stanh(STANH_LEVELS, N=192, M=320, device=device, seed=SEED).module
+    load_snapshot_into(module, STANH_SNAPSHOT)
+    return module
+
+
 # slice -> (the module as the trainer builds it, what it is, whether it has
 # remat, the validation forward's launches)
 TRAIN_SLICES = {
@@ -791,7 +1097,13 @@ TRAIN_SLICES = {
                _TCM_LAUNCHES["forward"]),
     "balle-mean-scale": (_train_balle, f"Balle-2018 mean-scale N=192 M=320, random weights "
                          f"(seed {SEED})", False, _NO_LAUNCHES["forward"]),
+    "wacnn-stanh": (_train_wacnn_stanh, f"WACNN-STanH N=192 M=320 from {STANH_SNAPSHOT}, a "
+                    f"random level per step (random.Random({SEED})) and its lambda, "
+                    f"beta from configure_annealings (gap_stoc, beta 10, factor 25)", False,
+                    PASS_LAUNCHES["wacnn"]["forward"]),
 }
+# the train slices whose step takes a rate level and a STanH temperature
+STANH_TRAIN = ("wacnn-stanh",)
 
 
 def _crops(n, hw, seed):
@@ -811,7 +1123,7 @@ def _set_remat(module, on: bool) -> None:
             m.remat = on
 
 
-def _timed_step(torch, state, batch, seed, device):
+def _timed_step(torch, state, batch, seed, device, lmbda=TRAIN_LAMBDA, lv=None, beta=None):
     """One train step through training/step.py; (metrics as floats, host ms
     ending in a synchronise)."""
     from reslic_tcm_tpu_torch.training.step import step_noise, train_step
@@ -819,7 +1131,7 @@ def _timed_step(torch, state, batch, seed, device):
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
     sync()
     t0 = time.perf_counter()
-    m = train_step(state, batch, TRAIN_LAMBDA, step_noise(seed, state.step, device))
+    m = train_step(state, batch, lmbda, step_noise(seed, state.step, device), lv=lv, beta=beta)
     sync()
     ms = (time.perf_counter() - t0) * 1e3
     m = {k: float(v) for k, v in m.items()}
@@ -842,19 +1154,32 @@ def phase_train(torch, device, slice_name, batch_size, hw, warmup, steps):
     has it, then one step without), the card's step against the CPU's from
     the same weights and noise, then validation (through the eval kernels
     where the model has them) against the CPU plain path at the updated
-    weights. Returns the train state and the batch."""
+    weights. A STanH slice draws a level per step from a seeded
+    random.Random, takes that level's lambda and the beta of one gap_stoc
+    annealing schedule, which each step's gap then advances; its card vs
+    CPU step runs at level 2 and the last beta, and its validation counts
+    the symbols that round the other way on the CPU. Returns the train
+    state and the batch."""
+    import random
+
     from reslic_tcm_tpu_torch.cli.train import to_device
     from reslic_tcm_tpu_torch.models.base import replayed_noise, uniform_noise
     from reslic_tcm_tpu_torch.ops.launches import launch_counts, reset_launch_counts
     from reslic_tcm_tpu_torch.training.step import create_train_state, eval_step, train_step
+    from reslic_tcm_tpu_torch.utils.helper import configure_annealings
 
     make, what, has_remat, validation_launches = TRAIN_SLICES[slice_name]
+    stanh = slice_name in STANH_TRAIN
+    levels = random.Random(SEED)
+    annealing = configure_annealings({"annealing": "gap_stoc", "beta": 10, "gap_factor": 25})
+    lmbda, lv, beta = TRAIN_LAMBDA, None, None
     on_card = device == "cuda"
     t0 = time.perf_counter()
     state = create_train_state(make(device))
     batch = to_device(_crops(batch_size, hw, SEED), device)
     log(f"train {slice_name}: {what} on {device}, remat {'on' if has_remat else 'n/a'}, lambda "
-        f"{TRAIN_LAMBDA}, batch {batch_size} x {hw[0]}x{hw[1]} synthetic crops (seed {SEED}), "
+        f"{STANH_LAMBDAS if stanh else TRAIN_LAMBDA}, batch {batch_size} x {hw[0]}x{hw[1]} "
+        f"synthetic crops (seed {SEED}), "
         f"Adam lr 1e-4 / aux 1e-3, clip 1.0; set-up {time.perf_counter() - t0:.1f} s")
     log(f"train numerics (cli/train.py sets the same on the card): matmul TF32 "
         f"{torch.backends.cuda.matmul.allow_tf32}, cuDNN TF32 {torch.backends.cudnn.allow_tf32}, "
@@ -866,11 +1191,17 @@ def phase_train(torch, device, slice_name, batch_size, hw, warmup, steps):
         torch.cuda.reset_peak_memory_stats()
     times = []
     for k in range(warmup + steps):
-        m, ms = _timed_step(torch, state, batch, SEED, device)
+        if stanh:
+            lv, beta = levels.randrange(len(STANH_LAMBDAS)), float(annealing.beta)
+            lmbda = STANH_LAMBDAS[lv]
+        m, ms = _timed_step(torch, state, batch, SEED, device, lmbda, lv, beta)
+        if stanh:
+            annealing.step(gap=m["gap"], epoch=0, loss=m["loss"])
         if k >= warmup:
             times.append(ms)
+        level = f"level {lv}, beta {beta:.4f}, gap {m['gap']:.6f}, " if stanh else ""
         log(f"train {slice_name} step {state.step} ({'timed' if k >= warmup else 'warm-up'}): "
-            f"loss {m['loss']:.4f}, bpp {m['bpp_loss']:.4f}, mse {m['mse_loss']:.6f}, "
+            f"{level}loss {m['loss']:.4f}, bpp {m['bpp_loss']:.4f}, mse {m['mse_loss']:.6f}, "
             f"aux {m['aux_loss']:.3f}, grad norm {m['grad_norm']:.3f}, {ms:.1f} ms")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else float("nan")
     med = float(np.median(times))
@@ -881,7 +1212,7 @@ def phase_train(torch, device, slice_name, batch_size, hw, warmup, steps):
         if on_card:
             torch.cuda.reset_peak_memory_stats()
         _set_remat(state.module, False)
-        m, ms = _timed_step(torch, state, batch, SEED, device)
+        m, ms = _timed_step(torch, state, batch, SEED, device, lmbda, lv, beta)
         _set_remat(state.module, True)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else float("nan")
         log(f"train {slice_name} remat off: step {state.step}: loss {m['loss']:.4f}, {ms:.1f} ms, "
@@ -892,16 +1223,23 @@ def phase_train(torch, device, slice_name, batch_size, hw, warmup, steps):
         raise AssertionError(f"the train steps launched kernels: {launches}")
 
     # the card's step against the CPU's, from the same weights and noise
+    if stanh:
+        lv, beta = len(STANH_LAMBDAS) - 1, float(annealing.beta)
+        lmbda = STANH_LAMBDAS[lv]
     check_hw = (256, 256) if on_card else hw
     x = _crops(1, check_hw, SEED + 1)
     drawn = []
     cpu_noise = uniform_noise(torch.Generator().manual_seed(SEED))
     cpu_state = create_train_state(make("cpu"))
-    want = train_step(cpu_state, to_device(x, "cpu"), TRAIN_LAMBDA,
-                      lambda shape: drawn.append(cpu_noise(shape)) or drawn[-1])
+    want = train_step(cpu_state, to_device(x, "cpu"), lmbda,
+                      lambda shape: drawn.append(cpu_noise(shape)) or drawn[-1], lv=lv,
+                      beta=beta)
     dev_state = create_train_state(make(device))
-    got = train_step(dev_state, to_device(x, device), TRAIN_LAMBDA,
-                     replayed_noise([u.to(device) for u in drawn]))
+    got = train_step(dev_state, to_device(x, device), lmbda,
+                     replayed_noise([u.to(device) for u in drawn]), lv=lv, beta=beta)
+    if stanh:
+        log(f"train {slice_name} step {device} vs CPU at level {lv}, beta {beta:.4f}: gap "
+            f"{float(got['gap']):.6f} vs {float(want['gap']):.6f}")
     for key, tol in (("loss", 1e-4), ("grad_norm", 1e-3)):
         a, b = float(got[key]), float(want[key])
         log(f"train {slice_name} step {device} vs CPU (1x{check_hw[0]}x{check_hw[1]}): {key} "
@@ -941,17 +1279,24 @@ def phase_train(torch, device, slice_name, batch_size, hw, warmup, steps):
             if not flips["z"] + flips["y"] <= 1e-3 * (z_cpu.numel() + y_cpu.numel()):
                 raise AssertionError(f"validation: {flips} rounding flips card vs CPU")
             ref = dict(ref, x_hat=cpu.g_s(y_card.cpu()))
+    # a STanH symbol within an ulp of a step may round the other way on the
+    # CPU: counted, held to 0.1%; its neighbourhood in x_hat may then move
+    # by more than the limit, so the 99th percentile of the error is held
+    flips = (_stanh_flips(torch, module, out, cpu, ref, 0, f"validation {slice_name}")
+             if stanh else 0)
     cpu_loss = float(eval_step(cpu, val.cpu(), TRAIN_LAMBDA)["loss"])
-    err = float((out["x_hat"].cpu() - ref["x_hat"]).abs().max())
-    log(f"validation {slice_name} vs CPU plain path at the updated weights: x_hat max abs err "
-        f"{err:.3e} (limit 1.000e-03), loss {float(losses['loss']):.4f} vs {cpu_loss:.4f}")
+    diff = (out["x_hat"].cpu() - ref["x_hat"]).abs()
+    err = float(diff.max()) if flips == 0 else float(diff.flatten().quantile(0.99))
+    log(f"validation {slice_name} vs CPU plain path at the updated weights: x_hat "
+        f"{'max abs err' if flips == 0 else '99th percentile of the error'} {err:.3e} (limit "
+        f"1.000e-03), loss {float(losses['loss']):.4f} vs {cpu_loss:.4f}")
     if not (bool(torch.isfinite(out["x_hat"]).all()) and err <= 1e-3):
         raise AssertionError("validation forward disagrees with the CPU plain path")
     for key in ref["likelihoods"]:
         bits_a = float(-torch.log2(out["likelihoods"][key].cpu()).sum())
         bits_b = float(-torch.log2(ref["likelihoods"][key]).sum())
         log(f"validation {slice_name}: {key} bits card {bits_a:.2f} vs CPU {bits_b:.2f}")
-        if not abs(bits_a - bits_b) <= 1e-3 * bits_b + 1.0:
+        if not abs(bits_a - bits_b) <= 1e-3 * bits_b + 1.0 + 64.0 * flips:
             raise AssertionError(f"validation {key} rate disagrees with the CPU plain path")
     return state, batch
 
@@ -1022,6 +1367,8 @@ def main() -> int:
             _, launches[slice_name] = phase_slice(torch, "cpu", (256, 256), slice_name)
         for slice_name in AC_SLICES:
             _, launches[slice_name] = phase_ac_slice(torch, "cpu", (256, 256), slice_name)
+        for slice_name, (phase, _) in STANH_SLICES.items():
+            _, launches[slice_name] = phase(torch, "cpu", (256, 256))
         for slice_name in TRAIN_SLICES:
             phase_train(torch, "cpu", slice_name, 2, (128, 128), 1, 2)
         log("kernels " + json.dumps({"launches": launches}))
@@ -1046,6 +1393,10 @@ def main() -> int:
         codecs[slice_name], paths[slice_name] = phase_ac_slice(torch, "cuda", IMAGE_HW,
                                                                slice_name)
         phase_reference(torch, codecs[slice_name], make)
+    for slice_name, (phase, make) in STANH_SLICES.items():
+        codecs[slice_name], paths[slice_name] = phase(torch, "cuda", IMAGE_HW)
+        if make is not None:
+            phase_stanh_reference(torch, codecs[slice_name], make, lv=1)
     torch.cuda.synchronize()
     for path, launches in paths.items():
         log(f"main path {path}: launches {json.dumps(launches)}")
@@ -1056,6 +1407,7 @@ def main() -> int:
         "tcm": phase_train(torch, "cuda", "tcm", 16, (256, 256), 3, 10),
         "tcm192": phase_train(torch, "cuda", "tcm192", 2, (256, 256), 1, 3),
         "balle-mean-scale": phase_train(torch, "cuda", "balle-mean-scale", 16, (256, 256), 3, 10),
+        "wacnn-stanh": phase_train(torch, "cuda", "wacnn-stanh", 16, (256, 256), 3, 10),
     }
     phase_profile(torch, codecs)
     for slice_name, (train_state, train_batch) in trained.items():

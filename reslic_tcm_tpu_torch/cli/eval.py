@@ -5,10 +5,13 @@ loads a TCM checkpoint, pads each image to a multiple of 128, then either
 runs the real codec (``--real``: compress -> decompress through the host
 rANS coder) or the forward-only bpp estimate, and reports PSNR, MS-SSIM
 (dB), bpp and time; its loop is ``evaluate(codec, images)``, callable with
-arrays. ``--model wacnn`` takes the JAX CLI's generic branch: the real
-codec through ``training.codec_eval.compress_with_ac`` (pad 64) or the
-pad-128 forward estimate, reported as ``[level 0] ...`` lines. Runs on the
-CUDA device unless ``--platform cpu``.
+arrays. Every other registry name the port builds takes the JAX CLI's
+generic branch: the real codec through
+``training.codec_eval.compress_with_ac`` (pad 64) or the pad-128 forward
+estimate, one ``[level lv] ...`` line per rate level (``--lv``: one level,
+-1 every level of a variable-rate codec; the STanH codecs take the
+quantizer knobs they were trained with from ``--lambda_list`` and
+``--gauss_*``). Runs on the CUDA device unless ``--platform cpu``.
 """
 
 from __future__ import annotations
@@ -187,33 +190,47 @@ def _device(args) -> torch.device:
 
 def _eval_generic(args, device, img_list) -> int:
     """Any registry model the port builds: the real codec through
-    ``compress_with_ac`` or the pad-128 forward estimate, one rate level."""
+    ``compress_with_ac`` or the pad-128 forward estimate, at ``--lv`` or at
+    every rate level. The model is built from the train parser's defaults
+    with this CLI's model, widths, lambdas and quantizer knobs, as the JAX
+    CLI builds it."""
     from ..models import get_model
+    from ..utils.parser import parse_args as train_parse
 
-    codec, *_ = get_model(args, device=device)
+    targs = train_parse([])
+    targs.model, targs.N, targs.M = args.model, args.N, args.M
+    targs.lambda_list = args.lambda_list
+    for knob in ("gauss_num_sigmoids", "gauss_extrema", "gauss_trainable"):
+        if getattr(args, knob) is not None:
+            setattr(targs, knob, getattr(args, knob))
+    codec, *_ = get_model(targs, device=device)
     if args.checkpoint:
         print("Loading", args.checkpoint)
         load_checkpoint(codec, args.checkpoint)
-    lv = 0
+    n_levels = getattr(codec.module, "n_rates", 1)
+    levels = [args.lv] if args.lv >= 0 else list(range(n_levels))
     if args.real:
         codec.update()
-        bpp, psnr_v = compress_with_ac(codec, (read_image(p) for p in img_list))
-        print(f"[level {lv}] average_Bit-rate: {bpp:.3f} bpp | average_PSNR: {psnr_v:.2f}dB")
+        for lv in levels:
+            bpp, psnr_v = compress_with_ac(codec, (read_image(p) for p in img_list), lv=lv)
+            print(f"[level {lv}] average_Bit-rate: {bpp:.3f} bpp | "
+                  f"average_PSNR: {psnr_v:.2f}dB")
         return 0
-    psnr_sum = bit_rate = 0.0
-    for path in img_list:
-        x = torch.as_tensor(read_image(path), device=device)[None]
-        pad, _ = compute_padding(x.shape[1], x.shape[2], PAD)
-        xp = pad_nhwc(x, pad)
-        out = codec.forward(xp)
-        x_hat = crop_nhwc(torch.clamp(out["x_hat"], 0, 1), pad)
-        num_pixels = xp.shape[1] * xp.shape[2]
-        bit_rate += sum(float(-torch.log2(lik).sum()) for lik in out["likelihoods"].values()
-                        ) / num_pixels
-        psnr_sum += compute_psnr(x, x_hat)
-    n = len(img_list)
-    print(f"[level {lv}] average_PSNR: {psnr_sum / n:.2f}dB | "
-          f"average_Bit-rate: {bit_rate / n:.3f} bpp")
+    for lv in levels:
+        psnr_sum = bit_rate = 0.0
+        for path in img_list:
+            x = torch.as_tensor(read_image(path), device=device)[None]
+            pad, _ = compute_padding(x.shape[1], x.shape[2], PAD)
+            xp = pad_nhwc(x, pad)
+            out = codec.forward(xp, lv=lv)
+            x_hat = crop_nhwc(torch.clamp(out["x_hat"], 0, 1), pad)
+            num_pixels = xp.shape[1] * xp.shape[2]
+            bit_rate += sum(float(-torch.log2(lik).sum())
+                            for lik in out["likelihoods"].values()) / num_pixels
+            psnr_sum += compute_psnr(x, x_hat)
+        n = len(img_list)
+        print(f"[level {lv}] average_PSNR: {psnr_sum / n:.2f}dB | "
+              f"average_Bit-rate: {bit_rate / n:.3f} bpp")
     return 0
 
 

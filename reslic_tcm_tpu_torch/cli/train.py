@@ -2,10 +2,14 @@
 
 The JAX trainer's flags (``utils/parser.py``) and recipe: epochs over an
 ImageFolder of random crops, a random rate level per batch (Python's
-``random`` seeded by ``--seed``), the main and aux Adam with global-norm
-clipping (``training/step.py``), validation per lambda with each image
-padded to a multiple of 128, ``ReduceLROnPlateau`` on the mean validation
-loss, best and very-best checkpoints and the two newest epoch files.
+``random`` seeded by ``--seed``) passed to the step as ``lv``, the main and
+aux Adam with global-norm clipping (``training/step.py``), validation per
+lambda at its level with each image padded to a multiple of 128,
+``ReduceLROnPlateau`` on the mean validation loss, best and very-best
+checkpoints and the two newest epoch files. The STanH codecs take beta
+from one annealing schedule per run (``get_model``'s), stepped with each
+batch's ``gap``, epoch and loss; ``--freeze`` trains only their
+staircases and synthesis transforms.
 ``--tester`` validates and stops; ``--checkpoint`` takes a ``.npz``
 snapshot of JAX parameters (a warm start) or the port's own checkpoint,
 whose optimisers, scheduler, step and epoch ``--continue_train`` resumes.
@@ -32,7 +36,6 @@ from .eval import load_checkpoint as load_snapshot
 _NOT_YET = {
     "bf16": "ROADMAP queue A item 15 (bf16 throughput mode)",
     "coordinator": "ROADMAP queue A item 13 (parallel: multi-host training)",
-    "freeze": "ROADMAP queue A item 10 (STanH)",
 }
 
 
@@ -77,7 +80,7 @@ def main(argv=None):
                           drop_last=False)
     kodak = KodakDataset(args.kodak) if os.path.isdir(args.kodak) else None
 
-    codec, *_ = get_model(args, device=device)
+    codec, _, ann_g, _, _ = get_model(args, device=device)
     module = codec.module
     restored = None
     if args.checkpoint != "none":
@@ -88,6 +91,13 @@ def main(argv=None):
             restored = load_checkpoint(args.checkpoint)
             module.load_state_dict(restored["state_dict"])
 
+    is_stanh = is_stanh_name(args.model)
+    _warn_frozen_uniform_levels(args)
+    if args.freeze and is_stanh:
+        from ..training.optimizer import freeze_all_but_stanh
+
+        freeze_all_but_stanh(module)
+        print("freeze: training only stanh (+ g_s) parameters")
     state = create_train_state(module, args.learning_rate, float(args.aux_learning_rate),
                                args.clip_max_norm)
     scheduler = ReduceLROnPlateau(args.learning_rate, "min", factor=0.5, patience=4)
@@ -108,8 +118,12 @@ def main(argv=None):
         meters = {k: AverageMeter() for k in ("loss", "bpp_loss", "mse_loss")}
         for i, batch in enumerate(train_loader):
             p = random.randint(0, len(lambda_list) - 1)
+            beta = float(ann_g.beta) if (is_stanh and ann_g is not None) else None
             metrics = train_step(state, to_device(batch, device), lambda_list[p],
-                                 step_noise(seed, state.step, device), args.type)
+                                 step_noise(seed, state.step, device), args.type, lv=p,
+                                 beta=beta)
+            if is_stanh and ann_g is not None:
+                ann_g.step(gap=float(metrics["gap"]), epoch=epoch, loss=float(metrics["loss"]))
             for k in meters:
                 if k in metrics:
                     meters[k].update(float(metrics[k]))
@@ -119,6 +133,8 @@ def main(argv=None):
                       f"\tBpp loss: {float(metrics['bpp_loss']):.2f} |"
                       f"\tAux loss: {float(metrics['aux_loss']):.2f} |")
 
+        if is_stanh and ann_g is not None:
+            print(f"stanh beta after epoch {epoch}: {float(ann_g.beta):.4f}")
         val_loss = _validate(module, valid_loader, lambda_list, args.type, device, epoch)
         if kodak is not None:
             _validate(module, kodak, lambda_list, args.type, device, epoch, tag="test")
@@ -130,6 +146,25 @@ def main(argv=None):
         sec_to_hours(time.time() - start)
         print("END OF EPOCH ", epoch)
     return 0
+
+
+def is_stanh_name(model_name: str) -> bool:
+    return "stanh" in model_name
+
+
+def _warn_frozen_uniform_levels(args) -> None:
+    """The JAX trainer's warning: with several lambdas and every quantizer
+    frozen at one shared init, all rate levels compute the same function
+    (per-level staircase inits are exempt)."""
+    n_lam = len(args.lambda_list)
+    uniform_init = (len(set(args.gauss_num_sigmoids[:n_lam])) <= 1
+                    and len(set(args.gauss_extrema[:n_lam])) <= 1)
+    if (is_stanh_name(args.model) and n_lam > 1 and uniform_init
+            and all(t != "yes" for t in args.gauss_trainable)):
+        print("WARNING: multi-lambda stanh training with all quantizers frozen "
+              "(--gauss_trainable no ...): every level starts from the same frozen STanH, "
+              "so the trained model will code identically at every level. Pass "
+              "--gauss_trainable " + " ".join(["yes"] * n_lam) + " for a variable-rate model.")
 
 
 def _save(args, state, scheduler, epoch: int, val_loss: float, is_best: bool) -> None:
@@ -159,8 +194,9 @@ def _save(args, state, scheduler, epoch: int, val_loss: float, is_best: bool) ->
 
 
 def _validate(module, loader, lambda_list, loss_type, device, epoch=0, tag="valid") -> float:
-    """Mean over the lambdas of the average eval loss; each batch is padded
-    to a multiple of 128, the model's windowing contract."""
+    """Mean over the lambdas of the average eval loss, lambda j at rate
+    level j; each batch is padded to a multiple of 128, the model's
+    windowing contract."""
     from ..ops.math import compute_padding, pad_nhwc
     from ..training.step import eval_step
     from ..utils.helper import AverageMeter
@@ -174,7 +210,7 @@ def _validate(module, loader, lambda_list, loss_type, device, epoch=0, tag="vali
             if h % 128 or w % 128:
                 x = pad_nhwc(x, compute_padding(h, w, 128)[0])
             out = eval_step(module, x.permute(0, 3, 1, 2).contiguous().to(device), lmbda,
-                            loss_type)
+                            loss_type, lv=j)
             loss_m.update(float(out["loss"]))
             bpp_m.update(float(out["bpp_loss"]))
             psnr_m.update(float(out["psnr"]))

@@ -4,18 +4,16 @@
 registry's constructor arguments and returns the same five-tuple
 (codec, gaussian_configuration, annealing_strategy_gaussian,
 factorized_configuration, annealing_strategy_factorized). The port builds
-TCM, WACNN and the Balle-2018 family (factorized, scale_hyperprior,
-mean_scale_hyperprior); every other registry name raises
-``NotImplementedError`` naming the ROADMAP item that brings it.
+TCM, WACNN, the Balle-2018 family (factorized, scale_hyperprior,
+mean_scale_hyperprior) and the STanH codecs (stanh, wacnn_stanh,
+scale_stanh); the gain codecs raise ``NotImplementedError`` naming the
+ROADMAP item that brings them.
 """
 
 from __future__ import annotations
 
 # registry names the port does not build yet -> the ROADMAP item that brings each
 NOT_PORTED = {
-    "stanh": "ROADMAP queue A item 10 (STanH)",
-    "scale_stanh": "ROADMAP queue A item 10 (STanH)",
-    "wacnn_stanh": "ROADMAP queue A item 10 (STanH)",
     "scale_gain": "ROADMAP queue A item 11 (gain codecs)",
     "wacnn_gain": "ROADMAP queue A item 11 (gain codecs)",
     "scale_gain_sc": "ROADMAP queue A item 11 (gain codecs)",
@@ -26,11 +24,33 @@ BALLE_KINDS = {"factorized": "factorized", "scale_hyperprior": "scale",
 
 
 def get_model(args, device="cuda"):
-    """Build the codec ``args.model`` (with ``args.N``, ``args.M``) on
+    """Build the codec ``args.model`` (with ``args.N``, ``args.M`` and, for
+    the STanH names, the train parser's ``--gauss_*``, ``--symmetry``,
+    ``--removing_mean``, ``--refinement`` and ``--lambda_list``) on
     ``device`` with seeded random weights."""
     name = args.model
     if name in NOT_PORTED:
         raise NotImplementedError(f"--model {name} is not ported yet: {NOT_PORTED[name]}")
+    if name in ("wacnn_stanh", "stanh", "scale_stanh"):
+        from ..utils.helper import configure_annealings, configure_latent_space_policy
+        from .stanh import variants
+
+        if name == "scale_stanh":  # one rate level, as the JAX registry builds it
+            gcfg = configure_latent_space_policy(args)
+            codec = variants.make_scale_stanh(gcfg, N=args.N, M=args.M, fact_stanh=True,
+                                              device=device)
+            return (codec, gcfg, configure_annealings(gcfg[0]), gcfg,
+                    configure_annealings(gcfg[0]))
+        gcfg = configure_latent_space_policy(args, multi=len(args.lambda_list) > 1)
+        if len(gcfg) < len(args.lambda_list):
+            gcfg = gcfg * len(args.lambda_list)
+        if name == "wacnn_stanh":
+            codec = variants.make_wacnn_stanh(gcfg, N=args.N, M=args.M,
+                                              refinement=args.refinement, device=device)
+            return codec, gcfg, configure_annealings(gcfg[0]), None, None
+        # TCM-STanH: M fixed at 320, the TCM module's defaults
+        codec = variants.make_tcm_stanh(gcfg, N=args.N, M=320, device=device)
+        return codec, gcfg, configure_annealings(gcfg[0]), gcfg, configure_annealings(gcfg[0])
     if name == "wacnn":
         from .wacnn import make_wacnn
 

@@ -177,8 +177,10 @@ class HyperpriorCodec:
 
     @torch.no_grad()
     @fp32_numerics()
-    def forward(self, x) -> dict:
-        """Eval forward (bpp estimate) of NHWC images; outputs NHWC."""
+    def forward(self, x, lv: int = 0) -> dict:
+        """Eval forward (bpp estimate) of NHWC images; outputs NHWC. ``lv``
+        (here and in compress/decompress): the rate level of the
+        variable-rate codecs' API, one level here."""
         out = self.module(self._input(x))
         return {"x_hat": to_nhwc(out["x_hat"]),
                 "likelihoods": {k: to_nhwc(v) for k, v in out["likelihoods"].items()}}
@@ -195,7 +197,7 @@ class HyperpriorCodec:
 
     @torch.no_grad()
     @fp32_numerics()
-    def compress(self, x) -> dict:
+    def compress(self, x, lv: int = 0) -> dict:
         """x: NHWC in [0, 1]. Returns {"strings": [y strings] for
         FactorizedPrior, else [y strings, z strings], one per image;
         "shape": the coded latent's (h, w) (y's for FactorizedPrior, z's
@@ -227,7 +229,7 @@ class HyperpriorCodec:
 
     @torch.no_grad()
     @fp32_numerics()
-    def decompress(self, strings, shape) -> dict:
+    def decompress(self, strings, shape, lv: int = 0) -> dict:
         """Decode ``compress``'s strings. Returns {"x_hat": NHWC in [0, 1],
         "y_hat": NHWC}."""
         self._require_tables()

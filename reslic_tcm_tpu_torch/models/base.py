@@ -5,7 +5,11 @@ the rate-distortion forward (eval and training) and the host-codec paths).
 helpers shared by the encoder and the decoder, in NCHW. Its training
 forward takes the uniform noise from a ``noise`` callable (``uniform_noise``
 or ``replayed_noise``), drawn in the JAX module's order: z first, then the
-slices in order. ``ChannelARCodec``
+slices in order. The JAX module's entropy hooks (``slice_entropy``,
+``extra_outputs``, ``apply_synthesis``) and the codec hooks
+(``quantize_slice``, ``decode_slice_dequant_finish``, ``synthesize``)
+take the rate level ``lv``, a Python int that the STanH variants use
+(models/stanh/variants.py) and the plain codecs ignore. ``ChannelARCodec``
 pairs a module on a device with the host rANS coder behind the
 reference's ``update()`` / ``compress()`` / ``decompress()`` API; its
 public tensors are NHWC, like the JAX package's.
@@ -109,11 +113,34 @@ class ChannelARModule(nn.Module):
         lrp = self.lrp_transforms[i](torch.cat([mean_support, y_hat_slice], dim=1))
         return y_hat_slice + 0.5 * torch.tanh(lrp)
 
-    def forward(self, x, training: bool = False, noise=None):
-        """Rate-distortion forward (NCHW). Eval (the bpp estimate) takes the
-        likelihoods at the rounded values; ``training`` at the values plus
-        U(-0.5, 0.5) noise from ``noise(shape)``, called for z and then for
-        each slice. y_hat is the STE round around mu either way."""
+    # ------------------------- entropy hooks -------------------------
+    # The STanH variants (models/stanh/variants.py) override these: they
+    # quantize the slices with their learnable staircase and add the gap.
+
+    def slice_entropy(self, i: int, y_slice, sigma, mu, training: bool, beta, lv: int,
+                      noise=None):
+        """(y_hat_slice, likelihood) of slice i. Eval takes the likelihood
+        at round(y - mu) + mu, training at y + U(-0.5, 0.5) from
+        ``noise(shape)``; y_hat is the STE round around mu either way."""
+        if training:
+            lik_point = y_slice + noise(y_slice.shape)
+        else:
+            lik_point = torch.round(y_slice - mu) + mu
+        lik = gaussian_likelihood(lik_point, sigma, mu)
+        return ste_round(y_slice - mu) + mu, lik
+
+    def extra_outputs(self, y, training: bool, beta, lv: int) -> dict:
+        return {}
+
+    def apply_synthesis(self, y_hat, lv: int):
+        return self.g_s(y_hat)
+
+    def forward(self, x, training: bool = False, noise=None, lv: int = 0, beta=None):
+        """Rate-distortion forward (NCHW) at rate level ``lv`` (STanH
+        temperature ``beta``; the plain codecs ignore both). Each slice goes
+        through ``slice_entropy``, then the LRP; y_hat through
+        ``apply_synthesis``. With ``training`` the noise comes from
+        ``noise(shape)``, called for z and then for each slice that draws."""
         if training and noise is None:
             raise ValueError("the training forward needs a noise callable")
         y = self.g_a(x)
@@ -134,21 +161,20 @@ class ChannelARModule(nn.Module):
                                                      y_shape)
             mu_list.append(mu)
             scale_list.append(sigma)
-            if training:
-                lik_point = y_slice + noise(y_slice.shape)
-            else:
-                lik_point = torch.round(y_slice - mu) + mu
-            y_lik.append(gaussian_likelihood(lik_point, sigma, mu))
-            y_hat_slice = ste_round(y_slice - mu) + mu
+            y_hat_slice, lik = self.slice_entropy(i, y_slice, sigma, mu, training, beta, lv,
+                                                  noise)
+            y_lik.append(lik)
             y_hat_slices.append(self._lrp(i, mean_support, y_hat_slice))
 
-        x_hat = self.g_s(torch.cat(y_hat_slices, dim=1))
-        return {
+        x_hat = self.apply_synthesis(torch.cat(y_hat_slices, dim=1), lv)
+        out = {
             "x_hat": x_hat,
             "likelihoods": {"y": torch.cat(y_lik, dim=1), "z": z_likelihoods},
             "para": {"means": torch.cat(mu_list, dim=1), "scales": torch.cat(scale_list, dim=1),
                      "y": y},
         }
+        out.update(self.extra_outputs(y, training, beta, lv))
+        return out
 
     def aux_loss(self) -> torch.Tensor:
         """The entropy bottleneck's quantile loss (the aux optimiser's)."""
@@ -175,17 +201,17 @@ class ChannelARModule(nn.Module):
                                                  y_shape)
         return mu, build_indexes(sigma, scale_table).to(torch.uint8), mean_support
 
-    def quantize_slice(self, i: int, y, mu):
+    def quantize_slice(self, i: int, y, mu, lv: int = 0):
         """int16 symbols round(y_i - mu) of slice i."""
         c = self.M // self.num_slices
         return torch.round(y[:, i * c : (i + 1) * c] - mu).to(torch.int16)
 
-    def decode_slice_dequant_finish(self, i: int, mean_support, symbols, mu):
+    def decode_slice_dequant_finish(self, i: int, mean_support, symbols, mu, lv: int = 0):
         """Dequantize the int16 symbols and apply the LRP refinement."""
         return self._lrp(i, mean_support, symbols.to(mu.dtype) + mu)
 
-    def synthesize(self, y_hat):
-        return torch.clamp(self.g_s(y_hat), 0.0, 1.0)
+    def synthesize(self, y_hat, lv: int = 0):
+        return torch.clamp(self.apply_synthesis(y_hat, lv), 0.0, 1.0)
 
 
 class ChannelARCodec:
@@ -219,30 +245,36 @@ class ChannelARCodec:
         if self.eb_tables is None:
             raise RuntimeError("call update() before compress() or decompress()")
 
+    def y_tables(self, lv: int = 0) -> fz.CodingTables:
+        """The CDF tables that code y at rate level ``lv`` (one set here)."""
+        return self.gaussian_conditional.tables
+
     @torch.no_grad()
     @fp32_numerics()
-    def forward(self, x) -> dict:
-        """Eval forward (bpp estimate) of NHWC images; outputs NHWC."""
-        out = self.module(self._input(x))
+    def forward(self, x, lv: int = 0) -> dict:
+        """Eval forward (bpp estimate) of NHWC images at rate level ``lv``;
+        outputs NHWC."""
+        out = self.module(self._input(x), lv=lv)
         return {
             "x_hat": to_nhwc(out["x_hat"]),
             "likelihoods": {k: to_nhwc(v) for k, v in out["likelihoods"].items()},
             "para": {k: to_nhwc(v) for k, v in out["para"].items()},
         }
 
-    def compress(self, x) -> dict:
-        """x: NHWC in [0, 1], batch 1. Returns {"strings": [[y], [z]], "shape",
-        "y_hat"}: the reference's two keys plus the encoder's y_hat (NHWC),
-        which the decoder must reproduce exactly."""
+    def compress(self, x, lv: int = 0) -> dict:
+        """x: NHWC in [0, 1], batch 1, coded at rate level ``lv``. Returns
+        {"strings": [[y], [z]], "shape", "y_hat"}: the reference's two keys
+        plus the encoder's y_hat (NHWC), which the decoder must reproduce
+        exactly."""
         if x.shape[0] != 1:
             raise ValueError("compress() codes one image per call; use compress_batch()")
-        return self.compress_batch(x)[0]
+        return self.compress_batch(x, lv)[0]
 
     @torch.no_grad()
     @fp32_numerics()
-    def encode_symbols(self, x):
+    def encode_symbols(self, x, lv: int = 0):
         """The device side of the encoder: (symbols, indexes, z, y_hat) for a
-        batch of NHWC images; symbols and indexes are int32 [B, n] numpy
+        batch of NHWC images at rate level ``lv``; symbols and indexes are int32 [B, n] numpy
         arrays ordered slice by slice, channel-major within a slice, z is
         the NCHW hyper-latent in numpy and y_hat the NHWC latent that the
         decoder must reproduce."""
@@ -257,20 +289,20 @@ class ChannelARCodec:
         for i in range(m.num_slices):
             mu, indexes, mean_support = m.decode_slice_params(
                 i, latent_means, latent_scales, y_hat_slices, y_shape, self._scale_table)
-            sym = m.quantize_slice(i, y, mu)
-            y_hat_slices.append(m.decode_slice_dequant_finish(i, mean_support, sym, mu))
+            sym = m.quantize_slice(i, y, mu, lv)
+            y_hat_slices.append(m.decode_slice_dequant_finish(i, mean_support, sym, mu, lv))
             syms.append(sym)
             idxs.append(indexes)
         symbols = torch.stack(syms, dim=1).reshape(b, -1).cpu().numpy().astype(np.int32)
         indexes = torch.stack(idxs, dim=1).reshape(b, -1).cpu().numpy().astype(np.int32)
         return symbols, indexes, z.cpu().numpy(), to_nhwc(torch.cat(y_hat_slices, dim=1))
 
-    def compress_batch(self, x) -> list[dict]:
-        """Encode a batch: ``encode_symbols`` on the device, then each
-        image's y and z streams on the host."""
-        symbols, indexes, z, y_hat = self.encode_symbols(x)
+    def compress_batch(self, x, lv: int = 0) -> list[dict]:
+        """Encode a batch at rate level ``lv``: ``encode_symbols`` on the
+        device, then each image's y and z streams on the host."""
+        symbols, indexes, z, y_hat = self.encode_symbols(x, lv)
         b, _, zh, zw = z.shape
-        t = self.gaussian_conditional.tables
+        t = self.y_tables(lv)
 
         def encode_one(j):
             from ..coding.rans import encode_with_indexes
@@ -286,14 +318,15 @@ class ChannelARCodec:
         with ThreadPoolExecutor(max_workers=min(8, b)) as pool:
             return list(pool.map(encode_one, range(b)))
 
-    def decompress(self, strings, shape) -> dict:
-        return self.decompress_batch([strings], shape)
+    def decompress(self, strings, shape, lv: int = 0) -> dict:
+        return self.decompress_batch([strings], shape, lv)
 
     @torch.no_grad()
     @fp32_numerics()
-    def decompress_batch(self, strings_list, shape) -> dict:
-        """Decode B bitstreams together; each image keeps its own rANS
-        decoder state. Returns {"x_hat": NHWC in [0, 1], "y_hat": NHWC}."""
+    def decompress_batch(self, strings_list, shape, lv: int = 0) -> dict:
+        """Decode B bitstreams coded at rate level ``lv`` together; each
+        image keeps its own rANS decoder state. Returns {"x_hat": NHWC in
+        [0, 1], "y_hat": NHWC}."""
         self._require_tables()
         from ..coding.rans import RansDecoder
 
@@ -303,7 +336,7 @@ class ChannelARCodec:
             axis=0)
         latent_means, latent_scales = m.hyper_synthesis(torch.from_numpy(z_hat).to(self.device))
         y_shape = (shape[0] * 4, shape[1] * 4)
-        t = self.gaussian_conditional.tables
+        t = self.y_tables(lv)
         b = len(strings_list)
         decoders = []
         for s in strings_list:
@@ -328,9 +361,10 @@ class ChannelARCodec:
                     rows = list(pool.map(lambda j: decode_slice(j, idx_np), range(b)))
                 sym = torch.from_numpy(
                     np.stack(rows).reshape(idx_np.shape).astype(np.int16)).to(self.device)
-                y_hat_slices.append(m.decode_slice_dequant_finish(i, mean_support, sym, mu))
+                y_hat_slices.append(
+                    m.decode_slice_dequant_finish(i, mean_support, sym, mu, lv))
         finally:
             if pool is not None:
                 pool.shutdown(wait=True)
         y_hat = torch.cat(y_hat_slices, dim=1)
-        return {"x_hat": to_nhwc(m.synthesize(y_hat)), "y_hat": to_nhwc(y_hat)}
+        return {"x_hat": to_nhwc(m.synthesize(y_hat, lv)), "y_hat": to_nhwc(y_hat)}

@@ -22,7 +22,8 @@ import torch
 from torch import nn
 
 from ..entropy.factorized import EntropyBottleneck
-from ..ops.layers import GDN, Deconv, conv, subpel_conv3x3
+from ..entropy.stanh_models import StanhEntropyBottleneck
+from ..ops.layers import GDN, Deconv, StackedConv1x1, conv, subpel_conv3x3
 from ..ops.window_attention import Win_noShift_Attention, WindowAttention
 from .base import ChannelARCodec, ChannelARModule
 
@@ -34,6 +35,17 @@ def _cc5(in_ch: int, dims: Sequence[int], out_ch: int) -> nn.Sequential:
         layers += [conv(in_ch, d, 3), nn.GELU()]
         in_ch = d
     return nn.Sequential(*layers, conv(in_ch, out_ch, 3))
+
+
+def _g_s(N: int, M: int) -> nn.Sequential:
+    return nn.Sequential(
+        Win_noShift_Attention(M, 8, 4, 2),
+        Deconv(M, N, 5, 2), GDN(N, inverse=True),
+        Deconv(N, N, 5, 2), GDN(N, inverse=True),
+        Win_noShift_Attention(N, 8, 8, 4),
+        Deconv(N, N, 5, 2), GDN(N, inverse=True),
+        Deconv(N, 3, 5, 2),
+    )
 
 
 class WACNN(ChannelARModule):
@@ -57,14 +69,7 @@ class WACNN(ChannelARModule):
             conv(N, M, 5, 2),
             Win_noShift_Attention(M, 8, 4, 2),
         )
-        self.g_s = nn.Sequential(
-            Win_noShift_Attention(M, 8, 4, 2),
-            Deconv(M, N, 5, 2), GDN(N, inverse=True),
-            Deconv(N, N, 5, 2), GDN(N, inverse=True),
-            Win_noShift_Attention(N, 8, 8, 4),
-            Deconv(N, N, 5, 2), GDN(N, inverse=True),
-            Deconv(N, 3, 5, 2),
-        )
+        self.g_s = _g_s(N, M)
         self.h_a = nn.Sequential(
             conv(M, hd0, 3), nn.GELU(),
             conv(hd0, hd1, 3), nn.GELU(),
@@ -100,7 +105,10 @@ def draw_weights(module: nn.Module, gen: torch.Generator) -> None:
     weights and biases U(-1/sqrt(fan_in), 1/sqrt(fan_in)) (fan_in over the
     weight's dims 1..), relative-position tables N(0, 0.02) clipped at two
     standard deviations, entropy-bottleneck biases U(-0.5, 0.5). GDN and the
-    rest of the entropy bottleneck keep their fixed initial values."""
+    rest of the entropy bottleneck keep their fixed initial values. Each
+    level of a StackedConv1x1 is drawn as its own 1x1 convolution (fan_in
+    = cin); the STanH entropy bottleneck's biases as the plain one's, its
+    staircase and the STanH conditionals keep their fixed initial values."""
 
     def uniform_(p, bound):
         p.copy_(torch.rand(p.shape, generator=gen) * (2 * bound) - bound)
@@ -111,10 +119,14 @@ def draw_weights(module: nn.Module, gen: torch.Generator) -> None:
             uniform_(m.weight, bound)
             if m.bias is not None:
                 uniform_(m.bias, bound)
+        elif isinstance(m, StackedConv1x1):
+            bound = 1.0 / math.sqrt(m.weight.shape[1])
+            uniform_(m.weight, bound)
+            uniform_(m.bias, bound)
         elif isinstance(m, WindowAttention):
             t = m.relative_position_bias_table
             t.copy_(torch.randn(t.shape, generator=gen).clamp_(-2, 2) * 0.02)
-        elif isinstance(m, EntropyBottleneck):
+        elif isinstance(m, (EntropyBottleneck, StanhEntropyBottleneck)):
             for name, p in m.named_parameters():
                 if name.startswith("_bias"):
                     uniform_(p, 0.5)

@@ -92,6 +92,21 @@ class Deconv(nn.ConvTranspose2d):
                          output_padding=stride - 1)
 
 
+class StackedConv1x1(nn.Module):
+    """One 1x1 convolution per rate level, stacked: ``weight`` [n_rates,
+    cin, cout] and ``bias`` [n_rates, cout], the JAX package's layout, so
+    the bridge copies them as they are; ``forward(x, lv)`` applies level
+    ``lv``'s (WACNN-STanH's "convolution" refinement)."""
+
+    def __init__(self, n_rates: int, in_ch: int, out_ch: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(n_rates, in_ch, out_ch))
+        self.bias = nn.Parameter(torch.zeros(n_rates, out_ch))
+
+    def forward(self, x, lv: int):
+        return torch.einsum("bihw,io->bohw", x, self.weight[lv]) + self.bias[lv][:, None, None]
+
+
 _GDN_BETA_MIN = 1e-6
 _GDN_GAMMA_INIT = 0.1
 _GDN_REPARAM_OFFSET = 2 ** -18

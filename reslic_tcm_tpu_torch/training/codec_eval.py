@@ -31,10 +31,10 @@ def sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def compress_with_ac(codec, images, min_div: int = 64, verbose: bool = True, log=print,
-                     records: list | None = None):
+def compress_with_ac(codec, images, lv: int = 0, min_div: int = 64, verbose: bool = True,
+                     log=print, records: list | None = None):
     """Average (bpp, psnr) over HWC float32 images in [0, 1] through the real
-    codec. With ``records``, appends one dict per image: bpp (total, y, z),
+    codec at rate level ``lv``. With ``records``, appends one dict per image: bpp (total, y, z),
     PSNR, MS-SSIM (None below its minimum size), encode and decode ms (host
     clock around work that ends in a device synchronise), the kernel
     launches of each pass, whether the decoder reproduced the encoder's
@@ -48,11 +48,11 @@ def compress_with_ac(codec, images, min_div: int = 64, verbose: bool = True, log
         x_padded = pad_nhwc(x, pad)
         sync(dev)
         before, t0 = launch_counts(), time.perf_counter()
-        enc = codec.compress(x_padded)
+        enc = codec.compress(x_padded, lv=lv)
         sync(dev)
         t1 = time.perf_counter()
         launches_compress, before = launches_since(before), launch_counts()
-        dec = codec.decompress(enc["strings"], enc["shape"])
+        dec = codec.decompress(enc["strings"], enc["shape"], lv=lv)
         sync(dev)
         t2 = time.perf_counter()
         launches_decompress = launches_since(before)

@@ -12,12 +12,16 @@ The noise of step k comes from a ``torch.Generator`` on the batch's device
 seeded from (seed, k) (``step_noise``), as the JAX trainer keys step k with
 ``PRNGKey(k)``: a run resumed from a checkpoint repeats the uninterrupted
 one. Both steps run in full fp32 (``fp32_numerics``) whatever the caller's
-TF32 flags.
+TF32 flags. The rate level ``lv`` and the STanH temperature ``beta`` reach
+the modules whose forward takes them, as in the JAX step; the STanH
+codecs' ``gap_gaussian`` output becomes the ``gap`` metric (0 elsewhere),
+which the trainer feeds to the beta annealing.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import inspect
 
 import numpy as np
 import torch
@@ -32,7 +36,7 @@ from .optimizer import clip_by_global_norm, configure_optimizers
 class TrainState:
     module: nn.Module  # a ChannelARModule or a Balle-2018 module
     optimizer: torch.optim.Optimizer  # main Adam: all but quantiles
-    aux_optimizer: torch.optim.Optimizer  # aux Adam: quantiles
+    aux_optimizer: torch.optim.Optimizer | None  # aux Adam: quantiles (None: the model has none)
     clip_max_norm: float = 1.0
     step: int = 0
 
@@ -58,28 +62,38 @@ def step_noise(seed: int, step: int, device):
     return uniform_noise(generator)
 
 
+def _level_kwargs(module: nn.Module, lv, beta) -> dict:
+    """lv and beta for a forward that takes them (None: left out)."""
+    params = inspect.signature(module.forward).parameters
+    return {k: v for k, v in (("lv", lv), ("beta", beta)) if v is not None and k in params}
+
+
 @fp32_numerics()
 def train_step(state: TrainState, batch: torch.Tensor, lmbda: float, noise,
-               loss_type: str = "mse") -> dict:
+               loss_type: str = "mse", lv: int | None = None, beta: float | None = None
+               ) -> dict:
     """One step on ``batch`` (NCHW in [0, 1], on the module's device) with
-    the ``noise`` callable of the training forward. Updates the state in
-    place; returns the metrics as 0-d tensors: loss, bpp_loss, mse_loss (or
-    ms_ssim_loss), grad_norm (the main gradients' global norm before the
-    clip) and aux_loss (after the aux step)."""
+    the ``noise`` callable of the training forward, at rate level ``lv``
+    and STanH temperature ``beta`` where the module takes them. Updates the
+    state in place; returns the metrics as 0-d tensors: loss, bpp_loss,
+    mse_loss (or ms_ssim_loss), gap, grad_norm (the main gradients' global
+    norm before the clip) and aux_loss (after the aux step)."""
     module = state.module
     state.optimizer.zero_grad(set_to_none=True)
-    out = module(batch, training=True, noise=noise)
+    out = module(batch, training=True, noise=noise, **_level_kwargs(module, lv, beta))
     losses = rate_distortion_loss(out, batch, lmbda, loss_type)
     losses["loss"].backward()
     grad_norm = clip_by_global_norm(state.optimizer.param_groups[0]["params"],
                                     state.clip_max_norm)
     state.optimizer.step()
 
-    state.aux_optimizer.zero_grad(set_to_none=True)
-    module.aux_loss().backward()
-    state.aux_optimizer.step()
+    if state.aux_optimizer is not None:
+        state.aux_optimizer.zero_grad(set_to_none=True)
+        module.aux_loss().backward()
+        state.aux_optimizer.step()
 
     metrics = {k: v.detach() for k, v in losses.items()}
+    metrics["gap"] = out.get("gap_gaussian", losses["loss"].new_zeros(())).detach()
     metrics["grad_norm"] = grad_norm
     with torch.no_grad():
         metrics["aux_loss"] = module.aux_loss()
@@ -90,10 +104,10 @@ def train_step(state: TrainState, batch: torch.Tensor, lmbda: float, noise,
 @torch.no_grad()
 @fp32_numerics()
 def eval_step(module: nn.Module, batch: torch.Tensor, lmbda: float,
-              loss_type: str = "mse") -> dict:
-    """The eval forward's losses on ``batch`` (NCHW) and the PSNR of the
-    clipped x_hat."""
-    out = module(batch)
+              loss_type: str = "mse", lv: int | None = None) -> dict:
+    """The eval forward's losses on ``batch`` (NCHW) at rate level ``lv``
+    (where the module takes it) and the PSNR of the clipped x_hat."""
+    out = module(batch, **_level_kwargs(module, lv, None))
     losses = rate_distortion_loss(out, batch, lmbda, loss_type)
     mse = torch.mean((torch.clamp(out["x_hat"], 0, 1) - batch) ** 2)
     losses["psnr"] = -10.0 * torch.log10(mse)

@@ -68,7 +68,8 @@ def save_checkpoint(path: str, state, scheduler: ReduceLROnPlateau, epoch: int,
         "state_dict": state.module.state_dict(),
         "loss": float(val_loss),
         "optimizer": state.optimizer.state_dict(),
-        "aux_optimizer": state.aux_optimizer.state_dict(),
+        "aux_optimizer": (None if state.aux_optimizer is None
+                          else state.aux_optimizer.state_dict()),
         "lr_scheduler": scheduler.state_dict(),
         "step": int(state.step),
     }
@@ -87,7 +88,8 @@ def restore(state, payload: dict, scheduler: ReduceLROnPlateau | None = None) ->
     into ``state``; returns the next epoch."""
     state.module.load_state_dict(payload["state_dict"])
     state.optimizer.load_state_dict(payload["optimizer"])
-    state.aux_optimizer.load_state_dict(payload["aux_optimizer"])
+    if state.aux_optimizer is not None:
+        state.aux_optimizer.load_state_dict(payload["aux_optimizer"])
     state.step = int(payload["step"])
     if scheduler is not None:
         scheduler.load_state_dict(payload["lr_scheduler"])

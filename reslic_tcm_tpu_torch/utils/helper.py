@@ -6,6 +6,39 @@ from __future__ import annotations
 from datetime import datetime
 from os.path import join
 
+from ..entropy.annealings import configure_annealings  # noqa: F401  (re-export, helper.py:118)
+
+
+def configure_latent_space_policy(args, multi: bool = False) -> list[dict]:
+    """Per-lambda STanH configuration dicts (reference helper.py:16-46):
+    one dict from the first entry of each ``--gauss_*`` list (frozen
+    quantizer), or with ``multi`` one per lambda with its trainable flag."""
+
+    def pick(v, i):
+        return v[i] if isinstance(v, list) else v
+
+    if not multi:
+        return [{
+            "beta": pick(args.gauss_beta, 0),
+            "num_sigmoids": pick(args.gauss_num_sigmoids, 0),
+            "annealing": pick(args.gauss_annealing, 0),
+            "symmetry": args.symmetry,
+            "gap_factor": pick(args.gauss_gp, 0),
+            "extrema": pick(args.gauss_extrema, 0),
+            "trainable": False,
+            "removing_mean": args.removing_mean,
+        }]
+    return [{
+        "beta": args.gauss_beta[i],
+        "num_sigmoids": args.gauss_num_sigmoids[i],
+        "annealing": args.gauss_annealing[i],
+        "symmetry": args.symmetry,
+        "gap_factor": args.gauss_gp[i],
+        "extrema": args.gauss_extrema[i],
+        "trainable": args.gauss_trainable[i] == "yes",
+        "removing_mean": args.removing_mean,
+    } for i in range(len(args.lambda_list))]
+
 
 class AverageMeter:
     """Running average (reference helper.py:88-101)."""

@@ -18,6 +18,13 @@ bottleneck): their flax paths are Sequential indices over bare Conv,
 Deconv and GDN layers (``g_a/layers_0/conv/kernel`` -> ``g_a.0.weight``,
 ``g_s/layers_0/kernel`` -> a Deconv's ``g_s.0.weight``).
 
+The STanH codecs' extra parameters keep their flax layout: the stacked
+quantizer tables ``gaussian_conditional/stanh/{w,b}`` ([n_rates, L]), the
+STanH bottleneck ``entropy_bottleneck_stanh/*`` (its chain and nested
+``stanh``), the stacked refinement ``refine/{kernel,bias}`` ([n_rates,
+cin, cout], [n_rates, cout]) and the per-level synthesis clones
+``g_s_{i}/...``, which map as ``g_s`` does.
+
 ``load_snapshot`` reads the committed fp16 snapshots
 (``checkpoints/*.npz``: one array per '/'-joined flax parameter path) and
 upcasts them to float32.
@@ -106,8 +113,10 @@ def _translate_path(parts: tuple) -> tuple[str, list[str]]:
 
 
 def _finalize_key(k: str) -> str:
-    """CompressAI's entropy-bottleneck chain names: matrix0 -> _matrix0."""
-    return re.sub(r"\bentropy_bottleneck\.(matrix|bias|factor)(\d)", r"entropy_bottleneck._\1\2", k)
+    """CompressAI's entropy-bottleneck chain names: matrix0 -> _matrix0 (also
+    in the STanH bottleneck, ``entropy_bottleneck_stanh``)."""
+    return re.sub(r"\b(entropy_bottleneck(?:_stanh)?)\.(matrix|bias|factor)(\d)", r"\1._\2\3",
+                  k)
 
 
 def torch_key(path: str, flat_keys) -> str:

@@ -425,6 +425,53 @@ def test_wider_codecs_on_card_match_cpu_and_decode_exactly(cuda, model, n):
     assert torch.equal(enc["y_hat"], dec["y_hat"])
 
 
+_STANH_LEVELS = [{"beta": 10, "num_sigmoids": 16, "annealing": "gap_stoc", "symmetry": False,
+                  "gap_factor": 25, "extrema": e, "trainable": True, "removing_mean": False}
+                 for e in (32, 16, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model,n", [("wacnn_stanh", 192), ("tcm_stanh", 64)])
+def test_stanh_codecs_on_card_roundtrip_every_level(cuda, model, n):
+    """WACNN-STanH (N=192) and TCM-STanH (N=64), M=320, three levels
+    (extrema 32/16/8, 16 steps, the committed snapshot's layout) with
+    seeded random weights on a 256x256 image: at each level the forward
+    agrees with the CPU's plain path and launches the kernels as WACNN's
+    and TCM's do, compress -> decompress reproduces y_hat exactly (and
+    forward_codec_consistent's)."""
+    from reslic_tcm_tpu_torch.cli.eval import launch_counts
+    from reslic_tcm_tpu_torch.data.synthetic import synth_image
+    from reslic_tcm_tpu_torch.models.stanh.variants import make_tcm_stanh, make_wacnn_stanh
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    make = make_wacnn_stanh if model == "wacnn_stanh" else make_tcm_stanh
+    img = synth_image(np.random.default_rng(0), 256, 256)[None]
+    gpu = make(_STANH_LEVELS, N=n, M=320, device=cuda, seed=1)
+    cpu = make(_STANH_LEVELS, N=n, M=320, device="cpu", seed=1)
+    forward, coding = (({"flash_window_block": 2, "fused_residual_block": 0,
+                         "fused_conv_gdn": 0, "fused_qkv_attention": 2},
+                        {"flash_window_block": 2, "fused_residual_block": 0,
+                         "fused_conv_gdn": 0, "fused_qkv_attention": 2})
+                       if model == "wacnn_stanh" else
+                       ({"flash_window_block": 32, "fused_residual_block": 18,
+                         "fused_conv_gdn": 9, "fused_qkv_attention": 0},
+                        {"flash_window_block": 52, "fused_residual_block": 22,
+                         "fused_conv_gdn": 11, "fused_qkv_attention": 0}))
+    gpu.update()
+    for lv in range(3):
+        before = launch_counts()
+        out = gpu.forward(img, lv=lv)
+        assert {k: v - before[k] for k, v in launch_counts().items()} == forward
+        err_ok(out["x_hat"].cpu().numpy(), cpu.forward(img, lv=lv)["x_hat"].numpy(), TOL_SLICE)
+        before = launch_counts()
+        enc = gpu.compress(img, lv=lv)
+        dec = gpu.decompress(enc["strings"], enc["shape"], lv=lv)
+        assert {k: v - before[k] for k, v in launch_counts().items()} == coding
+        assert torch.equal(enc["y_hat"], dec["y_hat"])
+        assert torch.equal(gpu.forward_codec_consistent(img, lv=lv)["y_hat"], dec["y_hat"])
+
+
 @pytest.mark.cuda
 def test_stream_encoded_with_tf32_on_decodes_exactly_with_it_off(cuda):
     """The codec pins fp32 in its passes: a caller's TF32 setting at encode

@@ -480,7 +480,9 @@ def test_train_cli_runs_an_epoch_and_the_tester(tmp_path, capsys):
 
 @pytest.mark.parametrize("argv, item", [
     (["--bf16"], "item 15"), (["--coordinator", "localhost:1"], "item 13"),
-    (["--freeze"], "item 10"), (["-m", "stanh"], "item 10"),
+    # the last two cases keep the ids they had while STanH (item 10) was refused
+    pytest.param(["-m", "wacnn_gain"], "item 11", id="argv2-item 10"),
+    pytest.param(["-m", "scale_gain_sc"], "item 11", id="argv3-item 10"),
 ])
 def test_train_cli_refuses_unported_options(argv, item):
     with pytest.raises(NotImplementedError, match=item):
