@@ -79,7 +79,9 @@ Drives reslic_tcm_tpu_torch only (no JAX, no PIL), in these phases:
    10 steps) and WACNN-STanH from the committed snapshot at batch 16 of
    256x256 (3 and 10 steps; a level per step from random.Random(0) and its
    lambda, beta from a gap_stoc schedule (beta 10, factor 25) that each
-   step's gap advances, both printed per step): loss, bpp, mse, aux per
+   step's gap advances, both printed per step), and the gained scale
+   hyperprior from its committed snapshot at batch 16 of 256x256 (3 and 10
+   steps, a level per step and its lambda): loss, bpp, mse, aux per
    step, ms per step on the host clock ending in a synchronise, images/s,
    peak memory; the wrappers'
    launch counters must stay at 0 (every layer is composed under
@@ -92,10 +94,33 @@ Drives reslic_tcm_tpu_torch only (no JAX, no PIL), in these phases:
    g_s of the card's y_hat, and the elements of y_hat and z_hat that round
    the other way on the CPU counted and held to 0.1%). --cpu-rehearsal
    runs them at batch 2 of 128x128.
+5c. (run before 5b) Gain slices on the same two images: the gained scale hyperprior
+   (N=192, M=320) with the committed trained checkpoints/scale_gain_vr_r5.npz
+   (three levels, lambda 0.0025/0.013/0.05) at levels 0, 1, 2 and at
+   (s=0, l=0.5) and (s=1, l=0.5): the forward estimate at that point's
+   gains, compress and decompress, exact y_hat, the decoded x_hat equal to
+   the forward's clipped x_hat within 1e-5, real bpp within 3% of the
+   estimate, bpp and PSNR per point, byte-identical streams at (s=0, l=1)
+   and (s=1, l=0); then the card against the CPU plain path at level 1 on
+   a 256x256 image (latents that round the other way held to 0.1%).
+   wacnn_gain (N=192, M=320, lambda 0.0025 and 0.05, --gain_init_spread 2,
+   random weights) at both levels through compress_with_ac: exact decode,
+   x_hat against the forward within 1e-5, WACNN's B1 and B4 launches per
+   pass, bpp rising from level 0 to level 1. scale_gain_sc (random
+   weights) with a seeded quality map: exact decode at (s=0, l=0.5).
+5d. (run before 5b) Pipelined host codec on TCM-S (the committed weights), 4 batches of 8
+   seeded 768x512 images: serial compress_batch + decompress_batch,
+   compress_pipelined then serial decode, roundtrip_pipelined; streams
+   byte-identical to
+   the serial ones, decoded y_hat exact, MP/s per variant (median of 3
+   runs), the serial run's launches; the caller's TF32 flags set True
+   and read False inside every pass.
 6. Profile: torch.profiler over one warm forward, compress and decompress
-   of each slice at 768x512 and over one step of each train slice: the
-   device's busy time and idle share of each, and the kernels that take
-   the most device time.
+   of each slice at 768x512 (scale_gain_sc aside), over one step of each
+   train slice and over one run of the serial and each pipelined variant
+   (compress_pipelined alone, without its decode): the device's
+   busy time and idle share of each, and the kernels that take the most
+   device time.
 7. Summary: the kernels line, the card line, the wall time, and last the
    {"ok": true, "device": ...} line.
 
@@ -151,6 +176,13 @@ PASS_LAUNCHES = {
                     "compress": _launches(1, 0, 0, 1), "decompress": _launches(1, 0, 0, 1)},
     "tcm-stanh": _TCM_LAUNCHES,
     "scale-stanh": _NO_LAUNCHES,
+    # the gain codecs launch as their backbones do
+    "wacnn-gain": {"forward": _launches(2, 0, 0, 2), "compress": _launches(1, 0, 0, 1),
+                   "decompress": _launches(1, 0, 0, 1)},
+    "scale-gain": _NO_LAUNCHES,
+    "scale-gain-sc": _NO_LAUNCHES,
+    # TCM-S's compress + decompress per batch, whatever the batch size
+    "pipelined": _TCM_LAUNCHES,
     # no kernel lies on the Balle-2018 path (5x5 stride-2 convolutions, unfused GDN)
     **{f"balle-{kind}": _NO_LAUNCHES for kind in BALLE_KINDS},
 }
@@ -1051,6 +1083,384 @@ STANH_SLICES = {
 }
 
 
+# --------------------------------- gain ---------------------------------
+
+GAIN_SNAPSHOT = os.path.join("checkpoints", "scale_gain_vr_r5.npz")
+# the snapshot's configuration (its .json): three levels trained at these
+# lambdas, every gain started at ones
+GAIN_LAMBDAS = (0.0025, 0.013, 0.05)
+# (s, l): level s interpolated a share l towards level s + 1
+GAIN_POINTS = ((0, 0.0), (1, 0.0), (2, 0.0), (0, 0.5), (1, 0.5))
+WACNN_GAIN_LAMBDAS = (0.0025, 0.05)
+
+
+def _make_scale_gain(device):
+    """The gained scale hyperprior (N=192, M=320, three levels) with the
+    committed trained weights; every snapshot entry placed."""
+    from reslic_tcm_tpu_torch.models.gain.gained import make_gained_hyperprior
+    from reslic_tcm_tpu_torch.utils.torch_convert import load_snapshot_into
+
+    codec = make_gained_hyperprior("scale", N=192, M=320, lmbda_list=GAIN_LAMBDAS,
+                                   device=device, seed=SEED)
+    unused = load_snapshot_into(codec.module, GAIN_SNAPSHOT)
+    if unused:
+        raise AssertionError(f"{GAIN_SNAPSHOT}: entries left over: {unused}")
+    codec.update()
+    return codec
+
+
+def _make_wacnn_gain(device):
+    """The registry's wacnn_gain (N=192, M=320, lambda 0.0025 and 0.05,
+    --gain_init_spread 2), random weights. At random init y rounds to zero
+    whatever the gain, so g_a's last convolution is scaled by 40 and the
+    sigma transforms' last by 60 (as tests/test_torch_port_wacnn.py does):
+    y then takes many symbols over many scale indexes, and the gains move
+    the rate."""
+    from reslic_tcm_tpu_torch.models import get_model
+
+    codec, *_ = get_model(_registry_args(
+        ["-m", "wacnn_gain", "--N", "192", "--M", "320", "--gain_init_spread", "2",
+         "--lambda_list", *map(str, WACNN_GAIN_LAMBDAS)]), device=device)
+    m = codec.module
+    with torch_no_grad():
+        for layer, factor in [(m.g_a[7], 40.0)] + [(t[-1], 60.0) for t in m.cc_scale_transforms]:
+            layer.weight.mul_(factor)
+            layer.bias.mul_(factor)
+    codec.update()
+    return codec
+
+
+def _make_scale_gain_sc(device):
+    """The registry's scale_gain_sc (N=192, M=320, two levels), random weights."""
+    from reslic_tcm_tpu_torch.models import get_model
+
+    codec, *_ = get_model(_registry_args(["-m", "scale_gain_sc", "--N", "192", "--M", "320",
+                                          "--lambda_list", "0.0025", "0.05"]), device=device)
+    codec.update()
+    return codec
+
+
+def torch_no_grad():
+    import torch
+
+    return torch.no_grad()
+
+
+def _nbytes(enc) -> int:
+    return sum(len(s) for group in enc["strings"] for s in group)
+
+
+def phase_gain_scale(torch, device, hw):
+    """The trained gained scale hyperprior at each of GAIN_POINTS on the two
+    images: the forward estimate at that point's gains, compress and
+    decompress; exact y_hat, the decoded x_hat equal to the forward's
+    clipped x_hat within 1e-5, real bpp within 3% of the estimate, bpp and
+    PSNR per point; (s=0, l=1) and (s=1, l=0) code the same gains, so give
+    byte-identical streams."""
+    from reslic_tcm_tpu_torch.data.synthetic import synth_image
+    from reslic_tcm_tpu_torch.ops.launches import launch_counts, reset_launch_counts
+    from reslic_tcm_tpu_torch.utils.metrics import compute_psnr
+
+    t0 = time.perf_counter()
+    codec = _make_scale_gain(device)
+    images = [synth_image(np.random.default_rng(SEED + i), *hw) for i in range(2)]
+    log(f"slice scale-gain: gained scale hyperprior N=192 M=320 from {GAIN_SNAPSHOT} (3 "
+        f"levels, lambda {GAIN_LAMBDAS}) on {device}; the same two {hw[0]}x{hw[1]} images; "
+        f"set-up {time.perf_counter() - t0:.1f} s")
+    on_card = device == "cuda"
+    px = hw[0] * hw[1]
+    enc = codec.compress(images[0][None])  # warm-up: the first call of each pass
+    codec.decompress(enc["strings"], enc["shape"])
+    codec.forward(images[0][None])
+    reset_launch_counts()
+    for s, l in GAIN_POINTS:
+        recs = []
+        for j, img in enumerate(images):
+            x = img[None]
+            rec = {}
+            fwd, rec["forward_ms"], l_fwd = _timed(torch, device, lambda: codec.forward(x, s, l))
+            enc, rec["encode_ms"], l_enc = _timed(torch, device, lambda: codec.compress(x, s, l))
+            dec, rec["decode_ms"], l_dec = _timed(
+                torch, device, lambda: codec.decompress(enc["strings"], enc["shape"], s, l))
+            for name, got in (("forward", l_fwd), ("compress", l_enc), ("decompress", l_dec)):
+                _check_launches(j, f"(s={s}, l={l}) {name}", got,
+                                PASS_LAUNCHES["scale-gain"][name], on_card)
+            if not torch.equal(enc["y_hat"], dec["y_hat"]):
+                raise AssertionError(f"scale-gain (s={s}, l={l}) image {j}: inexact decode")
+            rec["x_hat_err"] = float((dec["x_hat"] - torch.clamp(fwd["x_hat"], 0, 1)).abs().max())
+            rec["bpp_estimate"] = _bits(torch, fwd["likelihoods"]) / px
+            rec["bpp"] = _nbytes(enc) * 8.0 / px
+            rec["psnr"] = compute_psnr(torch.as_tensor(x, device=dec["x_hat"].device),
+                                       dec["x_hat"])
+            log(f"scale-gain (s={s}, l={l}) image {j}: real {rec['bpp']:.4f} bpp, estimate "
+                f"{rec['bpp_estimate']:.4f}, PSNR {rec['psnr']:.3f} dB, decoded x_hat vs the "
+                f"forward's max abs err {rec['x_hat_err']:.3e}, forward {rec['forward_ms']:.1f} "
+                f"ms, encode {rec['encode_ms']:.1f} ms, decode {rec['decode_ms']:.1f} ms, "
+                f"y_hat exact")
+            if not rec["x_hat_err"] <= 1e-5:
+                raise AssertionError(f"scale-gain (s={s}, l={l}) image {j}: decoded x_hat "
+                                     f"differs from the forward's")
+            if not abs(rec["bpp"] - rec["bpp_estimate"]) <= 0.03 * rec["bpp_estimate"]:
+                raise AssertionError(f"scale-gain (s={s}, l={l}) image {j}: real bpp "
+                                     f"{rec['bpp']:.4f} not within 3% of the estimate "
+                                     f"{rec['bpp_estimate']:.4f}")
+            recs.append(rec)
+        log("gain_point " + json.dumps({"slice": "scale-gain", "s": s, "l": l, **{
+            k: float(np.mean([r[k] for r in recs])) for k in recs[0]}}))
+    x = images[0][None]
+    same = codec.compress(x, 0, 1.0)["strings"] == codec.compress(x, 1, 0.0)["strings"]
+    log(f"scale-gain: (s=0, l=1) and (s=1, l=0) streams byte-identical: {same}")
+    if not same:
+        raise AssertionError("scale-gain: (s=0, l=1) and (s=1, l=0) give other streams")
+    return codec, launch_counts()
+
+
+def _hyperprior_latents(torch, module, x, lv=0):
+    """(z_hat, y_hat, g_s's input) of a gained hyperprior module's eval
+    forward on NCHW x at level lv (the plain hyperprior's at no gain)."""
+    from reslic_tcm_tpu_torch.models.gain.gained import scaled
+
+    if hasattr(module, "level_gains"):
+        gain, hyper_gain, inv_hyper, inv_gain = module.level_gains(lv)
+        y, z = module.analyze_gained(x, gain, hyper_gain)
+    else:
+        (y, z), inv_hyper = module.analyze(x), None
+    z_hat, _ = module.entropy_bottleneck(z)
+    _, means = module.gaussian_params(z_hat if inv_hyper is None else scaled(z_hat, inv_hyper))
+    y_hat = torch.round(y) if means is None else torch.round(y - means) + means
+    return z_hat, y_hat, y_hat if inv_hyper is None else scaled(y_hat, inv_gain)
+
+
+def _rounding_flips(torch, card, cpu, label):
+    """Elements of (z_hat, y_hat) that round the other way on the CPU;
+    printed, held to FLIP_SHARE. Returns the count."""
+    flips = {k: int(((a.cpu() - b).abs() > 0.5).sum())
+             for k, a, b in (("z", card[0], cpu[0]), ("y", card[1], cpu[1]))}
+    n = cpu[0].numel() + cpu[1].numel()
+    log(f"{label}: rounding flips card vs CPU {json.dumps(flips)} of {cpu[0].numel()} z and "
+        f"{cpu[1].numel()} y elements")
+    if not flips["z"] + flips["y"] <= FLIP_SHARE * n:
+        raise AssertionError(f"{label}: {flips} rounding flips card vs CPU")
+    return flips["z"] + flips["y"]
+
+
+def phase_gain_reference(torch, codec, make, lv):
+    """The card's gained forward at level lv against the CPU plain path at
+    the same weights on a 256x256 image: elements of z_hat and y_hat that
+    round the other way counted and held to 0.1%; x_hat against the CPU's
+    g_s of the card's own y_hat within 1e-3, and the rate within 1e-3
+    relative (plus 64 bits per flip)."""
+    from reslic_tcm_tpu_torch.data.synthetic import synth_image
+    from reslic_tcm_tpu_torch.ops.layers import to_nhwc
+
+    img = synth_image(np.random.default_rng(SEED + 7), 256, 256)[None]
+    cpu = make("cpu")
+    with torch.no_grad():
+        xc, xp = codec._input(img), cpu._input(img)
+        card_latents, cpu_latents = (_hyperprior_latents(torch, codec.module, xc, lv),
+                                     _hyperprior_latents(torch, cpu.module, xp, lv))
+        flips = _rounding_flips(torch, card_latents, cpu_latents, f"reference level {lv}")
+        got = codec.forward(img, lv)
+        want = cpu.forward(img, lv)
+        ref = to_nhwc(torch.clamp(cpu.module.g_s(card_latents[2].cpu()), 0, 1))
+    err = float((torch.clamp(got["x_hat"], 0, 1).cpu() - ref).abs().max())
+    log(f"reference level {lv}: 256x256 x_hat card vs the CPU's g_s of the card's y_hat, max "
+        f"abs err {err:.3e} (limit 1.000e-03)")
+    if not (bool(torch.isfinite(got["x_hat"]).all()) and err <= 1e-3):
+        raise AssertionError(f"card forward disagrees with the CPU reference: {err:.3e}")
+    bits_a, bits_b = _bits(torch, got["likelihoods"]), _bits(torch, want["likelihoods"])
+    log(f"reference level {lv}: bits card {bits_a:.2f} vs CPU {bits_b:.2f}")
+    if not abs(bits_a - bits_b) <= 1e-3 * bits_b + 1.0 + 64.0 * flips:
+        raise AssertionError("rate disagrees with the CPU reference")
+
+
+def phase_gain_wacnn(torch, device, hw):
+    """wacnn_gain (random weights, gains on a ladder of spread 2) at each
+    of its two levels on the two images: the forward estimate, compress and
+    decompress through compress_with_ac; exact y_hat, the decoded x_hat
+    equal to the forward's clipped x_hat within 1e-5, B1 and B4 launches
+    per pass as WACNN's, bpp rising from level 0 to level 1."""
+    from reslic_tcm_tpu_torch.data.synthetic import synth_image
+    from reslic_tcm_tpu_torch.ops.launches import launch_counts, reset_launch_counts
+    from reslic_tcm_tpu_torch.training.codec_eval import compress_with_ac
+
+    t0 = time.perf_counter()
+    codec = _make_wacnn_gain(device)
+    images = [synth_image(np.random.default_rng(SEED + i), *hw) for i in range(2)]
+    log(f"slice wacnn-gain: gained WACNN N=192 M=320 (registry -m wacnn_gain, lambda "
+        f"{WACNN_GAIN_LAMBDAS}, --gain_init_spread 2), random weights (seed {SEED}) on {device}; "
+        f"set-up {time.perf_counter() - t0:.1f} s")
+    on_card = device == "cuda"
+    px = hw[0] * hw[1]
+    bpp = []
+    reset_launch_counts()
+    for lv in range(len(WACNN_GAIN_LAMBDAS)):
+        real = []
+        compress_with_ac(codec, images, lv=lv, log=lambda m: log("  " + m), records=real)
+        for j, (img, r) in enumerate(zip(images, real)):
+            fwd, fwd_ms, l_fwd = _timed(torch, device, lambda: codec.forward(img[None], lv=lv))
+            for name, got in (("forward", l_fwd), ("compress", r["launches_compress"]),
+                              ("decompress", r["launches_decompress"])):
+                _check_launches(j, f"level {lv} {name}", got, PASS_LAUNCHES["wacnn-gain"][name],
+                                on_card)
+            if not r["y_hat_exact"]:
+                raise AssertionError(f"wacnn-gain level {lv} image {j}: inexact decode")
+            err = float((r["x_hat"] - torch.clamp(fwd["x_hat"], 0, 1)).abs().max())
+            log(f"wacnn-gain level {lv} image {j}: real {r['bpp']:.4f} bpp (y {r['bpp_y']:.4f}, z "
+                f"{r['bpp_z']:.4f}), estimate {_bits(torch, fwd['likelihoods']) / px:.4f}, PSNR "
+                f"{r['psnr']:.3f} dB, decoded x_hat vs the forward's max abs err {err:.3e}, "
+                f"forward {fwd_ms:.1f} ms, encode {r['encode_ms']:.1f} ms, decode "
+                f"{r['decode_ms']:.1f} ms, y_hat exact")
+            if not err <= 1e-5:
+                raise AssertionError(f"wacnn-gain level {lv} image {j}: decoded x_hat differs")
+        bpp.append(float(np.mean([r["bpp"] for r in real])))
+    log(f"wacnn-gain: mean real bpp per level {bpp}; launches per pass (each image and level): "
+        f"{json.dumps(PASS_LAUNCHES['wacnn-gain'])}")
+    if not bpp[0] < bpp[1]:
+        raise AssertionError(f"wacnn-gain: bpp does not rise from level 0 to level 1: {bpp}")
+    return codec, launch_counts()
+
+
+def phase_gain_sc(torch, device, hw):
+    """scale_gain_sc (random weights) with a seeded quality map on the two
+    images at (s=0, l=0.5): exact decode."""
+    from reslic_tcm_tpu_torch.data.synthetic import synth_image
+    from reslic_tcm_tpu_torch.ops.launches import launch_counts, reset_launch_counts
+
+    codec = _make_scale_gain_sc(device)
+    px = hw[0] * hw[1]
+    reset_launch_counts()
+    for j in range(2):
+        x = synth_image(np.random.default_rng(SEED + j), *hw)[None]
+        qmap = np.random.default_rng(SEED + 10 + j).uniform(size=(1, *hw, 1)).astype(np.float32)
+        enc, enc_ms, l_enc = _timed(torch, device, lambda: codec.compress(x, qmap, 0, 0.5))
+        dec, dec_ms, l_dec = _timed(
+            torch, device, lambda: codec.decompress(enc["strings"], enc["shape"], 0, 0.5))
+        exact = bool(torch.equal(enc["y_hat"], dec["y_hat"]))
+        log(f"scale-gain-sc (s=0, l=0.5) image {j}: {_nbytes(enc) * 8 / px:.4f} bpp, encode "
+            f"{enc_ms:.1f} ms, decode {dec_ms:.1f} ms, y_hat exact {exact}, launches "
+            f"{json.dumps(l_enc)} / {json.dumps(l_dec)}")
+        if not exact:
+            raise AssertionError(f"scale-gain-sc image {j}: inexact decode")
+    return codec, launch_counts()
+
+
+# the gain eval slices: (phase, the codec's maker for the card-vs-CPU
+# reference check at level 1, or None)
+GAIN_SLICES = {
+    "scale-gain": (phase_gain_scale, _make_scale_gain),
+    "wacnn-gain": (phase_gain_wacnn, None),
+    "scale-gain-sc": (phase_gain_sc, None),
+}
+
+
+# ------------------------------ pipelined -------------------------------
+
+PIPE_BATCH = 8  # bench.py's default batch
+PIPE_BATCHES = 4
+PIPE_REPEATS = 3
+
+
+def _flag_hooks(module, seen):
+    """Forward hooks that record the two TF32 flags inside g_a, g_s and
+    h_mean_s; returns their handles."""
+    import torch
+
+    def record(*_):
+        seen.append((torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32))
+    return [m.register_forward_hook(record) for m in (module.g_a, module.g_s, module.h_mean_s)]
+
+
+def phase_pipelined(torch, device, hw, batch=PIPE_BATCH, n_batches=PIPE_BATCHES,
+                    repeats=PIPE_REPEATS):
+    """TCM-S (the committed weights) over n_batches seeded batches of
+    ``batch`` images: serial compress_batch + decompress_batch,
+    compress_pipelined then serial decode, and roundtrip_pipelined. Every
+    variant's streams
+    must equal the serial ones, byte for byte, and its decode reproduce the
+    encoder's y_hat exactly; MP/s per variant (median of ``repeats``
+    runs); the serial run's launches; the caller's TF32 flags set True,
+    read False inside every pass (hooks on g_a, g_s, h_mean_s) and True
+    again after. Returns the codec, the batches and the serial launches."""
+    from reslic_tcm_tpu_torch.data.synthetic import synth_image
+    from reslic_tcm_tpu_torch.ops.launches import launch_counts, reset_launch_counts
+
+    t0 = time.perf_counter()
+    codec = _load_codec(device)
+    images = [synth_image(np.random.default_rng(SEED + 100 + j), *hw) for j in range(batch)]
+    batches = [np.stack(images[k:] + images[:k]) for k in range(n_batches)]
+    mp = n_batches * batch * hw[0] * hw[1] / 1e6
+    log(f"pipelined: TCM-S from {SNAPSHOT} on {device}, {n_batches} batches of {batch} x "
+        f"{hw[0]}x{hw[1]} (batch k: {batch} seeded synthetic images, seeds {SEED + 100}.., "
+        f"rotated by k), {mp:.3f} MP a run; set-up {time.perf_counter() - t0:.1f} s")
+
+    def serial():
+        encs = [codec.compress_batch(x) for x in batches]
+        return encs, [codec.decompress_batch([e["strings"] for e in es], es[0]["shape"])
+                      for es in encs]
+
+    def compress_pipelined():
+        flat = codec.compress_pipelined(batches)
+        encs = [flat[k * batch:(k + 1) * batch] for k in range(n_batches)]
+        return encs, [codec.decompress_batch([e["strings"] for e in es], es[0]["shape"])
+                      for es in encs]
+
+    def roundtrip():
+        out = codec.roundtrip_pipelined(batches)
+        return [o["encs"] for o in out], out
+
+    variants = {"serial": serial, "compress_pipelined + serial decode": compress_pipelined,
+                "roundtrip_pipelined": roundtrip}
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    seen = []
+    hooks = _flag_hooks(codec.module, seen)
+    try:
+        reset_launch_counts()
+        want_encs, _ = serial()
+        sync()
+        serial_launches = launch_counts()
+        want = [[e["strings"] for e in es] for es in want_encs]
+        rates = {}
+        for name, fn in variants.items():
+            times = []
+            for _ in range(repeats + 1):  # the first run warms up
+                sync()
+                t1 = time.perf_counter()
+                encs, decs = fn()
+                sync()
+                times.append(time.perf_counter() - t1)
+                if [[e["strings"] for e in es] for es in encs] != want:
+                    raise AssertionError(f"pipelined {name}: streams differ from the serial ones")
+                for es, dec in zip(encs, decs):
+                    if not torch.equal(torch.cat([e["y_hat"] for e in es]), dec["y_hat"]):
+                        raise AssertionError(f"pipelined {name}: inexact decode")
+            rates[name] = mp / float(np.median(times[1:]))
+            log(f"pipelined {name}: {rates[name]:.3f} MP/s (median of {repeats} runs of "
+                f"{mp:.3f} MP: {', '.join(f'{t * 1e3:.1f}' for t in times[1:])} ms; warm-up "
+                f"{times[0] * 1e3:.1f} ms), streams byte-identical to serial, y_hat exact")
+        log("pipelined_rates " + json.dumps(rates))
+        flags_inside = sorted(set(seen))
+        caller = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+        log(f"pipelined: TF32 flags inside the passes {flags_inside} ({len(seen)} hook calls), "
+            f"the caller's {caller}")
+        if flags_inside != [(False, False)] or caller != (True, True):
+            raise AssertionError("a pipelined pass ran with TF32 on, or the caller's flags "
+                                 "were lost")
+    finally:
+        for h in hooks:
+            h.remove()
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    want_launches = {k: n_batches * (PASS_LAUNCHES["tcm"]["compress"][k]
+                                     + PASS_LAUNCHES["tcm"]["decompress"][k])
+                     for k in serial_launches}
+    _check_launches(0, "pipelined serial run", serial_launches, want_launches, device == "cuda")
+    log(f"pipelined serial run launches {json.dumps(serial_launches)} (the pipelined variants "
+        f"write the counters from several threads and are not held to counts)")
+    return codec, batches, serial_launches
+
+
 # -------------------------------- train ---------------------------------
 
 TRAIN_LAMBDA = 0.013
@@ -1089,6 +1499,11 @@ def _train_wacnn_stanh(device, remat=True):
     return module
 
 
+def _train_scale_gain(device, remat=True):
+    """The gained scale hyperprior from the committed trained weights."""
+    return _make_scale_gain(device).module
+
+
 # slice -> (the module as the trainer builds it, what it is, whether it has
 # remat, the validation forward's launches)
 TRAIN_SLICES = {
@@ -1101,9 +1516,17 @@ TRAIN_SLICES = {
                     f"random level per step (random.Random({SEED})) and its lambda, "
                     f"beta from configure_annealings (gap_stoc, beta 10, factor 25)", False,
                     PASS_LAUNCHES["wacnn"]["forward"]),
+    "scale-gain": (_train_scale_gain, f"gained scale hyperprior N=192 M=320 from "
+                   f"{GAIN_SNAPSHOT}, a random level per step (random.Random({SEED})) and its "
+                   f"lambda", False, _NO_LAUNCHES["forward"]),
 }
-# the train slices whose step takes a rate level and a STanH temperature
+# the train slices whose step takes a rate level: their lambdas, one per level
+LEVEL_TRAIN = {"wacnn-stanh": STANH_LAMBDAS, "scale-gain": GAIN_LAMBDAS}
+# those whose step also takes a STanH temperature
 STANH_TRAIN = ("wacnn-stanh",)
+# the hyperpriors, whose validation counts the latents that round the other
+# way on the CPU
+HYPERPRIOR_TRAIN = ("balle-mean-scale", "scale-gain")
 
 
 def _crops(n, hw, seed):
@@ -1140,26 +1563,19 @@ def _timed_step(torch, state, batch, seed, device, lmbda=TRAIN_LAMBDA, lv=None, 
     return m, ms
 
 
-def _balle_latents(torch, module, x):
-    """(z_hat, y_hat) of a hyperprior module's eval forward on NCHW x."""
-    y, z = module.analyze(x)
-    z_hat, _ = module.entropy_bottleneck(z)
-    scales, means = module.gaussian_params(z_hat)
-    return z_hat, torch.round(y) if means is None else torch.round(y - means) + means
-
-
 def phase_train(torch, device, slice_name, batch_size, hw, warmup, steps):
     """Training of a TRAIN_SLICES model through training/step.py (the step
     cli/train.py runs): warm-up and timed steps (with remat where the model
     has it, then one step without), the card's step against the CPU's from
     the same weights and noise, then validation (through the eval kernels
     where the model has them) against the CPU plain path at the updated
-    weights. A STanH slice draws a level per step from a seeded
-    random.Random, takes that level's lambda and the beta of one gap_stoc
-    annealing schedule, which each step's gap then advances; its card vs
-    CPU step runs at level 2 and the last beta, and its validation counts
-    the symbols that round the other way on the CPU. Returns the train
-    state and the batch."""
+    weights. A LEVEL_TRAIN slice draws a level per step from a seeded
+    random.Random and takes that level's lambda; a STanH slice also the
+    beta of one gap_stoc annealing schedule, which each step's gap then
+    advances. Their card vs CPU step runs at the last level (and the last
+    beta); a STanH validation counts the symbols that round the other way
+    on the CPU, a hyperprior's the latents. Returns the train state and
+    the batch."""
     import random
 
     from reslic_tcm_tpu_torch.cli.train import to_device
@@ -1170,6 +1586,7 @@ def phase_train(torch, device, slice_name, batch_size, hw, warmup, steps):
 
     make, what, has_remat, validation_launches = TRAIN_SLICES[slice_name]
     stanh = slice_name in STANH_TRAIN
+    level_lambdas = LEVEL_TRAIN.get(slice_name)
     levels = random.Random(SEED)
     annealing = configure_annealings({"annealing": "gap_stoc", "beta": 10, "gap_factor": 25})
     lmbda, lv, beta = TRAIN_LAMBDA, None, None
@@ -1178,7 +1595,7 @@ def phase_train(torch, device, slice_name, batch_size, hw, warmup, steps):
     state = create_train_state(make(device))
     batch = to_device(_crops(batch_size, hw, SEED), device)
     log(f"train {slice_name}: {what} on {device}, remat {'on' if has_remat else 'n/a'}, lambda "
-        f"{STANH_LAMBDAS if stanh else TRAIN_LAMBDA}, batch {batch_size} x {hw[0]}x{hw[1]} "
+        f"{level_lambdas or TRAIN_LAMBDA}, batch {batch_size} x {hw[0]}x{hw[1]} "
         f"synthetic crops (seed {SEED}), "
         f"Adam lr 1e-4 / aux 1e-3, clip 1.0; set-up {time.perf_counter() - t0:.1f} s")
     log(f"train numerics (cli/train.py sets the same on the card): matmul TF32 "
@@ -1191,15 +1608,19 @@ def phase_train(torch, device, slice_name, batch_size, hw, warmup, steps):
         torch.cuda.reset_peak_memory_stats()
     times = []
     for k in range(warmup + steps):
+        if level_lambdas:
+            lv = levels.randrange(len(level_lambdas))
+            lmbda = level_lambdas[lv]
         if stanh:
-            lv, beta = levels.randrange(len(STANH_LAMBDAS)), float(annealing.beta)
-            lmbda = STANH_LAMBDAS[lv]
+            beta = float(annealing.beta)
         m, ms = _timed_step(torch, state, batch, SEED, device, lmbda, lv, beta)
         if stanh:
             annealing.step(gap=m["gap"], epoch=0, loss=m["loss"])
         if k >= warmup:
             times.append(ms)
-        level = f"level {lv}, beta {beta:.4f}, gap {m['gap']:.6f}, " if stanh else ""
+        level = f"level {lv}, " if level_lambdas else ""
+        if stanh:
+            level += f"beta {beta:.4f}, gap {m['gap']:.6f}, "
         log(f"train {slice_name} step {state.step} ({'timed' if k >= warmup else 'warm-up'}): "
             f"{level}loss {m['loss']:.4f}, bpp {m['bpp_loss']:.4f}, mse {m['mse_loss']:.6f}, "
             f"aux {m['aux_loss']:.3f}, grad norm {m['grad_norm']:.3f}, {ms:.1f} ms")
@@ -1223,9 +1644,11 @@ def phase_train(torch, device, slice_name, batch_size, hw, warmup, steps):
         raise AssertionError(f"the train steps launched kernels: {launches}")
 
     # the card's step against the CPU's, from the same weights and noise
+    if level_lambdas:
+        lv = len(level_lambdas) - 1
+        lmbda = level_lambdas[lv]
     if stanh:
-        lv, beta = len(STANH_LAMBDAS) - 1, float(annealing.beta)
-        lmbda = STANH_LAMBDAS[lv]
+        beta = float(annealing.beta)
     check_hw = (256, 256) if on_card else hw
     x = _crops(1, check_hw, SEED + 1)
     drawn = []
@@ -1265,20 +1688,15 @@ def phase_train(torch, device, slice_name, batch_size, hw, warmup, steps):
     cpu.load_state_dict({k: v.cpu() for k, v in module.state_dict().items()})
     with torch.no_grad():
         ref = cpu(val.cpu())
-        if slice_name.startswith("balle"):
+        if slice_name in HYPERPRIOR_TRAIN:
             # x_hat against the CPU's g_s of the card's own y_hat: a y or z
             # that lands within an ulp of a rounding boundary may round the
             # other way on the other device, which moves x_hat by far more
             # than the limit; such flips are counted and held to 0.1%
-            (z_card, y_card), (z_cpu, y_cpu) = (_balle_latents(torch, module, val),
-                                                _balle_latents(torch, cpu, val.cpu()))
-            flips = {k: int(((a.cpu() - b).abs() > 0.5).sum())
-                     for k, a, b in (("z", z_card, z_cpu), ("y", y_card, y_cpu))}
-            log(f"validation {slice_name}: rounding flips card vs CPU {json.dumps(flips)} of "
-                f"{z_cpu.numel()} z and {y_cpu.numel()} y elements")
-            if not flips["z"] + flips["y"] <= 1e-3 * (z_cpu.numel() + y_cpu.numel()):
-                raise AssertionError(f"validation: {flips} rounding flips card vs CPU")
-            ref = dict(ref, x_hat=cpu.g_s(y_card.cpu()))
+            card = _hyperprior_latents(torch, module, val)
+            _rounding_flips(torch, card, _hyperprior_latents(torch, cpu, val.cpu()),
+                            f"validation {slice_name}")
+            ref = dict(ref, x_hat=cpu.g_s(card[2].cpu()))
     # a STanH symbol within an ulp of a step may round the other way on the
     # CPU: counted, held to 0.1%; its neighbourhood in x_hat may then move
     # by more than the limit, so the 99th percentile of the error is held
@@ -1367,8 +1785,9 @@ def main() -> int:
             _, launches[slice_name] = phase_slice(torch, "cpu", (256, 256), slice_name)
         for slice_name in AC_SLICES:
             _, launches[slice_name] = phase_ac_slice(torch, "cpu", (256, 256), slice_name)
-        for slice_name, (phase, _) in STANH_SLICES.items():
+        for slice_name, (phase, _) in {**STANH_SLICES, **GAIN_SLICES}.items():
             _, launches[slice_name] = phase(torch, "cpu", (256, 256))
+        *_, launches["pipelined"] = phase_pipelined(torch, "cpu", (256, 256), 2, 2, 1)
         for slice_name in TRAIN_SLICES:
             phase_train(torch, "cpu", slice_name, 2, (128, 128), 1, 2)
         log("kernels " + json.dumps({"launches": launches}))
@@ -1397,6 +1816,12 @@ def main() -> int:
         codecs[slice_name], paths[slice_name] = phase(torch, "cuda", IMAGE_HW)
         if make is not None:
             phase_stanh_reference(torch, codecs[slice_name], make, lv=1)
+    for slice_name, (phase, make) in GAIN_SLICES.items():
+        codecs[slice_name], paths[slice_name] = phase(torch, "cuda", IMAGE_HW)
+        if make is not None:
+            phase_gain_reference(torch, codecs[slice_name], make, lv=1)
+    del codecs["scale-gain-sc"]  # its passes take a quality map: not profiled
+    pipe_codec, pipe_batches, paths["pipelined"] = phase_pipelined(torch, "cuda", IMAGE_HW)
     torch.cuda.synchronize()
     for path, launches in paths.items():
         log(f"main path {path}: launches {json.dumps(launches)}")
@@ -1408,8 +1833,20 @@ def main() -> int:
         "tcm192": phase_train(torch, "cuda", "tcm192", 2, (256, 256), 1, 3),
         "balle-mean-scale": phase_train(torch, "cuda", "balle-mean-scale", 16, (256, 256), 3, 10),
         "wacnn-stanh": phase_train(torch, "cuda", "wacnn-stanh", 16, (256, 256), 3, 10),
+        "scale-gain": phase_train(torch, "cuda", "scale-gain", 16, (256, 256), 3, 10),
     }
     phase_profile(torch, codecs)
+    def serial_roundtrip():
+        for x in pipe_batches:
+            encs = pipe_codec.compress_batch(x)
+            pipe_codec.decompress_batch([e["strings"] for e in encs], encs[0]["shape"])
+
+    for label, fn in (("serial compress_batch + decompress_batch", serial_roundtrip),
+                      ("compress_pipelined", lambda: pipe_codec.compress_pipelined(pipe_batches)),
+                      ("roundtrip_pipelined",
+                       lambda: pipe_codec.roundtrip_pipelined(pipe_batches))):
+        _profile_window(torch, f"pipelined {label} ({len(pipe_batches)} x {PIPE_BATCH} x "
+                        f"{IMAGE_HW[0]}x{IMAGE_HW[1]})", fn)
     for slice_name, (train_state, train_batch) in trained.items():
         b, _, h, w = train_batch.shape
         _profile_window(torch, f"train step ({slice_name}, {b}x{h}x{w})",
@@ -1429,7 +1866,8 @@ def main() -> int:
         log(f"kernel {kernel}: {n} launches on the main paths, max abs err "
             f"{k['max_abs_err']:.2e}, {k['ms'] * 1e3:.0f} us per forward pass "
             f"(plain {k['plain_ms'] * 1e3:.0f} us, bound {max(k['t_ops'], k['t_bytes']) * 1e3:.0f} us)")
-    log("launches: the slices' main-path runs (two images each, all three passes); "
+    log("launches: the slices' main-path runs (two images each, all three passes, every "
+        "level or point of the variable-rate slices) and the pipelined phase's serial run; "
         "ms, plain_ms, library_ms and bound_ms: the kernel's launches in one 768x512 forward "
         "pass of TCM-S plus one of TCM N=128, one of TCM N=192 and one of WACNN, at their "
         "main-path shapes (kernel_per_pass lines: each slice's share); "

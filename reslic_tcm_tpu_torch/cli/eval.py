@@ -9,9 +9,11 @@ arrays. Every other registry name the port builds takes the JAX CLI's
 generic branch: the real codec through
 ``training.codec_eval.compress_with_ac`` (pad 64) or the pad-128 forward
 estimate, one ``[level lv] ...`` line per rate level (``--lv``: one level,
--1 every level of a variable-rate codec; the STanH codecs take the
-quantizer knobs they were trained with from ``--lambda_list`` and
-``--gauss_*``). Runs on the CUDA device unless ``--platform cpu``.
+-1 every level of a variable-rate codec, one per lambda; the STanH codecs
+take the quantizer knobs they were trained with from ``--lambda_list`` and
+``--gauss_*``; the gained hyperprior codes level lv at s=lv, l=0).
+``scale_gain_sc`` needs a quality map and is refused, as by the JAX CLI.
+Runs on the CUDA device unless ``--platform cpu``.
 """
 
 from __future__ import annotations
@@ -207,7 +209,7 @@ def _eval_generic(args, device, img_list) -> int:
     if args.checkpoint:
         print("Loading", args.checkpoint)
         load_checkpoint(codec, args.checkpoint)
-    n_levels = getattr(codec.module, "n_rates", 1)
+    n_levels = getattr(codec.module, "n_rates", getattr(codec.module, "levels", 1))
     levels = [args.lv] if args.lv >= 0 else list(range(n_levels))
     if args.real:
         codec.update()
@@ -235,13 +237,9 @@ def _eval_generic(args, device, img_list) -> int:
 
 
 def main(argv=None):
-    from ..models import NOT_PORTED
     from ..models.tcm import make_tcm
 
     args = parse_args(argv if argv is not None else sys.argv[1:])
-    if args.model in NOT_PORTED:
-        raise NotImplementedError(f"--model {args.model} is not ported yet: "
-                                  f"{NOT_PORTED[args.model]}")
     for flag, item in _NOT_YET.items():
         if getattr(args, flag):
             raise NotImplementedError(f"--{flag.replace('_', '-')} is not ported yet: {item}")
@@ -249,6 +247,10 @@ def main(argv=None):
     img_list = list_images(args.data)
     if not img_list:
         print(f"no images under {args.data}")
+        return 1
+    if args.model == "scale_gain_sc":
+        print("scale_gain_sc needs a quality map input; evaluate it via "
+              "tests/test_gain_models.py or a script of your own")
         return 1
     if args.model != "tcm":
         return _eval_generic(args, device, img_list)

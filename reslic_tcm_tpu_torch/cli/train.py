@@ -9,7 +9,9 @@ lambda at its level with each image padded to a multiple of 128,
 checkpoints and the two newest epoch files. The STanH codecs take beta
 from one annealing schedule per run (``get_model``'s), stepped with each
 batch's ``gap``, epoch and loss; ``--freeze`` trains only their
-staircases and synthesis transforms.
+staircases and synthesis transforms. The gain codecs train level p's
+gains with lambda p; ``scale_gain_sc`` is refused (its forward needs a
+quality map, which no train step feeds).
 ``--tester`` validates and stops; ``--checkpoint`` takes a ``.npz``
 snapshot of JAX parameters (a warm start) or the port's own checkpoint,
 whose optimisers, scheduler, step and epoch ``--continue_train`` resumes.
@@ -45,13 +47,12 @@ def to_device(batch: np.ndarray, device) -> torch.Tensor:
 
 
 def main(argv=None):
-    from ..models import NOT_PORTED
     from ..utils.parser import parse_args
 
     args = parse_args(argv if argv is not None else sys.argv[1:])
-    if args.model in NOT_PORTED:
-        raise NotImplementedError(f"--model {args.model} is not ported yet: "
-                                  f"{NOT_PORTED[args.model]}")
+    if args.model == "scale_gain_sc":
+        raise ValueError("-m scale_gain_sc needs a quality map input, which the train step "
+                         "does not feed (nor does the JAX trainer's)")
     for flag, item in _NOT_YET.items():
         if getattr(args, flag):
             raise NotImplementedError(f"--{flag} is not ported yet: {item}")

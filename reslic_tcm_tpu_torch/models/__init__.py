@@ -5,19 +5,15 @@ registry's constructor arguments and returns the same five-tuple
 (codec, gaussian_configuration, annealing_strategy_gaussian,
 factorized_configuration, annealing_strategy_factorized). The port builds
 TCM, WACNN, the Balle-2018 family (factorized, scale_hyperprior,
-mean_scale_hyperprior) and the STanH codecs (stanh, wacnn_stanh,
-scale_stanh); the gain codecs raise ``NotImplementedError`` naming the
-ROADMAP item that brings them.
+mean_scale_hyperprior), the STanH codecs (stanh, wacnn_stanh,
+scale_stanh) and the gain codecs (scale_gain, wacnn_gain, scale_gain_sc):
+every name of the JAX registry.
 """
 
 from __future__ import annotations
 
 # registry names the port does not build yet -> the ROADMAP item that brings each
-NOT_PORTED = {
-    "scale_gain": "ROADMAP queue A item 11 (gain codecs)",
-    "wacnn_gain": "ROADMAP queue A item 11 (gain codecs)",
-    "scale_gain_sc": "ROADMAP queue A item 11 (gain codecs)",
-}
+NOT_PORTED: dict[str, str] = {}
 # the Balle-2018 registry names -> make_balle's kind
 BALLE_KINDS = {"factorized": "factorized", "scale_hyperprior": "scale",
                "mean_scale_hyperprior": "mean-scale"}
@@ -26,7 +22,8 @@ BALLE_KINDS = {"factorized": "factorized", "scale_hyperprior": "scale",
 def get_model(args, device="cuda"):
     """Build the codec ``args.model`` (with ``args.N``, ``args.M`` and, for
     the STanH names, the train parser's ``--gauss_*``, ``--symmetry``,
-    ``--removing_mean``, ``--refinement`` and ``--lambda_list``) on
+    ``--removing_mean``, ``--refinement`` and ``--lambda_list``; for the
+    gain names one level per lambda and ``--gain_init_spread``) on
     ``device`` with seeded random weights."""
     name = args.model
     if name in NOT_PORTED:
@@ -51,6 +48,21 @@ def get_model(args, device="cuda"):
         # TCM-STanH: M fixed at 320, the TCM module's defaults
         codec = variants.make_tcm_stanh(gcfg, N=args.N, M=320, device=device)
         return codec, gcfg, configure_annealings(gcfg[0]), gcfg, configure_annealings(gcfg[0])
+    if name in ("scale_gain", "wacnn_gain", "scale_gain_sc"):
+        from .gain import gained, sc
+
+        spread = getattr(args, "gain_init_spread", 0.0)
+        if name == "scale_gain_sc":  # as in the JAX registry, no ladder here
+            codec = sc.make_sc_gained(N=args.N, M=args.M, lmbda_list=args.lambda_list,
+                                      device=device)
+        elif name == "scale_gain":
+            codec = gained.make_gained_hyperprior("scale", N=args.N, M=args.M,
+                                                  lmbda_list=args.lambda_list, device=device,
+                                                  gain_init_spread=spread)
+        else:
+            codec = gained.make_gained_wacnn(N=args.N, M=args.M, lmbda_list=args.lambda_list,
+                                             device=device, gain_init_spread=spread)
+        return codec, None, None, None, None
     if name == "wacnn":
         from .wacnn import make_wacnn
 

@@ -22,11 +22,26 @@ scale index across a table boundary and desynchronize the decode.)
 For the same reason every pass of ``ChannelARCodec`` runs in full fp32
 (``fp32_numerics``): with TF32 on, cuDNN's convolutions would round
 differently in an encoder and a decoder run under different settings.
+
+Gain hooks: ``gain_y``, ``gain_z``, ``inv_gain_z`` and ``inv_gain_y`` are
+identities here; the gain codecs (models/gain/gained.py) scale the latents
+by level lv's channel gains. The codec codes the gained y, so the y_hat
+that ``compress`` and ``decompress`` return is in that domain, before the
+inverse gain that ``synthesize`` applies.
+
+Pipelined host codec: the encoder is split into a device stage, which
+enqueues every kernel of a batch and ends in non-blocking copies into
+pinned host buffers and a CUDA event, and a host stage, which waits on
+that event and runs rANS. ``compress_pipelined`` enqueues batch i+1 while
+a worker thread codes batch i; ``roundtrip_pipelined`` also decodes batch
+i in worker threads while the next batches encode. On the CPU the same
+code runs in order.
 """
 
 from __future__ import annotations
 
 import contextlib
+import threading
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -39,18 +54,35 @@ from ..ops.layers import to_nchw, to_nhwc
 from ..ops.math import build_indexes, gaussian_likelihood, ste_round
 
 
+_numerics_lock = threading.Lock()
+_numerics_depth = 0
+_numerics_saved: tuple = ()
+
+
 @contextlib.contextmanager
 def fp32_numerics():
     """Run the block with TF32 off for cuDNN convolutions and cuBLAS matrix
     products, and give back the caller's two flags afterwards. Usable as a
-    decorator (``@fp32_numerics()``)."""
-    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    decorator (``@fp32_numerics()``). The flags are global, so the blocks
+    of all threads share one depth count: the first to enter saves the
+    flags, every entry turns TF32 off, and only the last to leave restores
+    them, so no pass of another thread runs with TF32 on."""
+    global _numerics_depth, _numerics_saved
+    with _numerics_lock:
+        if _numerics_depth == 0:
+            _numerics_saved = (torch.backends.cudnn.allow_tf32,
+                               torch.backends.cuda.matmul.allow_tf32)
+        _numerics_depth += 1
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+        with _numerics_lock:
+            _numerics_depth -= 1
+            if _numerics_depth == 0:
+                (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32) = _numerics_saved
 
 
 def uniform_noise(generator: torch.Generator):
@@ -135,6 +167,22 @@ class ChannelARModule(nn.Module):
     def apply_synthesis(self, y_hat, lv: int):
         return self.g_s(y_hat)
 
+    # -------------------------- gain hooks --------------------------
+    # Identities here; the gain codecs (models/gain/gained.py) scale y and z
+    # by level lv's channel gains and undo it before the synthesis.
+
+    def gain_y(self, y, lv: int):
+        return y
+
+    def gain_z(self, z, lv: int):
+        return z
+
+    def inv_gain_z(self, z_hat, lv: int):
+        return z_hat
+
+    def inv_gain_y(self, y_hat, lv: int):
+        return y_hat
+
     def forward(self, x, training: bool = False, noise=None, lv: int = 0, beta=None):
         """Rate-distortion forward (NCHW) at rate level ``lv`` (STanH
         temperature ``beta``; the plain codecs ignore both). Each slice goes
@@ -143,14 +191,14 @@ class ChannelARModule(nn.Module):
         ``noise(shape)``, called for z and then for each slice that draws."""
         if training and noise is None:
             raise ValueError("the training forward needs a noise callable")
-        y = self.g_a(x)
+        y = self.gain_y(self.g_a(x), lv)
         y_shape = y.shape[2:]
-        z = self.h_a(y)
+        z = self.gain_z(self.h_a(y), lv)
         eb = self.entropy_bottleneck
         z_noise = noise(eb.noise_shape(z)) if training else None
         _, z_likelihoods = eb(z, training=training, noise=z_noise)
         z_offset = self._z_offset()
-        z_hat = ste_round(z - z_offset) + z_offset
+        z_hat = self.inv_gain_z(ste_round(z - z_offset) + z_offset, lv)
         latent_scales = self.h_scale_s(z_hat)
         latent_means = self.h_mean_s(z_hat)
 
@@ -166,7 +214,7 @@ class ChannelARModule(nn.Module):
             y_lik.append(lik)
             y_hat_slices.append(self._lrp(i, mean_support, y_hat_slice))
 
-        x_hat = self.apply_synthesis(torch.cat(y_hat_slices, dim=1), lv)
+        x_hat = self.apply_synthesis(self.inv_gain_y(torch.cat(y_hat_slices, dim=1), lv), lv)
         out = {
             "x_hat": x_hat,
             "likelihoods": {"y": torch.cat(y_lik, dim=1), "z": z_likelihoods},
@@ -182,15 +230,17 @@ class ChannelARModule(nn.Module):
 
     # ------------------------- codec-path pieces -------------------------
 
-    def analysis(self, x):
-        """(y, z, z_hat); z_hat is exactly what the decoder rebuilds from the
-        z bitstream."""
-        y = self.g_a(x)
-        z = self.h_a(y)
+    def analysis(self, x, lv: int = 0):
+        """(y, z, z_hat) at rate level lv, in the gained domain; z_hat is
+        exactly what the decoder rebuilds from the z bitstream."""
+        y = self.gain_y(self.g_a(x), lv)
+        z = self.gain_z(self.h_a(y), lv)
         z_offset = self._z_offset()
         return y, z, torch.round(z - z_offset) + z_offset
 
-    def hyper_synthesis(self, z_hat):
+    def hyper_synthesis(self, z_hat, lv: int = 0):
+        """(latent means, latent scales) of the decoded z_hat (gained domain)."""
+        z_hat = self.inv_gain_z(z_hat, lv)
         return self.h_mean_s(z_hat), self.h_scale_s(z_hat)
 
     def decode_slice_params(self, i: int, latent_means, latent_scales, y_hat_slices, y_shape,
@@ -211,7 +261,8 @@ class ChannelARModule(nn.Module):
         return self._lrp(i, mean_support, symbols.to(mu.dtype) + mu)
 
     def synthesize(self, y_hat, lv: int = 0):
-        return torch.clamp(self.apply_synthesis(y_hat, lv), 0.0, 1.0)
+        """The clipped image of the coded y_hat (gained domain)."""
+        return torch.clamp(self.apply_synthesis(self.inv_gain_y(y_hat, lv), lv), 0.0, 1.0)
 
 
 class ChannelARCodec:
@@ -228,8 +279,13 @@ class ChannelARCodec:
         self._medians: np.ndarray | None = None
 
     def _input(self, x) -> torch.Tensor:
-        """NHWC image(s) in [0, 1] -> NCHW float32 on the codec's device."""
-        return to_nchw(torch.as_tensor(x, dtype=torch.float32).to(self.device))
+        """NHWC image(s) in [0, 1] -> NCHW float32 on the codec's device. A
+        host array reaches the card through pinned memory without blocking
+        the host, so the caller can enqueue work ahead of the card."""
+        t = torch.as_tensor(x, dtype=torch.float32)
+        if self.device.type == "cuda" and t.device.type == "cpu":
+            t = t.pin_memory().to(self.device, non_blocking=True)
+        return to_nchw(t.to(self.device))
 
     @fp32_numerics()
     def update(self):
@@ -272,19 +328,21 @@ class ChannelARCodec:
 
     @torch.no_grad()
     @fp32_numerics()
-    def encode_symbols(self, x, lv: int = 0):
-        """The device side of the encoder: (symbols, indexes, z, y_hat) for a
-        batch of NHWC images at rate level ``lv``; symbols and indexes are int32 [B, n] numpy
-        arrays ordered slice by slice, channel-major within a slice, z is
-        the NCHW hyper-latent in numpy and y_hat the NHWC latent that the
+    def _encode_device_stage(self, x, lv: int = 0) -> dict:
+        """The encoder's device work for a batch of NHWC images at rate
+        level ``lv``, enqueued without blocking: symbols (int16) and scale
+        indexes (uint8), [B, n] ordered slice by slice and channel-major
+        within a slice, and the NCHW z, each copied into a host buffer
+        (pinned on the card); ``ready``, the CUDA event after the copies
+        (None on the CPU); and y_hat, the NHWC latent on the device that the
         decoder must reproduce."""
         self._require_tables()
         m = self.module
         xc = self._input(x)
         b = xc.shape[0]
-        y, z, z_hat = m.analysis(xc)
+        y, z, z_hat = m.analysis(xc, lv)
         y_shape = tuple(y.shape[2:])
-        latent_means, latent_scales = m.hyper_synthesis(z_hat)
+        latent_means, latent_scales = m.hyper_synthesis(z_hat, lv)
         syms, idxs, y_hat_slices = [], [], []
         for i in range(m.num_slices):
             mu, indexes, mean_support = m.decode_slice_params(
@@ -293,14 +351,41 @@ class ChannelARCodec:
             y_hat_slices.append(m.decode_slice_dequant_finish(i, mean_support, sym, mu, lv))
             syms.append(sym)
             idxs.append(indexes)
-        symbols = torch.stack(syms, dim=1).reshape(b, -1).cpu().numpy().astype(np.int32)
-        indexes = torch.stack(idxs, dim=1).reshape(b, -1).cpu().numpy().astype(np.int32)
-        return symbols, indexes, z.cpu().numpy(), to_nhwc(torch.cat(y_hat_slices, dim=1))
+        staged = {"y_hat": to_nhwc(torch.cat(y_hat_slices, dim=1)), "ready": None}
+        for key, t in (("symbols", torch.stack(syms, dim=1).reshape(b, -1)),
+                       ("indexes", torch.stack(idxs, dim=1).reshape(b, -1)), ("z", z)):
+            staged[key] = torch.empty(t.shape, dtype=t.dtype, pin_memory=t.is_cuda)
+            staged[key].copy_(t, non_blocking=True)
+        if xc.is_cuda:
+            staged["ready"] = torch.cuda.Event(blocking=True)
+            staged["ready"].record()
+        return staged
+
+    @staticmethod
+    def _encode_host_stage(staged: dict):
+        """(symbols, indexes, z, y_hat) of a staged batch once its copies
+        have landed: int32 [B, n] numpy arrays, z NCHW numpy, y_hat as
+        staged."""
+        if staged["ready"] is not None:
+            staged["ready"].synchronize()
+        return (staged["symbols"].numpy().astype(np.int32),
+                staged["indexes"].numpy().astype(np.int32), staged["z"].numpy(), staged["y_hat"])
+
+    def encode_symbols(self, x, lv: int = 0):
+        """The encoder up to the entropy coder: (symbols, indexes, z, y_hat)
+        for a batch of NHWC images at rate level ``lv`` (``_encode_host_stage``
+        of ``_encode_device_stage``)."""
+        return self._encode_host_stage(self._encode_device_stage(x, lv))
 
     def compress_batch(self, x, lv: int = 0) -> list[dict]:
-        """Encode a batch at rate level ``lv``: ``encode_symbols`` on the
-        device, then each image's y and z streams on the host."""
-        symbols, indexes, z, y_hat = self.encode_symbols(x, lv)
+        """Encode a batch at rate level ``lv``: the device stage, then each
+        image's y and z streams on the host."""
+        return self._code_staged(self._encode_device_stage(x, lv), lv)
+
+    def _code_staged(self, staged: dict, lv: int) -> list[dict]:
+        """The host stage of a staged batch: wait for its copies, then code
+        each image's y and z streams (one thread per image)."""
+        symbols, indexes, z, y_hat = self._encode_host_stage(staged)
         b, _, zh, zw = z.shape
         t = self.y_tables(lv)
 
@@ -318,6 +403,35 @@ class ChannelARCodec:
         with ThreadPoolExecutor(max_workers=min(8, b)) as pool:
             return list(pool.map(encode_one, range(b)))
 
+    def compress_pipelined(self, batches, lv: int = 0) -> list[dict]:
+        """Encode a sequence of NHWC batches at rate level ``lv`` with the
+        device and the host overlapped: each batch's device stage is
+        enqueued while a worker thread waits for an earlier batch's copies
+        and codes it. Returns ``compress_batch``'s dicts, batch after batch."""
+        futures = []
+        with ThreadPoolExecutor(max_workers=2) as pool:
+            for x in batches:
+                futures.append(pool.submit(self._code_staged, self._encode_device_stage(x, lv),
+                                           lv))
+            return [enc for f in futures for enc in f.result()]
+
+    def roundtrip_pipelined(self, batches, lv: int = 0, decode_workers: int = 2) -> list[dict]:
+        """Encode and decode a sequence of NHWC batches at rate level ``lv``
+        with the two directions overlapped: batch i decodes in one of
+        ``decode_workers`` threads while later batches encode. Returns per
+        batch {"encs": compress_batch's dicts, "x_hat", "y_hat"}
+        (``decompress_batch``'s, NHWC)."""
+        def decode(encs):
+            dec = self.decompress_batch([e["strings"] for e in encs], encs[0]["shape"], lv)
+            return {"encs": encs, "x_hat": dec["x_hat"], "y_hat": dec["y_hat"]}
+
+        with ThreadPoolExecutor(max_workers=2) as enc_pool, \
+                ThreadPoolExecutor(max_workers=decode_workers) as dec_pool:
+            encoded = [enc_pool.submit(self._code_staged, self._encode_device_stage(x, lv), lv)
+                       for x in batches]
+            decoded = [dec_pool.submit(decode, f.result()) for f in encoded]
+            return [f.result() for f in decoded]
+
     def decompress(self, strings, shape, lv: int = 0) -> dict:
         return self.decompress_batch([strings], shape, lv)
 
@@ -334,7 +448,8 @@ class ChannelARCodec:
         z_hat = np.concatenate(
             [fz.decompress(s[1], shape, self._medians, self.eb_tables) for s in strings_list],
             axis=0)
-        latent_means, latent_scales = m.hyper_synthesis(torch.from_numpy(z_hat).to(self.device))
+        latent_means, latent_scales = m.hyper_synthesis(torch.from_numpy(z_hat).to(self.device),
+                                                        lv)
         y_shape = (shape[0] * 4, shape[1] * 4)
         t = self.y_tables(lv)
         b = len(strings_list)

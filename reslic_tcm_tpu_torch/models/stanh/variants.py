@@ -198,9 +198,9 @@ class StanhChannelARCodec(ChannelARCodec):
         m = self.module
         gc = m.gaussian_conditional
         xc = self._input(x)
-        y, z, z_hat = m.analysis(xc)
+        y, z, z_hat = m.analysis(xc, lv)
         y_shape = tuple(y.shape[2:])
-        latent_means, latent_scales = m.hyper_synthesis(z_hat)
+        latent_means, latent_scales = m.hyper_synthesis(z_hat, lv)
         _, z_lik = m.entropy_bottleneck(z)
         state = gc.stanh.state(lv)
         syms, y_liks, y_hat_slices = [], [], []

@@ -31,6 +31,7 @@ through ``cached``, and rebuilds them only when a parameter changes.
 from __future__ import annotations
 
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -43,6 +44,9 @@ from .layers import DropPath, ResidualUnit, conv1x1, records_grad, to_nchw, to_n
 from .qkv_attention import fused_qkv_attention, plain_qkv_attention, prepare_qkv_attention
 
 
+_cache_lock = threading.Lock()
+
+
 def cached(owner: nn.Module, name: str, sources, make):
     """``make()``, built once for ``owner`` under ``name`` and returned again
     while every tensor of ``sources`` keeps its ``data_ptr()`` and
@@ -51,17 +55,19 @@ def cached(owner: nn.Module, name: str, sources, make):
     entry holds the sources, so no address it was keyed on is reused while
     it lives. With autograd recording and a source that wants a gradient it
     is built afresh on every call, so the plain path sees the live
-    parameters."""
+    parameters. Threads fill an entry one at a time (the pipelined codec
+    runs passes in several threads)."""
     sources = tuple(sources)
     if torch.is_grad_enabled() and any(t.requires_grad for t in sources):
         return make()
     stamp = tuple((t.data_ptr(), t._version) for t in sources)
-    store = owner.__dict__.setdefault("_prepared", {})
-    hit = store.get(name)
-    if hit is None or hit[0] != stamp:
-        with torch.no_grad():
-            hit = (stamp, sources, make())
-        store[name] = hit
+    with _cache_lock:
+        store = owner.__dict__.setdefault("_prepared", {})
+        hit = store.get(name)
+        if hit is None or hit[0] != stamp:
+            with torch.no_grad():
+                hit = (stamp, sources, make())
+            store[name] = hit
     return hit[2]
 
 

@@ -31,16 +31,31 @@ def sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def rate_kwargs(codec, lv: int) -> dict:
+    """The keywords that code at rate level ``lv``: a gained hyperprior's
+    (s=lv, l=0), what the JAX function falls back to for it, else lv."""
+    from ..models.gain.gained import GainedHyperpriorCodec
+    from ..models.gain.sc import SCGainedCodec
+
+    if isinstance(codec, SCGainedCodec):
+        raise ValueError("scale_gain_sc needs a quality map input, which compress_with_ac "
+                         "does not take: call its compress(x, qmap, s, l)")
+    if isinstance(codec, GainedHyperpriorCodec):
+        return {"s": lv, "l": 0.0}
+    return {"lv": lv}
+
+
 def compress_with_ac(codec, images, lv: int = 0, min_div: int = 64, verbose: bool = True,
                      log=print, records: list | None = None):
     """Average (bpp, psnr) over HWC float32 images in [0, 1] through the real
-    codec at rate level ``lv``. With ``records``, appends one dict per image: bpp (total, y, z),
+    codec at rate level ``lv`` (``rate_kwargs``). With ``records``, appends one dict per image: bpp (total, y, z),
     PSNR, MS-SSIM (None below its minimum size), encode and decode ms (host
     clock around work that ends in a device synchronise), the kernel
     launches of each pass, whether the decoder reproduced the encoder's
     y_hat exactly, and the decoded NHWC x_hat of the padded image."""
     bpp_m, psnr_m, ssim_m = AverageMeter(), AverageMeter(), AverageMeter()
     dev = codec.device
+    rate = rate_kwargs(codec, lv)
     for i, img in enumerate(images):
         x = torch.as_tensor(img, dtype=torch.float32, device=dev)[None]
         h, w = x.shape[1], x.shape[2]
@@ -48,11 +63,11 @@ def compress_with_ac(codec, images, lv: int = 0, min_div: int = 64, verbose: boo
         x_padded = pad_nhwc(x, pad)
         sync(dev)
         before, t0 = launch_counts(), time.perf_counter()
-        enc = codec.compress(x_padded, lv=lv)
+        enc = codec.compress(x_padded, **rate)
         sync(dev)
         t1 = time.perf_counter()
         launches_compress, before = launches_since(before), launch_counts()
-        dec = codec.decompress(enc["strings"], enc["shape"], lv=lv)
+        dec = codec.decompress(enc["strings"], enc["shape"], **rate)
         sync(dev)
         t2 = time.perf_counter()
         launches_decompress = launches_since(before)

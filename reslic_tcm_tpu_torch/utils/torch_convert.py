@@ -25,6 +25,13 @@ STanH bottleneck ``entropy_bottleneck_stanh/*`` (its chain and nested
 cin, cout], [n_rates, cout]) and the per-level synthesis clones
 ``g_s_{i}/...``, which map as ``g_s`` does.
 
+The gain codecs' four gain matrices (``Gain``, ``InverseGain``: [levels,
+M]; ``HyperGain``, ``InverseHyperGain``: [levels, N]) are top-level
+parameters that copy as they are, and the SC codec's stages
+(``qmap_feature_*``, ``g_a1..4``, ``g_s1..4`` Sequentials and the SFT
+blocks' ``ga_SFT*/mlp_shared`` convolutions) map through the same rules
+(``tests/test_torch_port_gain.py`` holds each whole).
+
 ``load_snapshot`` reads the committed fp16 snapshots
 (``checkpoints/*.npz``: one array per '/'-joined flax parameter path) and
 upcasts them to float32.

@@ -491,8 +491,8 @@ def test_stream_encoded_with_tf32_on_decodes_exactly_with_it_off(cuda):
     torch.backends.cuda.matmul.allow_tf32 = True
     enc = codec.compress(img)
     assert torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
-    with torch.no_grad():
-        *_, y_hat_tf32 = inspect.unwrap(ChannelARCodec.encode_symbols)(codec, img)
+    with torch.no_grad():  # the encoder's device stage without its fp32 pin
+        y_hat_tf32 = inspect.unwrap(ChannelARCodec._encode_device_stage)(codec, img)["y_hat"]
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dec = codec.decompress(enc["strings"], enc["shape"])
@@ -500,10 +500,107 @@ def test_stream_encoded_with_tf32_on_decodes_exactly_with_it_off(cuda):
     assert not torch.equal(y_hat_tf32, dec["y_hat"])
 
 
+@pytest.mark.cuda
+def test_gain_codecs_on_card_roundtrip(cuda):
+    """The trained gained scale hyperprior (checkpoints/scale_gain_vr_r5.npz)
+    at levels 0-2 and (s=0, l=0.5), the registry's wacnn_gain (N=192,
+    spread 2, random weights scaled so that y codes) at both levels and
+    scale_gain_sc at (s=0, l=0.5) on a 256x256 image: every compress ->
+    decompress reproduces y_hat exactly and gives the card's forward's
+    clipped x_hat within 1e-5, and wacnn_gain launches B1 and B4 as WACNN
+    does. (The card against the CPU: chip_smoke.py, which counts the
+    latents that round the other way.)"""
+    from reslic_tcm_tpu_torch.cli.eval import launch_counts
+    from reslic_tcm_tpu_torch.data.synthetic import synth_image
+    from reslic_tcm_tpu_torch.models import get_model
+    from reslic_tcm_tpu_torch.models.gain.gained import make_gained_hyperprior
+    from reslic_tcm_tpu_torch.utils.parser import parse_args
+    from reslic_tcm_tpu_torch.utils.torch_convert import load_snapshot_into
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    img = synth_image(np.random.default_rng(0), 256, 256)[None]
+
+    def roundtrip(codec, *rate):
+        enc = codec.compress(img, *rate)
+        dec = codec.decompress(enc["strings"], enc["shape"], *rate)
+        assert torch.equal(enc["y_hat"], dec["y_hat"])
+        return dec["x_hat"]
+
+    gain = make_gained_hyperprior("scale", N=192, M=320, lmbda_list=(0.0025, 0.013, 0.05),
+                                  device=cuda)
+    assert load_snapshot_into(gain.module, GAIN_SNAPSHOT) == []
+    gain.update()
+    for s, l in ((0, 0.0), (1, 0.0), (2, 0.0), (0, 0.5)):
+        err_ok(roundtrip(gain, s, l).cpu().numpy(),
+               gain.forward(img, s, l)["x_hat"].clamp(0, 1).cpu().numpy(), 1e-5)
+
+    args = parse_args(["-m", "wacnn_gain", "--N", "192", "--M", "320", "--gain_init_spread",
+                       "2", "--lambda_list", "0.0025", "0.05"])
+    wacnn = get_model(args, device=cuda)[0]
+    m = wacnn.module
+    with torch.no_grad():
+        for layer, f in [(m.g_a[7], 40.0)] + [(t[-1], 60.0) for t in m.cc_scale_transforms]:
+            layer.weight.mul_(f)
+            layer.bias.mul_(f)
+    wacnn.update()
+    b1_b4 = {"flash_window_block": 2, "fused_residual_block": 0, "fused_conv_gdn": 0,
+             "fused_qkv_attention": 2}
+    for lv in range(2):
+        before = launch_counts()
+        out = wacnn.forward(img, lv=lv)
+        assert {k: v - before[k] for k, v in launch_counts().items()} == b1_b4
+        before = launch_counts()
+        x_hat = roundtrip(wacnn, lv)
+        assert {k: v - before[k] for k, v in launch_counts().items()} == b1_b4
+        err_ok(x_hat.cpu().numpy(), out["x_hat"].clamp(0, 1).cpu().numpy(), 1e-5)
+
+    args = parse_args(["-m", "scale_gain_sc", "--N", "192", "--M", "320", "--lambda_list",
+                       "0.0025", "0.05"])
+    sc = get_model(args, device=cuda)[0]
+    sc.update()
+    qmap = np.random.default_rng(1).uniform(size=(1, 256, 256, 1)).astype(np.float32)
+    enc = sc.compress(img, qmap, 0, 0.5)
+    assert torch.equal(enc["y_hat"], sc.decompress(enc["strings"], enc["shape"], 0, 0.5)["y_hat"])
+
+
+@pytest.mark.cuda
+def test_pipelined_paths_on_card_match_serial(cuda):
+    """TCM-S (seeded weights), three batches of two 256x256 images:
+    compress_pipelined gives compress_batch's streams, roundtrip_pipelined
+    decompress_batch's x_hat and y_hat bit for bit, and the decoded y_hat
+    is the encoder's; with the caller's TF32 flags on, which the passes
+    turn off and give back."""
+    from reslic_tcm_tpu_torch.data.synthetic import synth_image
+    from reslic_tcm_tpu_torch.models.tcm import make_tcm
+
+    rng = np.random.default_rng(4)
+    batches = [np.stack([synth_image(rng, 256, 256) for _ in range(2)]) for _ in range(3)]
+    codec = make_tcm(N=64, M=320, device=cuda, seed=2)
+    codec.update()
+    encs = [codec.compress_batch(x) for x in batches]
+    decs = [codec.decompress_batch([e["strings"] for e in es], es[0]["shape"]) for es in encs]
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        flat = codec.compress_pipelined(batches)
+        out = codec.roundtrip_pipelined(batches)
+        assert torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert [e["strings"] for e in flat] == [e["strings"] for es in encs for e in es]
+    for o, es, dec in zip(out, encs, decs):
+        assert [e["strings"] for e in o["encs"]] == [e["strings"] for e in es]
+        assert torch.equal(o["x_hat"], dec["x_hat"]) and torch.equal(o["y_hat"], dec["y_hat"])
+        assert torch.equal(o["y_hat"], torch.cat([e["y_hat"] for e in es]))
+
+
 # ------------------------------- training -------------------------------
 
 SNAPSHOT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                         "checkpoints", "tcm_s_lambda0.013_r5.npz")
+GAIN_SNAPSHOT = os.path.join(os.path.dirname(SNAPSHOT), "scale_gain_vr_r5.npz")
 
 
 def _tcm_s(device):

@@ -253,8 +253,13 @@ def test_get_model_builds_wacnn_and_refuses_the_rest():
     assert rest == [None] * 4
     assert codec.module.num_slices == 10 and codec.module.max_support_slices == 5
     assert codec.module.cc_mean_transforms[9][0].weight.shape[1] == 40 + 4 * 5
-    Args.model = "wacnn_gain"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the gain variant builds since the gain codecs' slice; a name the
+    # registry does not know is refused
+    Args.model, Args.lambda_list = "wacnn_gain", [0.0025, 0.05]
+    gained, *_ = get_model(Args, device="cpu")
+    assert gained.module.levels == 2 and gained.module.cc_mean_transforms[9][0].in_channels == 60
+    Args.model = "wacnn_tiny"
+    with pytest.raises(ValueError, match="unknown model"):
         get_model(Args, device="cpu")
 
 
