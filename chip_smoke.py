@@ -7,8 +7,9 @@
 Drives reslic_tcm_tpu_torch only (no JAX, no PIL), in these phases:
 
 1. Device: the card's name and power limit; TF32 off, cuDNN deterministic.
-2. Build: the four CUDA kernels' three sources (nvcc, one process per
-   source, all at once) and the host rANS coder (g++) into
+2. Build: the four CUDA kernels' three sources, the device coder's
+   kernels' source (nvcc, one process per source, all at once) and the
+   host rANS coder (g++) into
    reslic_tcm_tpu_torch/_build/.
 3. Kernels: each kernel against its plain PyTorch version on the card at
    the shapes the main paths of TCM-S, TCM N=128, TCM N=192 and WACNN give
@@ -115,14 +116,33 @@ Drives reslic_tcm_tpu_torch only (no JAX, no PIL), in these phases:
    the serial ones, decoded y_hat exact, MP/s per variant (median of 3
    runs), the serial run's launches; the caller's TF32 flags set True
    and read False inside every pass.
+5e. (run before 5b) Device coder on TCM-S (the committed weights): the
+   coder kernels D1-D4 (csrc/device_rans.cu, built in phase 2) against
+   their plain versions on the card, bit for bit (words, counts, headers,
+   totals, decoded symbols and the final carry), on one 768x512 image's
+   real slice inputs at k=1024 (D1 the y and z streams, D2 the z stream
+   and the five y segments chained, D3, D4 the five segments) and on batch
+   0 of 5d at the serving path's k=4096 (D1 and D2 its z stream at its kz,
+   compacted; D3 the y stream, D4 its five segments), each with its time
+   (CUDA events) beside the plain version's and its bound (the bytes and
+   float32 operations these inputs need); then the two images of the slices through
+   compress_device / decompress_device and the analytic pair (exact y_hat,
+   the table path's x_hat within 1e-5 of the host codec's decode, the
+   clamped symbols, encode and decode ms as the median of 3, real bpp
+   beside the host codec's and the estimate, B1-B3 launched as by
+   compress and decompress), the coder kernels' launches on that path;
+   then serve_roundtrip_metrics and serve_roundtrip_pipelined over 5d's
+   batches at k=4096 beside the serial host path (MP/s, median of 3; the
+   last timed run of each decodes every batch's y_hat exactly) and the
+   profile of one run of each.
 6. Profile: torch.profiler over one warm forward, compress and decompress
    of each slice at 768x512 (scale_gain_sc aside), over one step of each
    train slice and over one run of the serial and each pipelined variant
    (compress_pipelined alone, without its decode): the device's
    busy time and idle share of each, and the kernels that take the most
    device time.
-7. Summary: the kernels line, the card line, the wall time, and last the
-   {"ok": true, "device": ...} line.
+7. Summary: the kernels line (B1-B4), the coder_kernels line (D1-D4), the
+   card line, the wall time, and last the {"ok": true, "device": ...} line.
 
 Each slice is driven with every launch counter set to 0 just before it and
 read just after; a kernel of that slice's path that was not launched fails
@@ -183,6 +203,8 @@ PASS_LAUNCHES = {
     "scale-gain-sc": _NO_LAUNCHES,
     # TCM-S's compress + decompress per batch, whatever the batch size
     "pipelined": _TCM_LAUNCHES,
+    # TCM-S through the device coder: the same passes, the coding on the card
+    "device-coder": _TCM_LAUNCHES,
     # no kernel lies on the Balle-2018 path (5x5 stride-2 convolutions, unfused GDN)
     **{f"balle-{kind}": _NO_LAUNCHES for kind in BALLE_KINDS},
 }
@@ -1461,6 +1483,382 @@ def phase_pipelined(torch, device, hw, batch=PIPE_BATCH, n_batches=PIPE_BATCHES,
     return codec, batches, serial_launches
 
 
+# ------------------------------ device coder ------------------------------
+
+DC_K = 1024  # compress_device*'s default lanes
+SERVE_K = 4096  # serve_roundtrip_*'s default lanes
+DC_REPEATS = 3
+CODER_SOURCE = "reslic_tcm_tpu_torch/csrc/device_rans.cu"
+# float32 operations of the analytic coders (an erf: 10 fmas at 2, 4 more;
+# Phi: 2 more; a symbol's parameters: 2 Phi and 8 more; a boundary: Phi and 5
+# more). D3 needs a symbol's parameters and its 2 boundaries; D4 its
+# parameters and the boundaries that a search over its nb bins needs,
+# ceil(log2 nb) + 1 (the kernel's fixed 11-step search does more). D1 and D2
+# do integer work only, so their bound is their bytes.
+_PHI_OPS = 26
+_PARAM_OPS = 2 * _PHI_OPS + 8
+_BOUNDARY_OPS = _PHI_OPS + 5
+
+
+def _run_plain(torch, fn, on_card):
+    """(fn(), ms on the host clock ending in a synchronise)."""
+    if on_card:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    if on_card:
+        torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _equal(torch, a, b) -> bool:
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(_equal(torch, u, v) for u, v in zip(a, b))
+    return bool(torch.equal(a, b))
+
+
+def _coder_case(torch, name, label, kern, plain, on_card, nbytes, ops, reps):
+    """Kernel D1-D4 against its plain version on the same inputs, bit for
+    bit: the kernel's time per call of ``kern`` (CUDA events, after warm-up),
+    the plain version's (one run, host clock), the bound from the bytes the
+    launches must move (``nbytes``, or a function of the plain version's
+    output that gives them) and their float32 operations. ``kern`` and
+    ``plain`` return what they decode or encode and the carry, if any."""
+    want, plain_ms = _run_plain(torch, plain, on_card)
+    if not on_card:
+        log(f"coder_case {name} {label}: plain version {plain_ms:.1f} ms (kernels run on the "
+            f"card only)")
+        return {"plain_ms": plain_ms}, want
+    got = kern()
+    torch.cuda.synchronize()
+    equal = _equal(torch, got, want)
+    ms = _time_ms(torch, kern, reps)
+    if callable(nbytes):
+        nbytes = nbytes(want)
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = ops / PEAK_FLOPS * 1e3
+    case = {"kernel": name, "case": label, "equal": equal, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops > t_bytes else "bytes", "mbytes": nbytes / 1e6}
+    log("coder_case " + json.dumps(case))
+    if not equal:
+        raise AssertionError(f"{name} {label}: the kernel and its plain version differ")
+    return case, want
+
+
+def _table_entries(torch, sym, idx, t):
+    """(distinct table entries, distinct rows) that coding ``sym`` with the
+    scale indexes ``idx`` touches: an escaped symbol takes its row's escape
+    bin."""
+    idx = idx.long()
+    val = sym.long() - t.offset[idx].long()
+    top = t.cdf_length[idx].long() - 2
+    val = torch.where((val < 0) | (val >= top), top, val)
+    return (int(torch.unique(idx * t.packed.shape[1] + val).numel()),
+            int(torch.unique(idx).numel()))
+
+
+def _encode_bytes(torch, sym, idx, t, counts):
+    """D1's bytes: symbols and indexes read (int32), the table entries and
+    rows they touch (packed; cdf_length and offset), the emitted words and
+    the counts written."""
+    entries, rows = _table_entries(torch, sym, idx, t)
+    return sym.numel() * 8 + entries * 4 + rows * 8 + (int(counts.sum()) + counts.numel()) * 4
+
+
+def _decode_bytes(torch, sym, idx, t, counts, launches):
+    """D2's bytes: indexes read, symbols written (int32), the table entries
+    and rows the decoded symbols touch (inverse and packed; cdf_length and
+    offset), the words past the two that decoder_init reads, and per launch
+    each lane's base read and carry (state, read pointer) read and written."""
+    entries, rows = _table_entries(torch, sym, idx, t)
+    k = counts.numel()
+    return (idx.numel() * 8 + entries * 6 + rows * 8 + (int(counts.sum()) - 2 * k) * 4
+            + launches * k * 40)
+
+
+def _search_ops(torch, sigma) -> int:
+    """D4's float32 operations on ``sigma``: per symbol its parameters and
+    ceil(log2 nb) + 1 boundaries (see _PHI_OPS)."""
+    from reslic_tcm_tpu_torch.coding import analytic_rans as ar
+
+    nb = 2 * ar.support(sigma).double() + 1
+    evals = int((torch.ceil(torch.log2(nb)) + 1).sum())
+    return sigma.numel() * _PARAM_OPS + evals * _BOUNDARY_OPS
+
+
+def _coder_kernel_checks(torch, codec, x1, x8, on_card):
+    """D1-D4 against their plain versions on one image's real slice inputs
+    (k=1024: the y and z streams, the five y segments chained) and on a
+    batch of 8 at the serving path's k=4096 (D1 and D2 its z stream at its
+    kz, compacted as the analytic container holds it; D3 the y stream, D4
+    its five segments). Returns per kernel its record for one image (sums
+    over its launches in one image's encode or decode at k=1024)."""
+    from reslic_tcm_tpu_torch.coding import analytic_rans as ar
+    from reslic_tcm_tpu_torch.coding import device_kernels as dk
+    from reslic_tcm_tpu_torch.coding import device_rans as dr
+
+    tables = codec._device_tables(0)
+    yt, zt = tables["y"], tables["z"]
+    t_in = codec.device_coder_inputs(x1)
+    n, n_slice = t_in["y"].numel(), t_in["slice_symbols"]
+    segments = n // n_slice
+    kz, z_cap = codec._z_lanes(t_in, DC_K)
+    z_rows = torch.arange(zt.cdf.shape[0], dtype=torch.int32, device=codec.device).repeat(
+        t_in["z"].numel() // zt.cdf.shape[0])
+    per = {}
+
+    def add(name, case, launches):
+        rec = per.setdefault(name, {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "t_ops": 0.0,
+                                    "t_bytes": 0.0, "launches_per_image": 0})
+        for key in ("ms", "plain_ms", "bound_ms"):
+            rec[key] += case.get(key, 0.0)
+        rec["launches_per_image"] += launches
+        if "bound_by" in case:
+            t = case["bound_ms"]
+            rec["t_ops" if case["bound_by"] == "operations" else "t_bytes"] += t
+
+    def encode_case(label, sym, idx, t, k, cap):
+        case, stream = _coder_case(
+            torch, "encode_lanes", label,
+            lambda: dk.encode_lanes(sym, idx, t.packed, t.cdf_length, t.offset, k, cap),
+            lambda: dr.plain_encode_lanes(sym, idx, t.cdf, t.cdf_length, t.offset, k, cap,
+                                          t.packed),
+            on_card, lambda out: _encode_bytes(torch, sym, idx, t, out[1]), 0, 20)
+        if bool((stream[1] > cap).any()):
+            raise AssertionError(f"encode_lanes {label}: a lane outgrew its cap {cap}")
+        return case, stream
+
+    # D1: the y stream and the z stream of one image
+    streams = {}
+    for part, sym, idx, t, k, cap in (("y", t_in["y"], t_in["indexes"], yt, DC_K,
+                                       max(64, n // DC_K)),
+                                      ("z", t_in["z"], z_rows, zt, kz, z_cap)):
+        case, streams[part] = encode_case(f"{part} k={k}", sym, idx, t, k, cap)
+        add("encode_lanes", case, 1)
+
+    # D2: the z stream, then the five y segments chained
+    def decode_case(label, words, counts, idx, t, k, n_seg, want, offsets=None):
+        carry0 = dr.decoder_init(words, counts, offsets)
+        base = dr.lane_base(words, k, offsets)
+        parts = idx.split(idx.numel() // n_seg)
+
+        def kern():
+            x, rp = carry0[0].clone(), carry0[1].clone()
+            out = [dk.decode_lanes(x, rp, words, base, p, t.inverse, t.packed, t.cdf_length,
+                                   t.offset, k) for p in parts]
+            return torch.cat(out), x, rp
+
+        def plain():
+            carry, out = carry0, []
+            for p in parts:
+                carry, syms = dr.plain_decode_lanes(carry, words, base, p, t.cdf, t.cdf_length,
+                                                    t.offset, k, t.inverse, t.packed)
+                out.append(syms)
+            return (torch.cat(out), *carry)
+
+        nbytes = _decode_bytes(torch, want, idx, t, counts, n_seg)
+        case, got = _coder_case(torch, "decode_lanes", label, kern, plain, on_card, nbytes, 0, 5)
+        if not torch.equal(got[0], want):
+            raise AssertionError(f"decode_lanes {label}: the stream decoded to other symbols")
+        return case
+
+    add("decode_lanes", decode_case(f"z k={kz}", *streams["z"], z_rows, zt, kz, 1, t_in["z"]), 1)
+    add("decode_lanes", decode_case(f"y k={DC_K}, {segments} segments", *streams["y"],
+                                    t_in["indexes"], yt, DC_K, segments, t_in["y"]), segments)
+
+    # D1 and D2 on the serving path's z stream: a batch of 8 at kz
+    a8 = codec.device_coder_inputs(x8, analytic=True)
+    kz8, z_cap8 = codec._z_lanes(a8, SERVE_K)
+    z_rows8 = torch.arange(zt.cdf.shape[0], dtype=torch.int32, device=codec.device).repeat(
+        a8["z"].numel() // zt.cdf.shape[0])
+    _, (z_words, z_counts) = encode_case(f"z batch {len(x8)} k={kz8}", a8["z"], z_rows8, zt,
+                                            kz8, z_cap8)
+    z_flat, _ = ar.compact_stream(z_words, z_counts, max(4 * kz8, a8["z"].numel() // 2))
+    decode_case(f"z batch {len(x8)} k={kz8}, compacted", z_flat, z_counts, z_rows8, zt, kz8, 1,
+                a8["z"], ar.lane_offsets(z_counts))
+
+    # D3 and D4: one image at k=1024 and the batch of 8 at k=4096
+    for a_in, k, label in ((codec.device_coder_inputs(x1, analytic=True), DC_K, "batch 1"),
+                           (a8, SERVE_K, f"batch {len(x8)}")):
+        sym, sigma, n_all = a_in["y"], a_in["sigma"], a_in["y"].numel()
+        n_seg = n_all // a_in["slice_symbols"]
+        case, lanes = _coder_case(
+            torch, "gaussian_encode_lanes", f"{label} k={k}",
+            lambda: dk.gaussian_encode_lanes(sym, sigma, k),
+            lambda: ar.plain_encode_gaussian_lanes(sym, sigma, k),
+            on_card, n_all * 13 + k * 8, n_all * (_PARAM_OPS + 2 * _BOUNDARY_OPS), 5)
+        header, flat, total, _ = ar.compact_grouped(*lanes, n_all)
+        flat = torch.cat([flat, flat.new_zeros(k)])
+        seg = a_in["slice_symbols"]
+        carry0 = ar.decode_gaussian_grouped_init(header)
+
+        def kern():
+            x_, g = carry0[0].clone(), carry0[1].clone()
+            out = [dk.gaussian_decode_lanes(x_, g, flat, sigma[i * seg:(i + 1) * seg], k)
+                   for i in range(n_seg)]
+            return torch.cat(out), x_, g
+
+        def plain():
+            carry, out = carry0, []
+            for i in range(n_seg):
+                carry, vals = ar.plain_decode_gaussian_lanes(carry, flat,
+                                                             sigma[i * seg:(i + 1) * seg], k)
+                out.append(vals)
+            return (torch.cat(out), *carry)
+
+        # sigma read, symbols written, every grouped word read, per launch
+        # each lane's state read and written and the stream pointer
+        n_dec = n_seg * seg
+        dcase, got = _coder_case(torch, "gaussian_decode_lanes",
+                                 f"{label} k={k}, {n_seg} segments", kern, plain, on_card,
+                                 n_dec * 8 + int(total) * 4 + n_seg * (k * 16 + 16),
+                                 _search_ops(torch, sigma[:n_dec]), 3)
+        if not torch.equal(got[0], sym[:n_dec]):
+            raise AssertionError(f"gaussian_decode_lanes {label}: decoded other symbols")
+        if k == DC_K:
+            add("gaussian_encode_lanes", case, 1)
+            add("gaussian_decode_lanes", dcase, n_seg)
+        log(f"coder {label}: {n_all} y symbols, {int(total)} grouped words, "
+            f"{int(a_in['clamped'])} clamped")
+    return per
+
+
+def phase_device_coder(torch, device, hw, batches, repeats=DC_REPEATS):
+    """The device coder on TCM-S (the committed weights): D1-D4 against
+    their plain versions on real slice inputs (card only; the CPU runs the
+    plain versions), then the two seeded images through compress_device /
+    decompress_device and the analytic pair (exact y_hat, the table path's
+    x_hat against the host codec's decode within 1e-5, the analytic path's
+    clamped symbols, encode and decode ms as the median of ``repeats``,
+    real bpp beside the host codec's and the estimate, the launches of
+    B1-B3 per pass), then serve_roundtrip_metrics and
+    serve_roundtrip_pipelined over ``batches`` (k=4096) beside the serial
+    host path in MP/s (median of ``repeats``). Returns the codec, the
+    main path's B1-B4 launches, the coder kernels' launches on it and
+    their per-image records."""
+    from reslic_tcm_tpu_torch.coding import device_kernels as dk
+    from reslic_tcm_tpu_torch.data.synthetic import synth_image
+    from reslic_tcm_tpu_torch.ops.launches import launch_counts
+
+    t0 = time.perf_counter()
+    on_card = device == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    codec = _load_codec(device)
+    images = [synth_image(np.random.default_rng(SEED + i), *hw)[None] for i in range(2)]
+    log(f"device coder: TCM-S from {SNAPSHOT} on {device}, the two {hw[0]}x{hw[1]} images of "
+        f"the slices (seed {SEED}); k={DC_K}; set-up {time.perf_counter() - t0:.1f} s")
+    per_kernel = _coder_kernel_checks(torch, codec, images[0], batches[0], on_card)
+
+    profiles = {
+        "table": (codec.compress_device, lambda enc: codec.decompress_device(enc)),
+        "analytic": (codec.compress_device_analytic,
+                     lambda enc: codec.decompress_device_analytic(enc)),
+    }
+    path_launches = dict.fromkeys(launch_counts(), 0)  # B1-B4 in the device profiles' passes
+    dk.reset_launch_counts()
+    for j, x in enumerate(images):
+        npix = hw[0] * hw[1]
+        est = _bits(torch, codec.forward(x)["likelihoods"]) / npix
+        host_ms = []
+        for _ in range(repeats):
+            host, enc_ms, _ = _timed(torch, device, lambda: codec.compress(x))
+            host_dec, dec_ms, _ = _timed(
+                torch, device, lambda: codec.decompress(host["strings"], host["shape"]))
+            host_ms.append((enc_ms, dec_ms))
+        host_bpp = (len(host["strings"][0][0]) + sum(map(len, host["strings"][1]))) * 8 / npix
+        for name, (compress, decompress) in profiles.items():
+            enc_ms, dec_ms = [], []
+            for _ in range(repeats):
+                enc, ms, launches_c = _timed(torch, device, lambda: compress(x))
+                enc_ms.append(ms)
+                dec, ms, launches_d = _timed(torch, device, lambda: decompress(enc))
+                dec_ms.append(ms)
+            for launches in (launches_c, launches_d):
+                for kernel, n in launches.items():
+                    path_launches[kernel] += n * repeats
+            _check_launches(j, f"{name} compress_device", launches_c,
+                            PASS_LAUNCHES["tcm"]["compress"], on_card)
+            _check_launches(j, f"{name} decompress_device", launches_d,
+                            PASS_LAUNCHES["tcm"]["decompress"], on_card)
+            if not torch.equal(enc["y_hat"], dec["y_hat"]):
+                raise AssertionError(f"image {j} {name}: decode did not reproduce y_hat")
+            x_err = float((dec["x_hat"] - host_dec["x_hat"]).abs().max())
+            rec = {"image": j, "profile": name, "k": DC_K, "bpp": enc["nbytes"] * 8 / npix,
+                   "host_bpp": host_bpp, "estimate_bpp": est,
+                   "encode_ms": float(np.median(enc_ms)), "decode_ms": float(np.median(dec_ms)),
+                   "host_encode_ms": float(np.median([t[0] for t in host_ms])),
+                   "host_decode_ms": float(np.median([t[1] for t in host_ms])),
+                   "y_hat_exact": True, "x_hat_vs_host": x_err,
+                   "clamped": enc.get("clamped"), "launches_compress": launches_c,
+                   "launches_decompress": launches_d}
+            log("device_coder " + json.dumps(rec))
+            if name == "table" and not x_err <= 1e-5:
+                raise AssertionError(f"image {j}: the table path's x_hat is {x_err:.2e} from "
+                                     f"the host codec's")
+    sync()
+    coder_launches = dk.launch_counts()
+    log(f"device coder path launches {json.dumps(path_launches)}; coder kernels "
+        f"{json.dumps(coder_launches)}")
+    if on_card:
+        for name in dk.launch_counts():
+            if coder_launches[name] == 0:
+                raise AssertionError(f"{name} was never launched on the device-coder path")
+
+    b = len(batches[0])
+    mp = len(batches) * b * hw[0] * hw[1] / 1e6
+
+    def serial():
+        out = []
+        for x in batches:
+            encs = codec.compress_batch(x)
+            out.append((encs, codec.decompress_batch([e["strings"] for e in encs],
+                                                     encs[0]["shape"])))
+        return out
+
+    def served_pairs(results):
+        return [(r["enc"]["y_hat"], r["y_hat"]) for r in results]
+
+    serial_name = "serial compress_batch + decompress_batch"
+    metrics_name = f"serve_roundtrip_metrics k={SERVE_K}"
+    # variant -> (run, its (encoder's y_hat, decoder's y_hat) per batch)
+    variants = {serial_name: (serial, lambda results: [
+                    (torch.cat([e["y_hat"] for e in encs]), dec["y_hat"])
+                    for encs, dec in results]),
+                metrics_name: (lambda: codec.serve_roundtrip_metrics(batches, k=SERVE_K),
+                               served_pairs),
+                f"serve_roundtrip_pipelined k={SERVE_K}":
+                    (lambda: codec.serve_roundtrip_pipelined(batches, k=SERVE_K), served_pairs)}
+    rates, last = {}, {}
+    for name, (fn, pairs) in variants.items():
+        times = []
+        for _ in range(repeats + 1):  # the first run warms up
+            sync()
+            t1 = time.perf_counter()
+            last[name] = fn()
+            sync()
+            times.append(time.perf_counter() - t1)
+        rates[name] = mp / float(np.median(times[1:]))
+        log(f"device coder serve {name}: {rates[name]:.3f} MP/s (median of {repeats} runs of "
+            f"{mp:.3f} MP: {', '.join(f'{t * 1e3:.1f}' for t in times[1:])} ms)")
+        # the last timed run's decodes against its encoder, batch by batch
+        for j, (want, got) in enumerate(pairs(last[name])):
+            if not torch.equal(want, got):
+                raise AssertionError(f"device coder serve {name}: batch {j} decoded another "
+                                     f"y_hat than its encoder's")
+        log(f"device coder serve {name}: y_hat exact in all {len(batches)} batches of the last "
+            f"timed run")
+    log("device_coder_rates " + json.dumps(rates))
+    psnr = [float(v) for r in last[metrics_name] for v in r["psnr"]]
+    log(f"device coder serve: PSNR on {device} {min(psnr):.3f}-{max(psnr):.3f} dB over "
+        f"{len(psnr)} images")
+    if on_card:
+        for name, (fn, _) in variants.items():
+            _profile_window(torch, f"device coder {name} ({len(batches)} x {b} x "
+                            f"{hw[0]}x{hw[1]})", fn)
+    return codec, path_launches, coder_launches, per_kernel
+
+
 # -------------------------------- train ---------------------------------
 
 TRAIN_LAMBDA = 0.013
@@ -1787,10 +2185,14 @@ def main() -> int:
             _, launches[slice_name] = phase_ac_slice(torch, "cpu", (256, 256), slice_name)
         for slice_name, (phase, _) in {**STANH_SLICES, **GAIN_SLICES}.items():
             _, launches[slice_name] = phase(torch, "cpu", (256, 256))
-        *_, launches["pipelined"] = phase_pipelined(torch, "cpu", (256, 256), 2, 2, 1)
+        _, pipe_batches, launches["pipelined"] = phase_pipelined(torch, "cpu", (256, 256), 2, 2,
+                                                                 1)
+        _, launches["device-coder"], coder_launches, _ = phase_device_coder(
+            torch, "cpu", (256, 256), pipe_batches, repeats=1)
         for slice_name in TRAIN_SLICES:
             phase_train(torch, "cpu", slice_name, 2, (128, 128), 1, 2)
         log("kernels " + json.dumps({"launches": launches}))
+        log("coder_kernels " + json.dumps({"launches": coder_launches}))
         log(f"rehearsal done in {time.perf_counter() - t0:.1f} s (no ok line: no card)")
         return 0
 
@@ -1799,7 +2201,7 @@ def main() -> int:
         return 2
     import reslic_tcm_tpu_torch  # noqa: F401  (fails here when run outside the repo)
 
-    name, smi = phase_device(torch)
+    card, smi = phase_device(torch)
     phase_build()
     per_kernel = phase_kernels(torch)
     phase_splits(torch)
@@ -1822,6 +2224,8 @@ def main() -> int:
             phase_gain_reference(torch, codecs[slice_name], make, lv=1)
     del codecs["scale-gain-sc"]  # its passes take a quality map: not profiled
     pipe_codec, pipe_batches, paths["pipelined"] = phase_pipelined(torch, "cuda", IMAGE_HW)
+    _, paths["device-coder"], coder_launches, coder_per_image = phase_device_coder(
+        torch, "cuda", IMAGE_HW, pipe_batches)
     torch.cuda.synchronize()
     for path, launches in paths.items():
         log(f"main path {path}: launches {json.dumps(launches)}")
@@ -1875,10 +2279,27 @@ def main() -> int:
         "no single PyTorch call computes them (the kernel_case lines time that call for B1's "
         "attention-only flavour, with partition, roll and residual outside it)")
     log(json.dumps({"kernels": kernels}))
+    from reslic_tcm_tpu_torch.coding.device_kernels import REPLACES
+
+    coder_kernels = []
+    for kernel, rec in coder_per_image.items():
+        coder_kernels.append({
+            "name": kernel, "route": "cuda", "source": CODER_SOURCE, "replaces": REPLACES[kernel],
+            "launches": coder_launches[kernel], "max_abs_err": 0.0, "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["t_ops"] + rec["t_bytes"],
+            "bound_by": "operations" if rec["t_ops"] > rec["t_bytes"] else "bytes",
+            "library_ms": None, "launches_per_image": rec["launches_per_image"]})
+    log("coder kernels (replace lax.scan programs, not Pallas kernels): launches: the "
+        "device-coder path's runs (two images, both profiles, each run "
+        f"{DC_REPEATS} times); ms, plain_ms and bound_ms: one 768x512 image's launches "
+        "(D1: its y and z encode, D2: its z and five y segments, D3: one, D4: five y "
+        "segments); max_abs_err 0: the kernels equal their plain versions bit for bit; "
+        "library_ms null: no PyTorch call codes rANS")
+    log("coder_kernels " + json.dumps({"coder_kernels": coder_kernels}))
     log(f"card: {smi}")
     log(f"wall: {time.perf_counter() - t0:.1f} s")
     faulthandler.cancel_dump_traceback_later()
-    log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+    log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,
                                           "count": torch.cuda.device_count()}}))
     return 0
 

@@ -3,16 +3,20 @@
 Same flags and report lines as the JAX CLI. ``--model tcm`` (the default)
 loads a TCM checkpoint, pads each image to a multiple of 128, then either
 runs the real codec (``--real``: compress -> decompress through the host
-rANS coder) or the forward-only bpp estimate, and reports PSNR, MS-SSIM
-(dB), bpp and time; its loop is ``evaluate(codec, images)``, callable with
-arrays. Every other registry name the port builds takes the JAX CLI's
+rANS coder, or with ``--device-coder`` through the analytic device coder,
+``compress_device_analytic`` -> ``decompress_device_analytic``, bpp from
+the container's size) or the forward-only bpp estimate, and reports PSNR,
+MS-SSIM (dB), bpp and time; its loop is ``evaluate(codec, images)``,
+callable with arrays. Every other registry name the port builds takes the JAX CLI's
 generic branch: the real codec through
 ``training.codec_eval.compress_with_ac`` (pad 64) or the pad-128 forward
 estimate, one ``[level lv] ...`` line per rate level (``--lv``: one level,
 -1 every level of a variable-rate codec, one per lambda; the STanH codecs
 take the quantizer knobs they were trained with from ``--lambda_list`` and
 ``--gauss_*``; the gained hyperprior codes level lv at s=lv, l=0).
-``scale_gain_sc`` needs a quality map and is refused, as by the JAX CLI.
+``scale_gain_sc`` needs a quality map and is refused, as by the JAX CLI;
+``--device-coder`` with another model than TCM is refused too (the JAX CLI
+reads it only on its TCM branch).
 Runs on the CUDA device unless ``--platform cpu``.
 """
 
@@ -38,7 +42,6 @@ PAD = 128
 # item that brings each
 _NOT_YET = {
     "bf16": "ROADMAP queue A item 15 (bf16 throughput mode)",
-    "device_coder": "ROADMAP queue A item 12 (device coder)",
     "tile": "ROADMAP queue A item 13 (parallel: spatial tiling)",
     "shard_spatial": "ROADMAP queue A item 13 (parallel: spatial sharding)",
 }
@@ -83,12 +86,13 @@ def read_image(path) -> np.ndarray:
     return np.asarray(Image.open(path).convert("RGB"), np.float32) / 255.0
 
 
-def evaluate(codec, images, real: bool = True, log=print) -> dict:
+def evaluate(codec, images, real: bool = True, log=print, device_coder: bool = False) -> dict:
     """Evaluate ``codec`` on HWC float32 images in [0, 1], each padded to a
     multiple of 128. Returns the averages and one record per image: bpp (the
     coded size with ``real``, else the forward estimate), PSNR, MS-SSIM in
     dB, times in ms, the kernel launches of each pass and, with ``real``,
-    whether the decoder reproduced the encoder's y_hat exactly."""
+    whether the decoder reproduced the encoder's y_hat exactly. With
+    ``device_coder`` the real codec is the analytic device coder."""
     dev = codec.device
     records = []
     for img in images:
@@ -100,19 +104,21 @@ def evaluate(codec, images, real: bool = True, log=print) -> dict:
         if real:
             sync(dev)
             before, t0 = launch_counts(), time.perf_counter()
-            enc = codec.compress(xp)
+            enc = codec.compress_device_analytic(xp) if device_coder else codec.compress(xp)
             sync(dev)
             t1 = time.perf_counter()
             rec["launches_compress"] = launches_since(before)
             before = launch_counts()
-            dec = codec.decompress(enc["strings"], enc["shape"])
+            dec = (codec.decompress_device_analytic(enc) if device_coder
+                   else codec.decompress(enc["strings"], enc["shape"]))
             sync(dev)
             t2 = time.perf_counter()
             rec["launches_decompress"] = launches_since(before)
             rec.update(encode_ms=(t1 - t0) * 1e3, decode_ms=(t2 - t1) * 1e3,
                        y_hat_exact=bool(torch.equal(enc["y_hat"], dec["y_hat"])))
             x_hat = crop_nhwc(dec["x_hat"], pad)
-            nbytes = len(enc["strings"][0][0]) + sum(len(s) for s in enc["strings"][1])
+            nbytes = (enc["nbytes"] if device_coder else
+                      len(enc["strings"][0][0]) + sum(len(s) for s in enc["strings"][1]))
             rec["bpp"] = nbytes * 8.0 / (h * w)
         else:
             sync(dev)
@@ -243,6 +249,10 @@ def main(argv=None):
     for flag, item in _NOT_YET.items():
         if getattr(args, flag):
             raise NotImplementedError(f"--{flag.replace('_', '-')} is not ported yet: {item}")
+    if args.device_coder and args.model != "tcm":
+        raise NotImplementedError(
+            f"--device-coder codes TCM only, as in the JAX CLI (its other models take the host "
+            f"coder); drop it for --model {args.model}")
     device = _device(args)
     img_list = list_images(args.data)
     if not img_list:
@@ -260,7 +270,8 @@ def main(argv=None):
         load_checkpoint(codec, args.checkpoint)
     if args.real:
         codec.update()
-    evaluate(codec, (read_image(p) for p in img_list), real=args.real)
+    evaluate(codec, (read_image(p) for p in img_list), real=args.real,
+             device_coder=args.device_coder)
     return 0
 
 

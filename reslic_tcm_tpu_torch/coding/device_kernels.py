@@ -1,0 +1,194 @@
+"""The device coder's lane kernels D1-D4 (csrc/device_rans.cu), bound with ctypes.
+
+* ``encode_lanes`` (D1): table rANS encode with the packed table, each
+  lane's words written in emission order into its row;
+* ``decode_lanes`` (D2): table rANS decode of one segment with the inverse
+  and packed tables, the carry updated in place;
+* ``gaussian_encode_lanes`` (D3): the analytic coder's reverse walk from
+  sigma, the emitted words left for ``analytic_rans.compact_grouped``;
+* ``gaussian_decode_lanes`` (D4): the analytic grouped decode of one
+  segment in one CTA, the carry updated in place.
+
+They replace the JAX package's lax.scan lane loops, not Pallas kernels.
+Each wrapper takes CUDA tensors only and raises on anything else (a CPU
+tensor included: coding/device_rans.py and analytic_rans.py run the plain
+versions for those); it checks dtypes, shapes and the device, launches on
+the current stream, raises if the launch fails, and adds one to its
+``launches`` counter.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..ops import build
+
+MAX_GAUSSIAN_LANES = 8192  # D4: one CTA of 1024 threads, up to 8 lanes each
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load("device_rans")
+    if not hasattr(lib, "_argtypes_set"):
+        vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.rans_encode_lanes.argtypes = [vp, vp, vp, i, vp, vp, i, i, i, vp, vp, vp]
+        lib.rans_decode_lanes.argtypes = [vp, ll, vp, vp, vp, vp, vp, vp, i, vp, vp, i, i, vp,
+                                          vp]
+        lib.gaussian_encode_lanes.argtypes = [vp, vp, i, i, vp, vp, vp, vp]
+        lib.gaussian_decode_lanes.argtypes = [vp, vp, vp, ll, vp, i, i, vp, vp]
+        for fn in (lib.rans_encode_lanes, lib.rans_decode_lanes, lib.gaussian_encode_lanes,
+                   lib.gaussian_decode_lanes):
+            fn.restype = ctypes.c_int
+        lib._argtypes_set = True
+    return lib
+
+
+def _require_cuda(kernel: str, *tensors) -> torch.device:
+    device = tensors[0].device
+    if device.type != "cuda":
+        raise ValueError(f"the {kernel} kernel takes CUDA tensors, got one on {device}")
+    return device
+
+
+def _check(name: str, t, dtype, shape, device) -> None:
+    if t.device != device or t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype} on {device}, got {t.dtype} on {t.device}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def _steps(n: int, k: int) -> int:
+    if k <= 0 or n % k:
+        raise ValueError(f"{n} symbols do not fill lanes of {k}")
+    return n // k
+
+
+def _raise_on(rc: int, kernel: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{kernel} kernel launch failed: cudaError {rc}")
+
+
+def encode_lanes(symbols, indexes, packed, cdf_length, offset, k: int, cap: int):
+    """D1. symbols, indexes: int32 [steps * k] (padded); packed: int32 [R, L];
+    cdf_length, offset: int32 [R]. Returns (words int32 [k, cap], counts
+    int32 [k])."""
+    dev = _require_cuda("encode_lanes", symbols)
+    steps = _steps(symbols.numel(), k)
+    r, length = packed.shape
+    _check("symbols", symbols, torch.int32, (steps * k,), dev)
+    _check("indexes", indexes, torch.int32, (steps * k,), dev)
+    _check("packed", packed, torch.int32, None, dev)
+    _check("cdf_length", cdf_length, torch.int32, (r,), dev)
+    _check("offset", offset, torch.int32, (r,), dev)
+    words = torch.zeros((k, cap), dtype=torch.int32, device=dev)
+    counts = torch.empty(k, dtype=torch.int32, device=dev)
+    p = build.ptr
+    _raise_on(_lib().rans_encode_lanes(
+        p(symbols), p(indexes), p(packed), length, p(cdf_length), p(offset), steps, k, cap,
+        p(words), p(counts), build.stream(symbols)), "encode_lanes")
+    encode_lanes.launches += 1
+    return words, counts
+
+
+encode_lanes.launches = 0
+
+
+def decode_lanes(x, rp, words, base, indexes, inverse, packed, cdf_length, offset, k: int):
+    """D2. x, rp: int64 [k] carry, updated in place; words: int32 stream
+    read at base[lane] + rp (base int64 [k]); indexes: int32 [steps * k];
+    inverse: int16 [R, 65536]; packed: int32 [R, L]. Returns the symbols,
+    int32 [steps * k]."""
+    dev = _require_cuda("decode_lanes", indexes)
+    steps = _steps(indexes.numel(), k)
+    r, length = packed.shape
+    for name, t in (("x", x), ("rp", rp), ("base", base)):
+        _check(name, t, torch.int64, (k,), dev)
+    _check("words", words, torch.int32, None, dev)
+    _check("indexes", indexes, torch.int32, (steps * k,), dev)
+    _check("inverse", inverse, torch.int16, (r, 1 << 16), dev)
+    _check("packed", packed, torch.int32, None, dev)
+    _check("cdf_length", cdf_length, torch.int32, (r,), dev)
+    _check("offset", offset, torch.int32, (r,), dev)
+    if words.numel() == 0:
+        raise ValueError("words: an empty stream")
+    out = torch.empty(steps * k, dtype=torch.int32, device=dev)
+    p = build.ptr
+    _raise_on(_lib().rans_decode_lanes(
+        p(words), words.numel(), p(base), p(x), p(rp), p(indexes), p(inverse), p(packed), length,
+        p(cdf_length), p(offset), steps, k, p(out), build.stream(indexes)), "decode_lanes")
+    decode_lanes.launches += 1
+    return out
+
+
+decode_lanes.launches = 0
+
+
+def gaussian_encode_lanes(symbols, sigma, k: int):
+    """D3. symbols: int32 [steps * k], clamped to their support; sigma:
+    float32 [steps * k]. Returns (ws int32 [steps, k], need bool [steps, k],
+    x int64 [k])."""
+    dev = _require_cuda("gaussian_encode_lanes", symbols)
+    steps = _steps(symbols.numel(), k)
+    _check("symbols", symbols, torch.int32, (steps * k,), dev)
+    _check("sigma", sigma, torch.float32, (steps * k,), dev)
+    ws = torch.empty((steps, k), dtype=torch.int32, device=dev)
+    need = torch.empty((steps, k), dtype=torch.bool, device=dev)
+    x = torch.empty(k, dtype=torch.int64, device=dev)
+    p = build.ptr
+    _raise_on(_lib().gaussian_encode_lanes(
+        p(symbols), p(sigma), steps, k, p(ws), p(need), p(x), build.stream(symbols)),
+        "gaussian_encode_lanes")
+    gaussian_encode_lanes.launches += 1
+    return ws, need, x
+
+
+gaussian_encode_lanes.launches = 0
+
+
+def gaussian_decode_lanes(x, g, flat, sigma, k: int):
+    """D4. x: int64 [k] states and g: int64 [] stream pointer, updated in
+    place; flat: int32 grouped stream of at least k words; sigma: float32
+    [steps * k]. Returns the values, int32 [steps * k]."""
+    dev = _require_cuda("gaussian_decode_lanes", sigma)
+    steps = _steps(sigma.numel(), k)
+    if k > MAX_GAUSSIAN_LANES:
+        raise ValueError(f"the gaussian_decode_lanes kernel takes up to "
+                         f"{MAX_GAUSSIAN_LANES} lanes, got {k}")
+    _check("x", x, torch.int64, (k,), dev)
+    _check("g", g, torch.int64, (), dev)
+    _check("flat", flat, torch.int32, None, dev)
+    _check("sigma", sigma, torch.float32, (steps * k,), dev)
+    if flat.numel() < k:
+        raise ValueError(f"flat: {flat.numel()} words, the window reads {k}")
+    out = torch.empty(steps * k, dtype=torch.int32, device=dev)
+    p = build.ptr
+    _raise_on(_lib().gaussian_decode_lanes(
+        p(x), p(g), p(flat), flat.numel(), p(sigma), steps, k, p(out), build.stream(sigma)),
+        "gaussian_decode_lanes")
+    gaussian_decode_lanes.launches += 1
+    return out
+
+
+gaussian_decode_lanes.launches = 0
+
+WRAPPERS = (encode_lanes, decode_lanes, gaussian_encode_lanes, gaussian_decode_lanes)
+# the JAX function each kernel replaces (file:line)
+REPLACES = {
+    "encode_lanes": "reslic_tcm_tpu/coding/device_rans.py:196",
+    "decode_lanes": "reslic_tcm_tpu/coding/device_rans.py:377",
+    "gaussian_encode_lanes": "reslic_tcm_tpu/coding/analytic_rans.py:250",
+    "gaussian_decode_lanes": "reslic_tcm_tpu/coding/analytic_rans.py:335",
+}
+
+
+def launch_counts() -> dict:
+    """{wrapper name: kernel launches so far}."""
+    return {w.__name__: w.launches for w in WRAPPERS}
+
+
+def reset_launch_counts() -> None:
+    for w in WRAPPERS:
+        w.launches = 0

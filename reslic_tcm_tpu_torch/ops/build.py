@@ -4,7 +4,8 @@ Every library is one source file compiled into one shared object with a
 plain C interface, loaded with ``ctypes``:
 
 * the CUDA kernels in ``reslic_tcm_tpu_torch/csrc/*.cu``, compiled by
-  ``nvcc`` for ``sm_90a`` (Hopper);
+  ``nvcc`` for ``sm_90a`` (Hopper), without ``-use_fast_math`` (the device
+  coder's kernels must round every float32 operation as XLA does);
 * the host rANS coder ``coding/csrc/rans.cpp``, compiled by ``g++``.
 
 Nothing includes PyTorch's headers, so each build takes seconds. The
@@ -43,6 +44,7 @@ SOURCES = {
     "flash_window_attn": ("csrc/flash_window_attn.cu", "nvcc"),
     "fused_conv": ("csrc/fused_conv.cu", "nvcc"),
     "qkv_attention": ("csrc/qkv_attention.cu", "nvcc"),
+    "device_rans": ("csrc/device_rans.cu", "nvcc"),
     "rans": ("coding/csrc/rans.cpp", "g++"),
 }
 

@@ -9,7 +9,9 @@ Each kernel is held against its plain PyTorch version on the same CUDA
 tensors, with TF32 off, at every width of TCM N=64/96/128/192 and WACNN
 N=128/192, at shapes of their main paths and at ragged ones.
 Tolerance 1e-4 * max(1, max |plain|): the kernels sum in another fixed
-order than cuDNN/cuBLAS, over up to 9*384 = 3456 terms per output.
+order than cuDNN/cuBLAS, over up to 9*384 = 3456 terms per output. The
+device coder's lane kernels D1-D4 (csrc/device_rans.cu) must equal their
+plain versions bit for bit.
 """
 
 from __future__ import annotations
@@ -22,8 +24,9 @@ import pytest
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-from torch_port_inputs import (attn_inputs, conv_inputs, err_ok, oihw,  # noqa: E402
-                               port_attn_args, qkv_inputs)
+from torch_port_inputs import (attn_inputs, coder_symbols, coder_tables,  # noqa: E402
+                               conv_inputs, err_ok, gaussian_inputs, oihw, port_attn_args,
+                               qkv_inputs)
 
 from reslic_tcm_tpu_torch.ops import flash_window_attn as PF  # noqa: E402
 from reslic_tcm_tpu_torch.ops import fused_conv as PC  # noqa: E402
@@ -679,3 +682,148 @@ def test_train_step_pins_fp32_under_a_callers_tf32(cuda):
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
     _assert_steps_agree(got, want)
+
+
+# ------------------------------ device coder ------------------------------
+
+
+def _coder_plain_and_card(cuda, *arrays):
+    return ([torch.from_numpy(np.ascontiguousarray(a)) for a in arrays],
+            [torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in arrays])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,steps", [(8, 40), (100, 12), (1024, 6)])
+def test_table_lane_kernels_match_plain_on_card(cuda, k, steps):
+    """D1 and D2 (kernels) against the plain versions: words and counts, then
+    the symbols and carries of three chained segments, from per-lane rows
+    and from the flat compaction; escapes forced."""
+    from reslic_tcm_tpu_torch.coding import analytic_rans as ar
+    from reslic_tcm_tpu_torch.coding import device_kernels as dk
+    from reslic_tcm_tpu_torch.coding import device_rans as dr
+
+    tables = coder_tables(40)
+    sym, idx = coder_symbols(41, k * steps, tables[0].shape[0])
+    tc, tg = dr.lane_tables(*tables, "cpu"), dr.lane_tables(*tables, cuda)
+    (sym_c, idx_c), (sym_g, idx_g) = _coder_plain_and_card(cuda, sym, idx)
+    cap = steps * 3 + 2
+    before = dk.launch_counts()
+    words, counts = dk.encode_lanes(sym_g, idx_g, tg.packed, tg.cdf_length, tg.offset, k, cap)
+    want_w, want_c = dr.plain_encode_lanes(sym_c, idx_c, tc.cdf, tc.cdf_length, tc.offset, k,
+                                           cap, tc.packed)
+    assert torch.equal(words.cpu(), want_w) and torch.equal(counts.cpu(), want_c)
+    small = max(3, steps // 2)
+    w_small, c_small = dk.encode_lanes(sym_g, idx_g, tg.packed, tg.cdf_length, tg.offset, k,
+                                       small)
+    assert torch.equal(w_small.cpu(), want_w[:, :small]) and torch.equal(c_small.cpu(), want_c)
+    flat, _ = ar.compact_stream(want_w, want_c, int(want_c.sum()))
+    for stream, offsets in ((want_w, None), (flat, ar.lane_offsets(want_c))):
+        carry_c = dr.decoder_init(stream, want_c, offsets)
+        carry_g = tuple(t.to(cuda) for t in carry_c)
+        stream_g = stream.to(cuda)
+        offsets_g = None if offsets is None else offsets.to(cuda)
+        for part in np.array_split(np.arange(k * steps).reshape(steps, k), 3):
+            part = part.reshape(-1)
+            carry_g, got = dr.decode_segment(carry_g, stream_g, idx_g[part], tg.cdf,
+                                             tg.cdf_length, tg.offset, k, inverse=tg.inverse,
+                                             packed=tg.packed, lane_offsets=offsets_g)
+            carry_c, want = dr.decode_segment(carry_c, stream, idx_c[part], tc.cdf,
+                                              tc.cdf_length, tc.offset, k, inverse=tc.inverse,
+                                              packed=tc.packed, lane_offsets=offsets)
+            assert torch.equal(got.cpu(), want) and torch.equal(want, sym_c[part])
+            assert all(torch.equal(a.cpu(), b) for a, b in zip(carry_g, carry_c))
+    after = dk.launch_counts()
+    assert after["encode_lanes"] == before["encode_lanes"] + 2
+    assert after["decode_lanes"] == before["decode_lanes"] + 6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,steps", [(8, 40), (96, 12), (1024, 8), (2048, 3), (4096, 4),
+                                     (8192, 2)])
+def test_gaussian_lane_kernels_match_plain_on_card(cuda, k, steps):
+    """D3 and D4 (kernels) against the plain versions on sigma over [0.05,
+    300]: the lanes' words, flags and final states, then the values and
+    carries of two chained segments, which are the symbols."""
+    from reslic_tcm_tpu_torch.coding import analytic_rans as ar
+    from reslic_tcm_tpu_torch.coding import device_kernels as dk
+
+    sigma, sym = gaussian_inputs(42, k * steps)
+    sym = np.clip(sym, -ar.support(torch.from_numpy(sigma)).numpy(),
+                  ar.support(torch.from_numpy(sigma)).numpy())
+    (sig_c, sym_c), (sig_g, sym_g) = _coder_plain_and_card(cuda, sigma, sym)
+    got = ar.encode_gaussian_lanes(sym_g, sig_g, k)
+    want = ar.encode_gaussian_lanes(sym_c, sig_c, k)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+    header, flat, _, _ = ar.compact_grouped(*want, k * steps)
+    flat = torch.cat([flat, flat.new_zeros(k)])
+    carry_c = ar.decode_gaussian_grouped_init(header)
+    carry_g = tuple(t.to(cuda) for t in carry_c)
+    before = dk.launch_counts()["gaussian_decode_lanes"]
+    for part in np.array_split(np.arange(steps), 2):
+        sl = slice(int(part[0]) * k, (int(part[-1]) + 1) * k)
+        carry_g, vals_g = ar.decode_gaussian_grouped_segment(carry_g, flat.to(cuda), sig_g[sl], k)
+        carry_c, vals_c = ar.decode_gaussian_grouped_segment(carry_c, flat, sig_c[sl], k)
+        assert torch.equal(vals_g.cpu(), vals_c) and torch.equal(vals_c, sym_c[sl])
+        assert torch.equal(carry_g[0].cpu(), carry_c[0]) and int(carry_g[1]) == int(carry_c[1])
+    assert dk.launch_counts()["gaussian_decode_lanes"] == before + 2
+
+
+@pytest.mark.cuda
+def test_erf_on_card_is_the_plain_erf(cuda):
+    """The plain erf (XLA's) on CUDA tensors gives the CPU's bits: the float64
+    emulation of the fused multiply-add does not depend on the device."""
+    from reslic_tcm_tpu_torch.coding import analytic_rans as ar
+
+    x = np.random.default_rng(43).uniform(-6, 6, 200_000).astype(np.float32)
+    assert torch.equal(ar.erf(torch.from_numpy(x).to(cuda)).cpu(), ar.erf(torch.from_numpy(x)))
+
+
+@pytest.mark.cuda
+def test_coder_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    from reslic_tcm_tpu_torch.coding import device_kernels as dk
+
+    k = 64
+    sig = torch.ones(k, device=cuda)
+    sym = torch.zeros(k, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        dk.gaussian_encode_lanes(sym, sig.double(), k)
+    with pytest.raises(ValueError, match="do not fill"):
+        dk.gaussian_encode_lanes(sym, sig, 48)
+    x = torch.zeros(16384, dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError, match="up to"):
+        dk.gaussian_decode_lanes(x, torch.zeros((), dtype=torch.int64, device=cuda),
+                                 sym.repeat(256), sig.repeat(256), 16384)
+
+
+@pytest.mark.cuda
+def test_tcm_s_device_coder_on_card(cuda):
+    """TCM-S (committed weights) at 256x256 through both device profiles on
+    the card: exact y_hat; the table path's x_hat equals the host codec's
+    decode within 1e-5; B1-B3 launch as in compress and decompress, and
+    every coder kernel launches."""
+    from reslic_tcm_tpu_torch.coding import device_kernels as dk
+    from reslic_tcm_tpu_torch.data.synthetic import synth_image
+    from reslic_tcm_tpu_torch.models.tcm import make_tcm
+    from reslic_tcm_tpu_torch.ops.launches import launch_counts, launches_since
+    from reslic_tcm_tpu_torch.utils.torch_convert import load_snapshot_into
+
+    codec = make_tcm(N=64, M=320, device=cuda)
+    load_snapshot_into(codec.module, SNAPSHOT)
+    codec.update()
+    x = synth_image(np.random.default_rng(8), 256, 256)[None]
+    before = launch_counts()
+    host = codec.compress(x)
+    host_dec = codec.decompress(host["strings"], host["shape"])
+    host_launches = launches_since(before)
+    dk.reset_launch_counts()
+    before = launch_counts()
+    enc = codec.compress_device(x)
+    dec = codec.decompress_device(enc)
+    assert launches_since(before) == host_launches
+    assert host_launches["flash_window_block"] > 0 and host_launches["fused_conv_gdn"] > 0
+    assert torch.equal(dec["y_hat"], enc["y_hat"])
+    err_ok(dec["x_hat"].cpu(), host_dec["x_hat"].cpu(), 1e-5)
+    enc = codec.compress_device_analytic(x)
+    dec = codec.decompress_device_analytic(enc)
+    assert torch.equal(dec["y_hat"], enc["y_hat"])
+    assert all(n > 0 for n in dk.launch_counts().values()), dk.launch_counts()

@@ -69,3 +69,39 @@ def conv_inputs(seed, b, h, w, c):
 
 def oihw(w_hwio):
     return torch.from_numpy(np.ascontiguousarray(w_hwio.transpose(3, 2, 0, 1)))
+
+
+def coder_tables(seed, r=6, width=20):
+    """(cdf, cdf_length, offset) int32: r CDF rows of 5..width bins, each
+    bin at least 1 of 2^16, offsets in [-8, -1]."""
+    rng = np.random.default_rng(seed)
+    cdf = np.zeros((r, width), np.int32)
+    length = np.zeros(r, np.int32)
+    for i in range(r):
+        n = int(rng.integers(5, width + 1))
+        pmf = rng.uniform(0.1, 1.0, n - 1)
+        edges = np.concatenate([[0], np.cumsum(np.maximum(1, np.round(
+            pmf / pmf.sum() * (65536 - n))))]).astype(np.int64)
+        edges[-1] = 65536
+        cdf[i, :n] = np.minimum.accumulate(edges[::-1])[::-1]
+        length[i] = n
+    return cdf, length, rng.integers(-8, 0, r).astype(np.int32)
+
+
+def coder_symbols(seed, n, r):
+    """(symbols, indexes) int32 for ``coder_tables``' rows: small values,
+    every 29th an escape (the int32 extremes among them)."""
+    rng = np.random.default_rng(seed)
+    sym = rng.integers(-12, 14, n).astype(np.int32)
+    sym[::29] = rng.integers(-2 ** 31, 2 ** 31 - 1, len(sym[::29]))
+    sym[5 % n] = np.iinfo(np.int32).min
+    sym[6 % n] = np.iinfo(np.int32).max
+    return sym, rng.integers(0, r, n).astype(np.int32)
+
+
+def gaussian_inputs(seed, n):
+    """(sigma float32, symbols int32) of n Gaussian symbols, sigma
+    log-uniform over [0.05, 300], before clamping to the coder's support."""
+    rng = np.random.default_rng(seed)
+    sigma = np.exp(rng.uniform(np.log(0.05), np.log(300.0), n)).astype(np.float32)
+    return sigma, np.round(rng.normal(0.0, 1.3, n) * sigma).astype(np.int32)
