@@ -125,16 +125,20 @@ Drives reslic_tcm_tpu_torch only (no JAX, no PIL), in these phases:
    0 of 5d at the serving path's k=4096 (D1 and D2 its z stream at its kz,
    compacted; D3 the y stream, D4 its five segments), each with its time
    (CUDA events) beside the plain version's and its bound (the bytes and
-   float32 operations these inputs need); then the two images of the slices through
-   compress_device / decompress_device and the analytic pair (exact y_hat,
-   the table path's x_hat within 1e-5 of the host codec's decode, the
-   clamped symbols, encode and decode ms as the median of 3, real bpp
-   beside the host codec's and the estimate, B1-B3 launched as by
-   compress and decompress), the coder kernels' launches on that path;
+   float32 operations these inputs need); at both shapes D3 and D4 at
+   every cluster size (CTAs in the cluster) on the same inputs, each
+   equal to the plain version bit for bit, with its device time over 10
+   interleaved rounds (`split` lines, as phase 3's); then the two images
+   of the slices through compress_device / decompress_device and the
+   analytic pair (exact y_hat, the table path's x_hat within 1e-5 of the
+   host codec's decode, the clamped symbols, encode and decode ms as the
+   median of 3, real bpp beside the host codec's and the estimate, B1-B3
+   launched as by compress and decompress), the coder kernels' launches
+   on that path;
    then serve_roundtrip_metrics and serve_roundtrip_pipelined over 5d's
    batches at k=4096 beside the serial host path (MP/s, median of 3; the
    last timed run of each decodes every batch's y_hat exactly) and the
-   profile of one run of each.
+   profile of one run of each, with D3's and D4's device time in it.
 6. Profile: torch.profiler over one warm forward, compress and decompress
    of each slice at 768x512 (scale_gain_sc aside), over one step of each
    train slice and over one run of the serial and each pipelined variant
@@ -300,7 +304,8 @@ def phase_build():
     t0 = time.perf_counter()
     report = build.build()
     log(f"build: {time.perf_counter() - t0:.1f} s for {', '.join(report)} "
-        f"(route: nvcc/g++ -> .so -> ctypes) into {build.BUILD_DIR}")
+        f"(route: nvcc/g++ -> .so -> ctypes) into {build.BUILD_DIR}; each compile "
+        + ", ".join(f"{name} {rec['seconds']:.1f} s" for name, rec in report.items()))
     for name, rec in report.items():
         for line in rec["log"].splitlines():
             if "entry function" in line or "registers" in line or "spill" in line:
@@ -1493,8 +1498,8 @@ CODER_SOURCE = "reslic_tcm_tpu_torch/csrc/device_rans.cu"
 # Phi: 2 more; a symbol's parameters: 2 Phi and 8 more; a boundary: Phi and 5
 # more). D3 needs a symbol's parameters and its 2 boundaries; D4 its
 # parameters and the boundaries that a search over its nb bins needs,
-# ceil(log2 nb) + 1 (the kernel's fixed 11-step search does more). D1 and D2
-# do integer work only, so their bound is their bytes.
+# ceil(log2 nb) + 1. D1 and D2 do integer work only, so their bound is their
+# bytes.
 _PHI_OPS = 26
 _PARAM_OPS = 2 * _PHI_OPS + 8
 _BOUNDARY_OPS = _PHI_OPS + 5
@@ -1587,6 +1592,59 @@ def _search_ops(torch, sigma) -> int:
     return sigma.numel() * _PARAM_OPS + evals * _BOUNDARY_OPS
 
 
+CODER_SYMBOLS = {"gaussian_encode_lanes": "gaussian_encode_kernel",
+                 "gaussian_decode_lanes": "gaussian_decode_kernel"}
+
+
+def _coder_splits(torch, name, label, calls, want, chosen, per_call):
+    """Each instance of a coder kernel on the same inputs (D4: every
+    cluster size; D3: its one configuration), ``calls`` keyed by its
+    template arguments (() for none): each call's output and carry must
+    equal ``want``, the plain version's, bit for bit. Prints a ``split``
+    line: each one's time per call (CUDA events, the wrapper's host work
+    included) and its device time (profiler) over SPLIT_ROUNDS interleaved
+    rounds, each round calling every one in turn, forward and backward.
+    Each instance is a kernel of its own name, so its launches are told
+    apart by name: a record the profiler drops leaves one launch fewer
+    (``launches_seen``), and a call's device time is the mean launch times
+    ``per_call``, the launches a call makes. Returns ``chosen``'s (the
+    wrapper's choice), or None where the profiler recorded none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    names = list(calls)
+    equal, call_ms = {}, {}
+    for n in names:
+        got = calls[n]()
+        torch.cuda.synchronize()
+        equal[n] = _equal(torch, got, want)
+        call_ms[n] = _time_ms(torch, calls[n], 3)
+    symbols = {n: CODER_SYMBOLS[name] + (f"<{', '.join(map(str, n))}>" if n else "(")
+               for n in names}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for r in range(SPLIT_ROUNDS):
+            for n in (names if r % 2 == 0 else names[::-1]):
+                calls[n]()
+        torch.cuda.synchronize()
+    runs = {n: [] for n in names}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            for n in names:
+                if symbols[n] in e.name:
+                    runs[n].append(e.time_range.elapsed_us() / 1e3)
+    per_call_ms = {n: float(np.mean(v)) * per_call if v else None for n, v in runs.items()}
+    log("split " + json.dumps({
+        "kernel": name, "case": label, "splits": [list(n) for n in names],
+        "equal": all(equal.values()), "call_ms": [call_ms[n] for n in names],
+        "device_ms_per_call": [per_call_ms[n] for n in names],
+        "launches_seen": [len(runs[n]) for n in names],
+        "launches": SPLIT_ROUNDS * per_call, "chosen": list(chosen)}))
+    bad = [n for n in names if not equal[n]]
+    if bad:
+        raise AssertionError(f"{name} {label}: {bad} differ from the plain version")
+    return per_call_ms[chosen]
+
+
 def _coder_kernel_checks(torch, codec, x1, x8, on_card):
     """D1-D4 against their plain versions on one image's real slice inputs
     (k=1024: the y and z streams, the five y segments chained) and on a
@@ -1610,9 +1668,11 @@ def _coder_kernel_checks(torch, codec, x1, x8, on_card):
 
     def add(name, case, launches):
         rec = per.setdefault(name, {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "t_ops": 0.0,
-                                    "t_bytes": 0.0, "launches_per_image": 0})
+                                    "t_bytes": 0.0, "launches_per_image": 0, "device_ms": None})
         for key in ("ms", "plain_ms", "bound_ms"):
             rec[key] += case.get(key, 0.0)
+        if case.get("device_ms") is not None:
+            rec["device_ms"] = (rec["device_ms"] or 0.0) + case["device_ms"]
         rec["launches_per_image"] += launches
         if "bound_by" in case:
             t = case["bound_ms"]
@@ -1678,24 +1738,34 @@ def _coder_kernel_checks(torch, codec, x1, x8, on_card):
     decode_case(f"z batch {len(x8)} k={kz8}, compacted", z_flat, z_counts, z_rows8, zt, kz8, 1,
                 a8["z"], ar.lane_offsets(z_counts))
 
-    # D3 and D4: one image at k=1024 and the batch of 8 at k=4096
+    # D3 and D4: one image at k=1024 and the batch of 8 at k=4096, then D3's
+    # device time and D4 at every cluster size on the same inputs
     for a_in, k, label in ((codec.device_coder_inputs(x1, analytic=True), DC_K, "batch 1"),
                            (a8, SERVE_K, f"batch {len(x8)}")):
         sym, sigma, n_all = a_in["y"], a_in["sigma"], a_in["y"].numel()
         n_seg = n_all // a_in["slice_symbols"]
+
+        def encode():
+            return dk.gaussian_encode_lanes(sym, sigma, k)
+
         case, lanes = _coder_case(
-            torch, "gaussian_encode_lanes", f"{label} k={k}",
-            lambda: dk.gaussian_encode_lanes(sym, sigma, k),
+            torch, "gaussian_encode_lanes", f"{label} k={k}", encode,
             lambda: ar.plain_encode_gaussian_lanes(sym, sigma, k),
             on_card, n_all * 13 + k * 8, n_all * (_PARAM_OPS + 2 * _BOUNDARY_OPS), 5)
+        if on_card:
+            case["device_ms"] = _coder_splits(
+                torch, "gaussian_encode_lanes", f"{label} k={k}",
+                {(): encode}, lanes, (), 1)
         header, flat, total, _ = ar.compact_grouped(*lanes, n_all)
         flat = torch.cat([flat, flat.new_zeros(k)])
         seg = a_in["slice_symbols"]
         carry0 = ar.decode_gaussian_grouped_init(header)
 
-        def kern():
+        def kern(cluster=None):
             x_, g = carry0[0].clone(), carry0[1].clone()
             out = [dk.gaussian_decode_lanes(x_, g, flat, sigma[i * seg:(i + 1) * seg], k)
+                   if cluster is None else
+                   dk.decode_on_cluster(x_, g, flat, sigma[i * seg:(i + 1) * seg], k, cluster)
                    for i in range(n_seg)]
             return torch.cat(out), x_, g
 
@@ -1716,6 +1786,11 @@ def _coder_kernel_checks(torch, codec, x1, x8, on_card):
                                  _search_ops(torch, sigma[:n_dec]), 3)
         if not torch.equal(got[0], sym[:n_dec]):
             raise AssertionError(f"gaussian_decode_lanes {label}: decoded other symbols")
+        if on_card:
+            dcase["device_ms"] = _coder_splits(
+                torch, "gaussian_decode_lanes", f"{label} k={k}, {n_seg} segments",
+                {(c,): (lambda c=c: kern(c)) for c in dk.decode_clusters(k)}, got,
+                (dk.decode_cluster(k),), n_seg)
         if k == DC_K:
             add("gaussian_encode_lanes", case, 1)
             add("gaussian_decode_lanes", dcase, n_seg)
@@ -1855,7 +1930,7 @@ def phase_device_coder(torch, device, hw, batches, repeats=DC_REPEATS):
     if on_card:
         for name, (fn, _) in variants.items():
             _profile_window(torch, f"device coder {name} ({len(batches)} x {b} x "
-                            f"{hw[0]}x{hw[1]})", fn)
+                            f"{hw[0]}x{hw[1]})", fn, watch=tuple(CODER_SYMBOLS.values()))
     return codec, path_launches, coder_launches, per_kernel
 
 
@@ -2138,9 +2213,10 @@ def phase_profile(torch, codecs: dict):
             _profile_window(torch, f"{slice_name} {pass_name}", fn)
 
 
-def _profile_window(torch, label: str, fn) -> None:
+def _profile_window(torch, label: str, fn, watch=()) -> None:
     """torch.profiler over one call of fn: the window (host clock, ending in
-    a synchronise), the device's busy time and idle share, the top kernels."""
+    a synchronise), the device's busy time and idle share, the top kernels,
+    and the device time and launches of each kernel named in ``watch``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2160,6 +2236,10 @@ def _profile_window(torch, label: str, fn) -> None:
         f"{1 - busy / wall:.3f}, {len(kernels)} kernel names")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x  {e.key[:90]}")
+    for symbol in watch:
+        hits = [e for e in kernels if symbol in e.key]
+        log(f"  {symbol}: {sum(e.self_device_time_total for e in hits) / 1e3:.3f} ms device, "
+            f"{sum(e.count for e in hits)} launches")
 
 
 # --------------------------------- main ---------------------------------
@@ -2286,6 +2366,7 @@ def main() -> int:
         coder_kernels.append({
             "name": kernel, "route": "cuda", "source": CODER_SOURCE, "replaces": REPLACES[kernel],
             "launches": coder_launches[kernel], "max_abs_err": 0.0, "ms": rec["ms"],
+            "device_ms": rec["device_ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["t_ops"] + rec["t_bytes"],
             "bound_by": "operations" if rec["t_ops"] > rec["t_bytes"] else "bytes",
             "library_ms": None, "launches_per_image": rec["launches_per_image"]})
@@ -2293,7 +2374,8 @@ def main() -> int:
         "device-coder path's runs (two images, both profiles, each run "
         f"{DC_REPEATS} times); ms, plain_ms and bound_ms: one 768x512 image's launches "
         "(D1: its y and z encode, D2: its z and five y segments, D3: one, D4: five y "
-        "segments); max_abs_err 0: the kernels equal their plain versions bit for bit; "
+        "segments); device_ms: the profiler's time of D3 and of D4 at its wrapper's cluster "
+        "(null: not measured); max_abs_err 0: the kernels equal their plain versions bit for bit; "
         "library_ms null: no PyTorch call codes rANS")
     log("coder_kernels " + json.dumps({"coder_kernels": coder_kernels}))
     log(f"card: {smi}")

@@ -6,8 +6,12 @@
   and packed tables, the carry updated in place;
 * ``gaussian_encode_lanes`` (D3): the analytic coder's reverse walk from
   sigma, the emitted words left for ``analytic_rans.compact_grouped``;
+  producer warps compute each symbol's (start, freq) into a ring of tiles
+  and a walker warp runs the lanes' state chain over them; it raises where
+  a symbol lies in a bin of width zero, as the plain version does;
 * ``gaussian_decode_lanes`` (D4): the analytic grouped decode of one
-  segment in one CTA, the carry updated in place.
+  segment, the carry updated in place, its lanes spread over a cluster of
+  ``decode_cluster(k)`` CTAs, a thread a lane.
 
 They replace the JAX package's lax.scan lane loops, not Pallas kernels.
 Each wrapper takes CUDA tensors only and raises on anything else (a CPU
@@ -25,7 +29,23 @@ import torch
 
 from ..ops import build
 
-MAX_GAUSSIAN_LANES = 8192  # D4: one CTA of 1024 threads, up to 8 lanes each
+MAX_GAUSSIAN_LANES = 8192  # D4: a cluster of 16 CTAs of up to 512 lanes
+MAX_THREADS = 1024
+# D4's cluster sizes (csrc/device_rans.cu's DECODE_INSTANCES)
+DECODE_CLUSTERS = (1, 2, 4, 8, 16)
+
+
+def decode_clusters(k: int) -> list:
+    """D4's cluster sizes K that fit k lanes: K <= k, and a CTA of
+    ceil(k / K) lanes, a thread a lane, within 1024 threads."""
+    return [c for c in DECODE_CLUSTERS if c <= k and -(-k // c) <= MAX_THREADS]
+
+
+def decode_cluster(k: int) -> int:
+    """D4's cluster size at k lanes: the largest that fits (0 where none
+    does). On an H100 (PERF.md §6) 16 CTAs were the fastest at k=4096 and
+    within 1% of the fastest at k=1024; the result does not depend on it."""
+    return max(decode_clusters(k), default=0)
 
 
 def _lib() -> ctypes.CDLL:
@@ -35,8 +55,8 @@ def _lib() -> ctypes.CDLL:
         lib.rans_encode_lanes.argtypes = [vp, vp, vp, i, vp, vp, i, i, i, vp, vp, vp]
         lib.rans_decode_lanes.argtypes = [vp, ll, vp, vp, vp, vp, vp, vp, i, vp, vp, i, i, vp,
                                           vp]
-        lib.gaussian_encode_lanes.argtypes = [vp, vp, i, i, vp, vp, vp, vp]
-        lib.gaussian_decode_lanes.argtypes = [vp, vp, vp, ll, vp, i, i, vp, vp]
+        lib.gaussian_encode_lanes.argtypes = [vp, vp, i, i, vp, vp, vp, vp, vp]
+        lib.gaussian_decode_lanes.argtypes = [vp, vp, vp, ll, vp, i, i, i, vp, vp]
         for fn in (lib.rans_encode_lanes, lib.rans_decode_lanes, lib.gaussian_encode_lanes,
                    lib.gaussian_decode_lanes):
             fn.restype = ctypes.c_int
@@ -128,8 +148,10 @@ decode_lanes.launches = 0
 
 def gaussian_encode_lanes(symbols, sigma, k: int):
     """D3. symbols: int32 [steps * k], clamped to their support; sigma:
-    float32 [steps * k]. Returns (ws int32 [steps, k], need bool [steps, k],
-    x int64 [k])."""
+    float32 [steps * k]. Returns (ws int32 [steps, k], need bool [steps,
+    k], x int64 [k]). Raises where a symbol lies in a bin of width zero
+    (freq 0), which the analytic scheme cannot code, as the plain version
+    does (it waits for the kernel to read that flag)."""
     dev = _require_cuda("gaussian_encode_lanes", symbols)
     steps = _steps(symbols.numel(), k)
     _check("symbols", symbols, torch.int32, (steps * k,), dev)
@@ -137,11 +159,15 @@ def gaussian_encode_lanes(symbols, sigma, k: int):
     ws = torch.empty((steps, k), dtype=torch.int32, device=dev)
     need = torch.empty((steps, k), dtype=torch.bool, device=dev)
     x = torch.empty(k, dtype=torch.int64, device=dev)
+    zero_freq = torch.zeros(1, dtype=torch.int32, device=dev)
     p = build.ptr
     _raise_on(_lib().gaussian_encode_lanes(
-        p(symbols), p(sigma), steps, k, p(ws), p(need), p(x), build.stream(symbols)),
-        "gaussian_encode_lanes")
+        p(symbols), p(sigma), steps, k, p(ws), p(need), p(x), p(zero_freq),
+        build.stream(symbols)), "gaussian_encode_lanes")
     gaussian_encode_lanes.launches += 1
+    if int(zero_freq):
+        raise RuntimeError("ZeroDivisionError: a symbol lies in an analytic bin of width zero "
+                           "(freq 0), which the scheme cannot code")
     return ws, need, x
 
 
@@ -152,11 +178,24 @@ def gaussian_decode_lanes(x, g, flat, sigma, k: int):
     """D4. x: int64 [k] states and g: int64 [] stream pointer, updated in
     place; flat: int32 grouped stream of at least k words; sigma: float32
     [steps * k]. Returns the values, int32 [steps * k]."""
+    out = decode_on_cluster(x, g, flat, sigma, k, decode_cluster(k))
+    gaussian_decode_lanes.launches += 1
+    return out
+
+
+def decode_on_cluster(x, g, flat, sigma, k: int, cluster: int):
+    """``gaussian_decode_lanes`` on a cluster of ``cluster`` CTAs (one of
+    ``decode_clusters(k)``), without counting the launch: the same bits at
+    every size, which the card tests and chip_smoke.py's timings of each
+    size use."""
     dev = _require_cuda("gaussian_decode_lanes", sigma)
     steps = _steps(sigma.numel(), k)
     if k > MAX_GAUSSIAN_LANES:
         raise ValueError(f"the gaussian_decode_lanes kernel takes up to "
                          f"{MAX_GAUSSIAN_LANES} lanes, got {k}")
+    if cluster not in decode_clusters(k):
+        raise ValueError(f"the gaussian_decode_lanes kernel has no cluster of {cluster} CTAs "
+                         f"at k={k}; it has {decode_clusters(k)}")
     _check("x", x, torch.int64, (k,), dev)
     _check("g", g, torch.int64, (), dev)
     _check("flat", flat, torch.int32, None, dev)
@@ -166,9 +205,9 @@ def gaussian_decode_lanes(x, g, flat, sigma, k: int):
     out = torch.empty(steps * k, dtype=torch.int32, device=dev)
     p = build.ptr
     _raise_on(_lib().gaussian_decode_lanes(
-        p(x), p(g), p(flat), flat.numel(), p(sigma), steps, k, p(out), build.stream(sigma)),
+        p(x), p(g), p(flat), flat.numel(), p(sigma), steps, k, cluster, p(out),
+        build.stream(sigma)),
         "gaussian_decode_lanes")
-    gaussian_decode_lanes.launches += 1
     return out
 
 

@@ -13,20 +13,41 @@
 //
 // What bounds them on this card: neither bytes nor operations. A lane is a
 // chain of dependent state updates, one per step (480 steps for a 768x512
-// TCM-S image at k=1024), and only k lanes run at once, so a launch fills a
-// few SMs at most and its time is the chain's latency. The designs keep the
-// chain short: one thread walks a lane with its state in a register, D1
-// writes its words straight into its row (no compaction pass), and the
-// analytic kernels compute their CDF boundaries from sigma in registers (no
-// table gathers). Exact integer / and % replace JAX's float-estimate
-// quotient with its two corrections, which gives the same quotient.
+// TCM-S image at k=1024), and only k lanes run at once, so a launch's time
+// is the chain's latency. D1 and D2 keep the chain short: one thread walks
+// a lane with its state in a register, and D1 writes its words straight
+// into its row (no compaction pass). The analytic kernels compute their CDF
+// boundaries from sigma (no table gathers), an erf each, and take that work
+// off the chain where it does not depend on the state:
+//
+//   D3 splits a CTA into producer warps, which compute each symbol's
+//   (start, freq) for tiles of steps x lanes into a ring in shared memory,
+//   and one walker warp, which runs the integer chain over the tiles (a
+//   thread per lane); named barriers hand the tiles over. Small CTAs of 8
+//   lanes spread the producers' erf work over the card.
+//
+//   D4 reads one grouped stream in lane order, so its lanes share a word
+//   pointer: the lanes are spread over a thread-block cluster of K CTAs,
+//   which exchange their per-step counts of renormalising lanes through
+//   distributed shared memory behind one cluster barrier a step. A thread
+//   serves each lane and searches its bin in halvings that stop when the
+//   bin is found; the next step's parameters are computed while the barrier
+//   waits.
+//
+// Exact integer / and % replace JAX's float-estimate quotient with its two
+// corrections, which gives the same quotient.
 //
 // Bits: the analytic boundaries must equal XLA's float32 arithmetic bit for
 // bit, erf included (xla_erf: clamp, then x * alpha(x^2) / beta(x^2), each
 // Horner step one fused multiply-add). Every step is written with a
 // rounding intrinsic (__fmaf_rn for the Horner steps, __fmul_rn, __fadd_rn,
 // __fsub_rn and __fdiv_rn for the rest) so that nvcc's default --fmad=true
-// contracts nothing; the build must not use -use_fast_math.
+// contracts nothing; the build must not use -use_fast_math. D4's search
+// order differs from JAX's 11 halvings and finds the same bin, the last s
+// with B(s) <= cf, because B is non-decreasing in s: B(s) = raw(s) + s,
+// and float32 Phi's rounding can lower raw by at most one from one bin to
+// the next (then B(s + 1) == B(s), a bin of width zero).
+// tests/test_torch_port_analytic_search.py checks both on the CPU.
 //
 // Tensors (all from the wrapper, coding/device_kernels.py): symbols,
 // indexes, words and counts int32 (a word is a value in [0, 2^16)); CDF
@@ -37,8 +58,11 @@
 // Interface: plain C, raw pointers, the launch stream; each function returns
 // cudaGetLastError() of its launch (0 on success).
 
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -46,7 +70,6 @@ constexpr uint32_t kRansL = 1u << 16;
 constexpr uint32_t kMask16 = 0xFFFFu;
 constexpr int kTotal = 1 << 16;
 constexpr int kCmax = 511;
-constexpr int kSearchIters = 11;
 constexpr int kMaxThreads = 1024;
 
 // ------------------------------ D1: encode ------------------------------
@@ -194,9 +217,9 @@ __device__ __forceinline__ Params coder_params(float sigma) {
   q.nb = 2 * q.c + 1;
   q.coff = __fadd_rn(static_cast<float>(q.c), 0.5f);
   q.inv_sigma = __fdiv_rn(1.0f, sigma);
+  q.a = static_cast<float>(kTotal - q.nb);
   q.g0 = phi(__fmul_rn(-q.coff, q.inv_sigma));
   const float g1 = phi(__fmul_rn(q.coff, q.inv_sigma));
-  q.a = static_cast<float>(kTotal - q.nb);
   q.scale_inv = __fdiv_rn(q.a, __fsub_rn(g1, q.g0));
   return q;
 }
@@ -213,130 +236,240 @@ __device__ __forceinline__ uint32_t boundary(int s, const Params& q) {
 
 // ------------------------- D3: analytic encode -------------------------
 
-// One thread per lane: for each step in reverse, the symbol's (start, freq)
-// from its sigma, then the state update. ws[t][lane] is the low word of the
-// state before step t and need[t][lane] whether it was emitted; the wrapper
-// compacts the emitted words into decode-read order.
-__global__ void gaussian_encode_kernel(const int* __restrict__ symbols,
-                                       const float* __restrict__ sigma, int steps, int k,
-                                       int* __restrict__ ws, unsigned char* __restrict__ need,
-                                       long long* __restrict__ x_out) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= k) return;
-  uint32_t x = kRansL;
-  for (int s = steps - 1; s >= 0; --s) {
-    const long long p = static_cast<long long>(s) * k + lane;
-    const Params q = coder_params(sigma[p]);
-    const int bin = symbols[p] + q.c;
-    const uint32_t start = boundary(bin, q);
-    const uint32_t freq = boundary(bin + 1, q) - start;
-    const bool emit = x >= (freq << 16);
-    ws[p] = static_cast<int>(x & kMask16);
-    need[p] = emit;
-    if (emit) x >>= 16;
-    x = ((x / freq) << 16) | ((x % freq) + start);
+// A CTA of D3 codes kLanes lanes in tiles of kDepth steps, filled by
+// kProducers producer warps: the fastest configuration measured on an H100
+// at k=1024 and k=4096 (PERF.md section 6). kRing tiles are in flight
+// between the producers and the walker.
+constexpr int kLanes = 8;
+constexpr int kDepth = 32;
+constexpr int kProducers = 8;
+constexpr int kRing = 4;
+constexpr int kEncodeThreads = (kProducers + 1) * 32;
+
+// Named barriers (id 0 is __syncthreads'): tile slot r is full behind
+// barrier 1 + r and empty behind barrier 1 + kRing + r.
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("barrier.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("barrier.arrive %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// A CTA codes kLanes lanes (lanes blockIdx.x * kLanes on). Warps 0 ..
+// kProducers - 1 compute each symbol's (start, freq) from sigma and the
+// symbol, tile by tile (kDepth steps of the CTA's lanes, the steps in
+// reverse as the walk goes), into slot i % kRing of the ring; the last warp
+// walks the lanes (a thread per lane) over the tiles: for each step in
+// reverse, ws[t][lane] is the low word of the state before step t and
+// need[t][lane] whether it was emitted; the wrapper compacts the emitted
+// words into decode-read order. Only the walker's compare, shift, divide
+// and modulo are on the lane's chain. freq is 0 in a bin of width zero,
+// which no encoder of the scheme can code: a producer sets *zero_freq for
+// the wrapper to raise on, and the division runs unguarded there, as
+// JAX's does, so the bits are those of JAX's coder.
+__global__ void __launch_bounds__(kEncodeThreads)
+gaussian_encode_kernel(const int* __restrict__ symbols, const float* __restrict__ sigma,
+                       int steps, int k, int* __restrict__ ws, unsigned char* __restrict__ need,
+                       long long* __restrict__ x_out, int* __restrict__ zero_freq) {
+  __shared__ uint32_t tile_start[kRing][kDepth][kLanes];
+  __shared__ uint32_t tile_freq[kRing][kDepth][kLanes];
+  const int t = threadIdx.x;
+  const int lane0 = blockIdx.x * kLanes;
+  const int n_tiles = (steps + kDepth - 1) / kDepth;
+  if (t < kProducers * 32) {
+    for (int i = 0; i < n_tiles; ++i) {
+      const int slot = i % kRing;
+      if (i >= kRing) named_sync(1 + kRing + slot, kEncodeThreads);
+      const int top = steps - 1 - i * kDepth;  // the tile's first step
+      for (int e = t; e < kDepth * kLanes; e += kProducers * 32) {
+        const int d = e / kLanes, l = e % kLanes;
+        if (d <= top && lane0 + l < k) {
+          const long long p = static_cast<long long>(top - d) * k + lane0 + l;
+          const Params q = coder_params(sigma[p]);
+          const int bin = symbols[p] + q.c;
+          const uint32_t start = boundary(bin, q);
+          const uint32_t freq = boundary(bin + 1, q) - start;
+          if (freq == 0) *zero_freq = 1;
+          tile_start[slot][d][l] = start;
+          tile_freq[slot][d][l] = freq;
+        }
+      }
+      named_arrive(1 + slot, kEncodeThreads);
+    }
+    return;
   }
-  x_out[lane] = x;
+  const int l = t - kProducers * 32;
+  const int lane = lane0 + l;
+  const bool active = l < kLanes && lane < k;
+  uint32_t x = kRansL;
+  for (int i = 0; i < n_tiles; ++i) {
+    const int slot = i % kRing;
+    named_sync(1 + slot, kEncodeThreads);
+    const int top = steps - 1 - i * kDepth;
+    const int depth = top + 1 < kDepth ? top + 1 : kDepth;
+    if (active) {
+#pragma unroll 4
+      for (int d = 0; d < depth; ++d) {
+        const uint32_t start = tile_start[slot][d][l];
+        const uint32_t freq = tile_freq[slot][d][l];
+        const long long p = static_cast<long long>(top - d) * k + lane;
+        const bool emit = x >= (freq << 16);
+        ws[p] = static_cast<int>(x & kMask16);
+        need[p] = emit;
+        if (emit) x >>= 16;
+        x = ((x / freq) << 16) | ((x % freq) + start);
+      }
+    }
+    // the producers wait on this slot only for a tile they still have to fill
+    if (i + kRing < n_tiles) named_arrive(1 + kRing + slot, kEncodeThreads);
+  }
+  if (active) x_out[lane] = x;
 }
 
 // ------------------------- D4: analytic decode -------------------------
 
-// One CTA per stream, kLanes lanes per thread (consecutive lanes, so a
-// thread's lanes are in rank order). Per step each lane binary-searches its
-// bin over the analytic boundaries and updates its state; the renormalising
-// lanes then take consecutive words after the shared stream pointer g, in
-// lane order: an exclusive block-wide scan of the per-thread counts gives
-// each its rank. The window's start is clamped to n_flat - k, as XLA's
-// dynamic_slice clamps it.
-template <int kLanes>
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;" ::: "memory");
+}
+
+// One stream over a cluster of K CTAs (the grid). CTA rank r holds lanes
+// r * per_cta .. (r + 1) * per_cta - 1, a thread a lane, so the lanes are
+// in rank order through the CTAs and warps. Per step each lane searches
+// its bin over the analytic boundaries in halvings of [lo, hi] that stop
+// when lo == hi (ceil(log2 nb) of them at most, against JAX's fixed 11);
+// B(lo) and B(lo + 1), which start and freq need, are values a halving
+// computed (B(0) = 0 and B(nb) = 2^16 where none did). Then the
+// renormalising lanes take consecutive words after the shared stream
+// pointer g in lane order: a warp ballot and the warp counts give each its
+// rank in the CTA; one thread per peer writes the CTA's count into slot
+// [s & 1][r] of every CTA of the cluster (distributed shared memory), and
+// after the cluster barrier each CTA adds the lower ranks' counts for its
+// offset and all of them for g (replicated in every CTA). Slot parity makes
+// one barrier a step enough: a CTA writes slot s & 1 again only after the
+// barrier of step s + 1, which every CTA passes only after reading step
+// s's counts. A barrier before the first step makes sure that every CTA
+// of the cluster runs before any writes into its shared memory; the last
+// step's barrier, that none exits while a peer still writes there. The
+// window's start is clamped to n_flat - k, as XLA's dynamic_slice clamps
+// it. K is a template parameter so that each cluster size is a kernel of
+// its own name (the profiler times each).
+template <int K>
 __global__ void __launch_bounds__(kMaxThreads)
 gaussian_decode_kernel(long long* __restrict__ x_io, long long* __restrict__ g_io,
                        const int* __restrict__ flat, long long n_flat,
-                       const float* __restrict__ sigma, int steps, int k, int* __restrict__ out) {
-  __shared__ int warp_sums[kMaxThreads / 32];
+                       const float* __restrict__ sigma, int steps, int k, int per_cta,
+                       int* __restrict__ out) {
+  __shared__ int warp_counts[kMaxThreads / 32];
+  __shared__ int cta_counts[2][K];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
   const int t = threadIdx.x;
   const int warp = t >> 5, wl = t & 31;
   const int nwarps = blockDim.x >> 5;
-  const int lane0 = t * kLanes;
-  uint32_t x[kLanes];
-#pragma unroll
-  for (int j = 0; j < kLanes; ++j) x[j] = lane0 + j < k ? static_cast<uint32_t>(x_io[lane0 + j]) : 0u;
+  const int lane = rank * per_cta + t;
+  const bool active = t < per_cta && lane < k;
+  uint32_t x = active ? static_cast<uint32_t>(x_io[lane]) : 0u;
   long long g = *g_io;
+  const long long last_start = n_flat - k;
+  Params q{};
+  cluster_arrive_relaxed();
+  if (active && steps > 0) q = coder_params(sigma[lane]);
+  cluster_wait();
   for (int s = 0; s < steps; ++s) {
-    int cnt = 0;
-    unsigned needs = 0;
-#pragma unroll
-    for (int j = 0; j < kLanes; ++j) {
-      const int lane = lane0 + j;
-      if (lane >= k) break;
-      const long long p = static_cast<long long>(s) * k + lane;
-      const Params q = coder_params(sigma[p]);
-      const uint32_t cf = x[j] & kMask16;
-      int lo = 0, hi = q.nb - 1;
-      for (int it = 0; it < kSearchIters; ++it) {
-        const int mid = (lo + hi + 1) >> 1;
-        if (boundary(mid, q) <= cf) {
-          lo = mid;
-        } else {
-          hi = mid - 1;
-        }
+    const long long p = static_cast<long long>(s) * k + lane;
+    const int par = s & 1;
+    const bool more = s + 1 < steps;
+    float sigma_next = 1.0f;
+    if (active && more) sigma_next = sigma[p + k];  // in flight during the search
+    const uint32_t cf = x & kMask16;
+    int lo = 0, hi = active ? q.nb - 1 : 0;
+    uint32_t b_lo = 0, b_hi = static_cast<uint32_t>(kTotal);  // B(lo), B(hi + 1)
+    while (lo < hi) {
+      const int m = lo + (hi - lo + 2) / 2;
+      const uint32_t b = boundary(m, q);
+      if (b <= cf) {
+        lo = m;
+        b_lo = b;
+      } else {
+        hi = m - 1;
+        b_hi = b;
       }
-      const uint32_t start = boundary(lo, q);
-      const uint32_t freq = boundary(lo + 1, q) - start;
-      x[j] = freq * (x[j] >> 16) + cf - start;
-      if (x[j] < kRansL) {
-        needs |= 1u << j;
-        ++cnt;
-      }
+    }
+    bool need = false;
+    if (active) {
+      x = (b_hi - b_lo) * (x >> 16) + cf - b_lo;
+      need = x < kRansL;
       out[p] = lo - q.c;
     }
-    // exclusive scan of cnt over the block: within the warp, then the warps
-    int incl = cnt;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int v = __shfl_up_sync(0xffffffffu, incl, d);
-      if (wl >= d) incl += v;
-    }
-    if (wl == 31) warp_sums[warp] = incl;
+    // the CTA's renormalising lanes: ranks within each warp, then the warps
+    const unsigned votes = __ballot_sync(0xffffffffu, need);
+    if (wl == 0) warp_counts[warp] = __popc(votes);
     __syncthreads();
-    if (warp == 0) {
-      int v = wl < nwarps ? warp_sums[wl] : 0;
-#pragma unroll
-      for (int d = 1; d < 32; d <<= 1) {
-        const int u = __shfl_up_sync(0xffffffffu, v, d);
-        if (wl >= d) v += u;
-      }
-      if (wl < nwarps) warp_sums[wl] = v;
-    }
-    __syncthreads();
-    int rank = incl - cnt + (warp > 0 ? warp_sums[warp - 1] : 0);
-    const int total = warp_sums[nwarps - 1];
-    long long start = g < n_flat - k ? g : n_flat - k;
-    if (start < 0) start = 0;
-#pragma unroll
-    for (int j = 0; j < kLanes; ++j) {
-      if (needs & (1u << j)) {
-        x[j] = (x[j] << 16) | static_cast<uint32_t>(flat[start + rank]);
-        ++rank;
-      }
+    const int wc = wl < nwarps ? warp_counts[wl] : 0;
+    const int warp_off = __reduce_add_sync(0xffffffffu, wl < warp ? wc : 0);
+    const int cta_count = __reduce_add_sync(0xffffffffu, wc);
+    if (t < K) *cluster.map_shared_rank(&cta_counts[par][rank], t) = cta_count;
+    cluster_arrive();
+    if (active && more) q = coder_params(sigma_next);
+    cluster_wait();
+    const int cc = wl < K ? cta_counts[par][wl] : 0;
+    const int cta_off = __reduce_add_sync(0xffffffffu, wl < rank ? cc : 0);
+    const int total = __reduce_add_sync(0xffffffffu, cc);
+    if (need) {
+      long long start = g < last_start ? g : last_start;
+      if (start < 0) start = 0;
+      const int r = cta_off + warp_off + __popc(votes & ((1u << wl) - 1u));
+      x = (x << 16) | static_cast<uint32_t>(flat[start + r]);
     }
     g += total;
-    __syncthreads();  // warp_sums is rewritten next step
   }
-#pragma unroll
-  for (int j = 0; j < kLanes; ++j)
-    if (lane0 + j < k) x_io[lane0 + j] = x[j];
-  if (t == 0) *g_io = g;
+  if (active) x_io[lane] = x;
+  if (rank == 0 && t == 0) *g_io = g;
 }
 
-template <int kLanes>
+template <int K>
 int launch_gaussian_decode(long long* x, long long* g, const int* flat, long long n_flat,
                            const float* sigma, int steps, int k, int* out, cudaStream_t s) {
-  const int used = (k + kLanes - 1) / kLanes;
-  const int threads = (used + 31) / 32 * 32;
-  gaussian_decode_kernel<kLanes><<<1, threads, 0, s>>>(x, g, flat, n_flat, sigma, steps, k, out);
+  const int per_cta = (k + K - 1) / K;
+  const int threads = (per_cta + 31) / 32 * 32;
+  if (threads > kMaxThreads || K > k) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = cudaSuccess;
+  if (K > 8) {
+    e = cudaFuncSetAttribute(gaussian_decode_kernel<K>,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(K, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = K;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, gaussian_decode_kernel<K>, x, g, flat, n_flat, sigma, steps, k,
+                         per_cta, out);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
+
+// Instances (CTAs in the cluster): coding/device_kernels.py's
+// DECODE_CLUSTERS; a launch refuses a cluster larger than k or whose CTA
+// of ceil(k / K) lanes needs more than 1024 threads.
+#define DECODE_INSTANCES(X) X(1) X(2) X(4) X(8) X(16)
 
 int blocks_for(int k, int threads) { return (k + threads - 1) / threads; }
 
@@ -370,26 +503,30 @@ int rans_decode_lanes(const int* words, long long n_words, const long long* base
 }
 
 // D3. symbols (clamped to the support), sigma: [steps * k]; ws: [steps][k];
-// need: [steps][k] bytes; x_out: [k].
+// need: [steps][k] bytes; x_out: [k]; zero_freq: [1], zeroed by the caller,
+// set where a symbol lies in a bin of width zero.
 int gaussian_encode_lanes(const int* symbols, const float* sigma, int steps, int k, int* ws,
-                          unsigned char* need, long long* x_out, void* stream) {
+                          unsigned char* need, long long* x_out, int* zero_freq, void* stream) {
   if (k <= 0 || steps < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int threads = 128;
-  gaussian_encode_kernel<<<blocks_for(k, threads), threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      symbols, sigma, steps, k, ws, need, x_out);
+  gaussian_encode_kernel<<<blocks_for(k, kLanes), kEncodeThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(symbols, sigma, steps, k, ws,
+                                                                need, x_out, zero_freq);
   return static_cast<int>(cudaGetLastError());
 }
 
 // D4. x: [k] states; g: [1] stream pointer; flat: n_flat words (n_flat >= k);
-// sigma, out: [steps * k]. k up to 8192 (up to 8 lanes per thread).
+// sigma, out: [steps * k]. cluster: one of DECODE_INSTANCES, at most k,
+// with ceil(k / cluster) lanes a CTA at most 1024. The result does not
+// depend on the cluster size.
 int gaussian_decode_lanes(long long* x, long long* g, const int* flat, long long n_flat,
-                          const float* sigma, int steps, int k, int* out, void* stream) {
+                          const float* sigma, int steps, int k, int cluster, int* out,
+                          void* stream) {
   if (k <= 0 || steps < 0 || n_flat < k) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (k <= kMaxThreads) return launch_gaussian_decode<1>(x, g, flat, n_flat, sigma, steps, k, out, s);
-  if (k <= 2 * kMaxThreads) return launch_gaussian_decode<2>(x, g, flat, n_flat, sigma, steps, k, out, s);
-  if (k <= 4 * kMaxThreads) return launch_gaussian_decode<4>(x, g, flat, n_flat, sigma, steps, k, out, s);
-  if (k <= 8 * kMaxThreads) return launch_gaussian_decode<8>(x, g, flat, n_flat, sigma, steps, k, out, s);
+#define DECODE_CASE(c) \
+  if (cluster == c) return launch_gaussian_decode<c>(x, g, flat, n_flat, sigma, steps, k, out, s);
+  DECODE_INSTANCES(DECODE_CASE)
+#undef DECODE_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

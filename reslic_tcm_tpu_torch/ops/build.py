@@ -128,23 +128,30 @@ def build(names=None) -> dict[str, dict]:
             text=True,
         ), tmp)
     errors = []
-    for name, (proc, tmp) in procs.items():
-        left = max(1.0, BUILD_TIMEOUT_S - (time.perf_counter() - t0))
+
+    def finish(name, proc, tmp):
+        # one waiter per compiler, so each one's seconds end when it does
         try:
-            log, _ = proc.communicate(timeout=left)
+            log, _ = proc.communicate(timeout=BUILD_TIMEOUT_S)
         except subprocess.TimeoutExpired:
             proc.kill()
             proc.communicate()
             errors.append(f"{name}: compiler timed out after {BUILD_TIMEOUT_S} s")
-            continue
+            return
         report[name]["seconds"] = time.perf_counter() - t0
         report[name]["log"] = log
         if proc.returncode != 0:
             errors.append(f"{name}: compiler exited {proc.returncode}\n{log}")
             if os.path.exists(tmp):
                 os.remove(tmp)
-            continue
+            return
         os.replace(tmp, report[name]["path"])
+
+    waiters = [threading.Thread(target=finish, args=(name, *pt)) for name, pt in procs.items()]
+    for w in waiters:
+        w.start()
+    for w in waiters:
+        w.join()
     if errors:
         raise RuntimeError("native build failed:\n" + "\n".join(errors))
     return report

@@ -28,6 +28,7 @@ from torch_port_inputs import (attn_inputs, coder_symbols, coder_tables,  # noqa
                                conv_inputs, err_ok, gaussian_inputs, oihw, port_attn_args,
                                qkv_inputs)
 
+from reslic_tcm_tpu_torch.coding import device_kernels as PDK  # noqa: E402
 from reslic_tcm_tpu_torch.ops import flash_window_attn as PF  # noqa: E402
 from reslic_tcm_tpu_torch.ops import fused_conv as PC  # noqa: E402
 from reslic_tcm_tpu_torch.ops import qkv_attention as PQ  # noqa: E402
@@ -737,19 +738,42 @@ def test_table_lane_kernels_match_plain_on_card(cuda, k, steps):
     assert after["decode_lanes"] == before["decode_lanes"] + 6
 
 
+def _gaussian_case(seed, k, steps):
+    """(sigma, symbols) float32 / int32 numpy arrays of k * steps: Gaussian
+    symbols clamped to their support, and each in a bin of width zero moved
+    one bin down. No encoder of the analytic scheme can code a symbol there
+    (JAX's divides by freq = 0 and decodes another value, the plain
+    version raises; tests/test_torch_port_analytic_search.py), so the
+    kernels cannot be held to the plain versions on it. Such bins lie in
+    the far upper tail: one symbol of the 786,432 at (4096, 192), none at
+    the smaller shapes."""
+    from reslic_tcm_tpu_torch.coding import analytic_rans as ar
+
+    sigma, sym = gaussian_inputs(seed, k * steps)
+    c = ar.support(torch.from_numpy(sigma)).numpy()
+    sym = torch.from_numpy(np.clip(sym, -c, c))
+    p = ar.coder_params(torch.from_numpy(sigma))
+    while True:
+        zero = ar._start_freq(sym, p)[1] == 0
+        if not bool(zero.any()):
+            return sigma, sym.numpy()
+        sym = torch.where(zero, sym - 1, sym)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("k,steps", [(8, 40), (96, 12), (1024, 8), (2048, 3), (4096, 4),
-                                     (8192, 2)])
+@pytest.mark.parametrize("k,steps", [(1, 30), (3, 20), (5, 16), (8, 40), (96, 12), (1000, 45),
+                                     (1024, 8), (2048, 3), (4096, 4), (8192, 2), (4096, 192)])
 def test_gaussian_lane_kernels_match_plain_on_card(cuda, k, steps):
-    """D3 and D4 (kernels) against the plain versions on sigma over [0.05,
-    300]: the lanes' words, flags and final states, then the values and
-    carries of two chained segments, which are the symbols."""
+    """D3 and D4 (kernels; D4 on the wrapper's cluster, 1, 2, 4, 8 and 16
+    CTAs at these k) against the plain versions on sigma over [0.05, 300]:
+    the lanes' words, flags and final states, then the values and carries
+    of two chained segments, which are the symbols. (1000, 45): D3's last
+    CTA and tile and D4's last CTA partly filled; (4096, 192): the serving
+    path's batch of 8."""
     from reslic_tcm_tpu_torch.coding import analytic_rans as ar
     from reslic_tcm_tpu_torch.coding import device_kernels as dk
 
-    sigma, sym = gaussian_inputs(42, k * steps)
-    sym = np.clip(sym, -ar.support(torch.from_numpy(sigma)).numpy(),
-                  ar.support(torch.from_numpy(sigma)).numpy())
+    sigma, sym = _gaussian_case(42, k, steps)
     (sig_c, sym_c), (sig_g, sym_g) = _coder_plain_and_card(cuda, sigma, sym)
     got = ar.encode_gaussian_lanes(sym_g, sig_g, k)
     want = ar.encode_gaussian_lanes(sym_c, sig_c, k)
@@ -766,6 +790,78 @@ def test_gaussian_lane_kernels_match_plain_on_card(cuda, k, steps):
         assert torch.equal(vals_g.cpu(), vals_c) and torch.equal(vals_c, sym_c[sl])
         assert torch.equal(carry_g[0].cpu(), carry_c[0]) and int(carry_g[1]) == int(carry_c[1])
     assert dk.launch_counts()["gaussian_decode_lanes"] == before + 2
+
+
+D4_CLUSTERS = [(k, c) for k in (1000, 1024, 4096) for c in PDK.decode_clusters(k)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,cluster", D4_CLUSTERS)
+def test_every_d4_cluster_gives_the_same_bits(cuda, k, cluster):
+    """D4 on each cluster size at a k that leaves the last CTA partly
+    filled (1000), the codec's k=1024 and the serving path's k=4096: the
+    values and carries of three chained segments equal the plain
+    version's."""
+    from reslic_tcm_tpu_torch.coding import analytic_rans as ar
+
+    steps = 24
+    sigma, sym = _gaussian_case(45, k, steps)
+    (sig_c, sym_c), (sig_g, _) = _coder_plain_and_card(cuda, sigma, sym)
+    header, flat, _, _ = ar.compact_grouped(*ar.plain_encode_gaussian_lanes(sym_c, sig_c, k),
+                                            k * steps)
+    flat = torch.cat([flat, flat.new_zeros(k)])
+    flat_g = flat.to(cuda)
+    carry_c = ar.decode_gaussian_grouped_init(header)
+    x, g = (t.to(cuda) for t in carry_c)
+    for part in np.array_split(np.arange(steps), 3):
+        sl = slice(int(part[0]) * k, (int(part[-1]) + 1) * k)
+        vals = PDK.decode_on_cluster(x, g, flat_g, sig_g[sl].contiguous(), k, cluster)
+        carry_c, want = ar.plain_decode_gaussian_lanes(carry_c, flat, sig_c[sl], k)
+        assert torch.equal(vals.cpu(), want) and torch.equal(want, sym_c[sl])
+        assert torch.equal(x.cpu(), carry_c[0]) and int(g) == int(carry_c[1])
+
+
+@pytest.mark.cuda
+def test_d4_raises_on_a_cluster_it_does_not_have(cuda):
+    k = 4096
+    sig = torch.ones(k * 2, device=cuda)
+    flat = torch.zeros(k * 2, dtype=torch.int32, device=cuda)
+    x = torch.zeros(k, dtype=torch.int64, device=cuda)
+    g = torch.zeros((), dtype=torch.int64, device=cuda)
+    # no instance (3, 32 CTAs); 2048 lanes a CTA at k=4096
+    for cluster in (3, 32, 2):
+        with pytest.raises(ValueError, match="no cluster"):
+            PDK.decode_on_cluster(x, g, flat, sig, k, cluster)
+    # more CTAs than lanes
+    with pytest.raises(ValueError, match="no cluster"):
+        PDK.decode_on_cluster(x[:8], g, flat, sig[:16], 8, 16)
+    with pytest.raises(ValueError, match="up to 8192 lanes"):
+        PDK.gaussian_decode_lanes(x.repeat(3), g, flat.repeat(2), sig.repeat(2)[:3 * k], 3 * k)
+
+
+@pytest.mark.cuda
+def test_d3_raises_on_a_symbol_in_a_zero_width_bin(cuda):
+    """Sigma 9.120379, symbol 47: bin 102 of 111, of width zero. The plain
+    encoder raises on its division by zero; D3 computes the same bits and
+    its wrapper raises too, where the card would otherwise write a stream
+    that decodes another value. The same symbol one bin down codes."""
+    from reslic_tcm_tpu_torch.coding import analytic_rans as ar
+
+    k = 8
+    sigma = np.full(4 * k, 9.120379, np.float32)
+    sym = np.zeros(4 * k, np.int32)
+    sym[3] = 47
+    (sig_c, sym_c), (sig_g, sym_g) = _coder_plain_and_card(cuda, sigma, sym)
+    with pytest.raises(RuntimeError, match="ZeroDivision"):
+        ar.plain_encode_gaussian_lanes(sym_c, sig_c, k)
+    before = PDK.launch_counts()["gaussian_encode_lanes"]
+    with pytest.raises(RuntimeError, match="ZeroDivision"):
+        PDK.gaussian_encode_lanes(sym_g, sig_g, k)
+    assert PDK.launch_counts()["gaussian_encode_lanes"] == before + 1
+    sym_c[3] = sym_g[3] = 46
+    got = PDK.gaussian_encode_lanes(sym_g, sig_g, k)
+    want = ar.plain_encode_gaussian_lanes(sym_c, sig_c, k)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
 
 
 @pytest.mark.cuda
