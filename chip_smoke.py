@@ -125,10 +125,12 @@ Drives reslic_tcm_tpu_torch only (no JAX, no PIL), in these phases:
    0 of 5d at the serving path's k=4096 (D1 and D2 its z stream at its kz,
    compacted; D3 the y stream, D4 its five segments), each with its time
    (CUDA events) beside the plain version's and its bound (the bytes and
-   float32 operations these inputs need); at both shapes D3 and D4 at
-   every cluster size (CTAs in the cluster) on the same inputs, each
-   equal to the plain version bit for bit, with its device time over 10
-   interleaved rounds (`split` lines, as phase 3's); then the two images
+   float32 operations these inputs need); on every one of these inputs
+   each kernel's device time over 10 interleaved rounds (`split` lines,
+   as phase 3's), every variant equal to the plain version bit for bit:
+   D1 its one configuration, D2 each variant (lanes a CTA, table staged
+   in shared memory or read where it lies) that takes the table, D3 its
+   one configuration, D4 every cluster size (CTAs in the cluster); then the two images
    of the slices through compress_device / decompress_device and the
    analytic pair (exact y_hat, the table path's x_hat within 1e-5 of the
    host codec's decode, the clamped symbols, encode and decode ms as the
@@ -138,7 +140,7 @@ Drives reslic_tcm_tpu_torch only (no JAX, no PIL), in these phases:
    then serve_roundtrip_metrics and serve_roundtrip_pipelined over 5d's
    batches at k=4096 beside the serial host path (MP/s, median of 3; the
    last timed run of each decodes every batch's y_hat exactly) and the
-   profile of one run of each, with D3's and D4's device time in it.
+   profile of one run of each, with D1-D4's device time in it.
 6. Profile: torch.profiler over one warm forward, compress and decompress
    of each slice at 768x512 (scale_gain_sc aside), over one step of each
    train slice and over one run of the serial and each pipelined variant
@@ -1573,9 +1575,10 @@ def _encode_bytes(torch, sym, idx, t, counts):
 
 def _decode_bytes(torch, sym, idx, t, counts, launches):
     """D2's bytes: indexes read, symbols written (int32), the table entries
-    and rows the decoded symbols touch (inverse and packed; cdf_length and
-    offset), the words past the two that decoder_init reads, and per launch
-    each lane's base read and carry (state, read pointer) read and written."""
+    and rows the decoded symbols touch (an entry and its bucket, 6 bytes;
+    cdf_length and offset), the words past the two that decoder_init
+    reads, and per launch each lane's base read and carry (state, read
+    pointer) read and written."""
     entries, rows = _table_entries(torch, sym, idx, t)
     k = counts.numel()
     return (idx.numel() * 8 + entries * 6 + rows * 8 + (int(counts.sum()) - 2 * k) * 4
@@ -1592,14 +1595,21 @@ def _search_ops(torch, sigma) -> int:
     return sigma.numel() * _PARAM_OPS + evals * _BOUNDARY_OPS
 
 
-CODER_SYMBOLS = {"gaussian_encode_lanes": "gaussian_encode_kernel",
+CODER_SYMBOLS = {"encode_lanes": "rans_encode_kernel", "decode_lanes": "rans_decode_kernel",
+                 "gaussian_encode_lanes": "gaussian_encode_kernel",
                  "gaussian_decode_lanes": "gaussian_decode_kernel"}
 
 
+def _cxx(v) -> str:
+    """A template argument as the profiler's kernel name spells it."""
+    return str(v).lower() if isinstance(v, bool) else str(v)
+
+
 def _coder_splits(torch, name, label, calls, want, chosen, per_call):
-    """Each instance of a coder kernel on the same inputs (D4: every
-    cluster size; D3: its one configuration), ``calls`` keyed by its
-    template arguments (() for none): each call's output and carry must
+    """Each instance of a coder kernel on the same inputs (D1, D3: their one
+    configuration; D2: every variant that takes the table; D4: every
+    cluster size), ``calls`` keyed by its template arguments (() for
+    none): each call's output and carry must
     equal ``want``, the plain version's, bit for bit. Prints a ``split``
     line: each one's time per call (CUDA events, the wrapper's host work
     included) and its device time (profiler) over SPLIT_ROUNDS interleaved
@@ -1619,7 +1629,7 @@ def _coder_splits(torch, name, label, calls, want, chosen, per_call):
         torch.cuda.synchronize()
         equal[n] = _equal(torch, got, want)
         call_ms[n] = _time_ms(torch, calls[n], 3)
-    symbols = {n: CODER_SYMBOLS[name] + (f"<{', '.join(map(str, n))}>" if n else "(")
+    symbols = {n: CODER_SYMBOLS[name] + (f"<{', '.join(map(_cxx, n))}>" if n else "(")
                for n in names}
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for r in range(SPLIT_ROUNDS):
@@ -1685,6 +1695,11 @@ def _coder_kernel_checks(torch, codec, x1, x8, on_card):
             lambda: dr.plain_encode_lanes(sym, idx, t.cdf, t.cdf_length, t.offset, k, cap,
                                           t.packed),
             on_card, lambda out: _encode_bytes(torch, sym, idx, t, out[1]), 0, 20)
+        if on_card:
+            case["device_ms"] = _coder_splits(
+                torch, "encode_lanes", label,
+                {(): lambda: dk.encode_lanes(sym, idx, t.packed, t.cdf_length, t.offset, k,
+                                             cap)}, stream, (), 1)
         if bool((stream[1] > cap).any()):
             raise AssertionError(f"encode_lanes {label}: a lane outgrew its cap {cap}")
         return case, stream
@@ -1703,10 +1718,11 @@ def _coder_kernel_checks(torch, codec, x1, x8, on_card):
         base = dr.lane_base(words, k, offsets)
         parts = idx.split(idx.numel() // n_seg)
 
-        def kern():
+        def kern(variant=None):
             x, rp = carry0[0].clone(), carry0[1].clone()
-            out = [dk.decode_lanes(x, rp, words, base, p, t.inverse, t.packed, t.cdf_length,
-                                   t.offset, k) for p in parts]
+            out = [dk.decode_lanes(x, rp, words, base, p, t.search, k) if variant is None
+                   else dk.decode_with(x, rp, words, base, p, t.search, k, variant)
+                   for p in parts]
             return torch.cat(out), x, rp
 
         def plain():
@@ -1721,6 +1737,11 @@ def _coder_kernel_checks(torch, codec, x1, x8, on_card):
         case, got = _coder_case(torch, "decode_lanes", label, kern, plain, on_card, nbytes, 0, 5)
         if not torch.equal(got[0], want):
             raise AssertionError(f"decode_lanes {label}: the stream decoded to other symbols")
+        if on_card:
+            case["device_ms"] = _coder_splits(
+                torch, "decode_lanes", label,
+                {v: (lambda v=v: kern(v)) for v in dk.decode_variants(t.search)}, got,
+                dk.decode_variant(t.search), n_seg)
         return case
 
     add("decode_lanes", decode_case(f"z k={kz}", *streams["z"], z_rows, zt, kz, 1, t_in["z"]), 1)
@@ -2374,8 +2395,8 @@ def main() -> int:
         "device-coder path's runs (two images, both profiles, each run "
         f"{DC_REPEATS} times); ms, plain_ms and bound_ms: one 768x512 image's launches "
         "(D1: its y and z encode, D2: its z and five y segments, D3: one, D4: five y "
-        "segments); device_ms: the profiler's time of D3 and of D4 at its wrapper's cluster "
-        "(null: not measured); max_abs_err 0: the kernels equal their plain versions bit for bit; "
+        "segments); device_ms: the profiler's time of each at its wrapper's variant (`split` "
+        "lines; null: not measured); max_abs_err 0: the kernels equal their plain versions bit for bit; "
         "library_ms null: no PyTorch call codes rANS")
     log("coder_kernels " + json.dumps({"coder_kernels": coder_kernels}))
     log(f"card: {smi}")

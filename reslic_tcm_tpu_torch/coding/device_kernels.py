@@ -1,9 +1,12 @@
 """The device coder's lane kernels D1-D4 (csrc/device_rans.cu), bound with ctypes.
 
 * ``encode_lanes`` (D1): table rANS encode with the packed table, each
-  lane's words written in emission order into its row;
-* ``decode_lanes`` (D2): table rANS decode of one segment with the inverse
-  and packed tables, the carry updated in place;
+  lane's words written in emission order into its row; producer warps
+  look up the entries and the reciprocals of freq, a walker warp runs the
+  lanes' state chain;
+* ``decode_lanes`` (D2): table rANS decode of one segment with the search
+  table (``device_rans.search_table``), staged in shared memory where it
+  fits, the carry updated in place;
 * ``gaussian_encode_lanes`` (D3): the analytic coder's reverse walk from
   sigma, the emitted words left for ``analytic_rans.compact_grouped``;
   producer warps compute each symbol's (start, freq) into a ring of tiles
@@ -30,6 +33,13 @@ import torch
 from ..ops import build
 
 MAX_GAUSSIAN_LANES = 8192  # D4: a cluster of 16 CTAs of up to 512 lanes
+MAX_SHARED_BYTES = 232448  # shared memory a CTA can take on an H100 (D2's staged table)
+# D2's variants, (lanes a CTA, table staged in shared memory):
+# csrc/device_rans.cu's TABLE_DECODE_INSTANCES, in that order. On an H100
+# (PERF.md §6), staged, 128 lanes a CTA beat 32 and 8 at every main-path
+# shape; unstaged, 32 and 128 were within 3%; staged beat unstaged 1.6-2.6x.
+TABLE_DECODE_VARIANTS = ((128, True), (32, False))
+INDEX_CHUNK = 32  # D2: steps of indexes a lane stages at a time, two chunks in flight
 MAX_THREADS = 1024
 # D4's cluster sizes (csrc/device_rans.cu's DECODE_INSTANCES)
 DECODE_CLUSTERS = (1, 2, 4, 8, 16)
@@ -53,7 +63,7 @@ def _lib() -> ctypes.CDLL:
     if not hasattr(lib, "_argtypes_set"):
         vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.rans_encode_lanes.argtypes = [vp, vp, vp, i, vp, vp, i, i, i, vp, vp, vp]
-        lib.rans_decode_lanes.argtypes = [vp, ll, vp, vp, vp, vp, vp, vp, i, vp, vp, i, i, vp,
+        lib.rans_decode_lanes.argtypes = [vp, ll, vp, vp, vp, vp, vp, i, i, i, i, i, i, i, vp,
                                           vp]
         lib.gaussian_encode_lanes.argtypes = [vp, vp, i, i, vp, vp, vp, vp, vp]
         lib.gaussian_decode_lanes.argtypes = [vp, vp, vp, ll, vp, i, i, i, vp, vp]
@@ -116,30 +126,70 @@ def encode_lanes(symbols, indexes, packed, cdf_length, offset, k: int, cap: int)
 encode_lanes.launches = 0
 
 
-def decode_lanes(x, rp, words, base, indexes, inverse, packed, cdf_length, offset, k: int):
+def decode_shared_bytes(search, variant: tuple) -> int:
+    """The shared memory a CTA of D2's ``variant`` (lanes, staged) takes for
+    ``search``: the table where staged and two chunks of each lane's
+    indexes (csrc/device_rans.cu's decode_smem_bytes)."""
+    lanes, staged = variant
+    return (search.layout.numel() * 4 if staged else 0) + 2 * INDEX_CHUNK * lanes * 4
+
+
+def decode_variants(search) -> list:
+    """D2's variants (lanes a CTA, staged) that take ``search``, a
+    ``device_rans.SearchTable``: a staged one only where the table fits in
+    a CTA's shared memory beside the indexes."""
+    return [v for v in TABLE_DECODE_VARIANTS
+            if decode_shared_bytes(search, v) <= MAX_SHARED_BYTES]
+
+
+def decode_variant(search) -> tuple:
+    """D2's variant for ``search``: staged where the table fits (y's 143 KB
+    and TCM-S's z table do), else read where it lies."""
+    return decode_variants(search)[0]
+
+
+def decode_lanes(x, rp, words, base, indexes, search, k: int):
     """D2. x, rp: int64 [k] carry, updated in place; words: int32 stream
     read at base[lane] + rp (base int64 [k]); indexes: int32 [steps * k];
-    inverse: int16 [R, 65536]; packed: int32 [R, L]. Returns the symbols,
+    search: ``device_rans.SearchTable`` on the device. Returns the symbols,
     int32 [steps * k]."""
+    out = decode_with(x, rp, words, base, indexes, search, k, decode_variant(search))
+    decode_lanes.launches += 1
+    return out
+
+
+def decode_with(x, rp, words, base, indexes, search, k: int, variant: tuple):
+    """``decode_lanes`` with D2's ``variant`` (one of ``decode_variants``),
+    without counting the launch: the same bits in every variant, which the
+    card tests and chip_smoke.py's timings of each use. A staged variant
+    refuses a table larger than a CTA's shared memory."""
     dev = _require_cuda("decode_lanes", indexes)
     steps = _steps(indexes.numel(), k)
-    r, length = packed.shape
+    layout = search.layout
     for name, t in (("x", x), ("rp", rp), ("base", base)):
         _check(name, t, torch.int64, (k,), dev)
     _check("words", words, torch.int32, None, dev)
     _check("indexes", indexes, torch.int32, (steps * k,), dev)
-    _check("inverse", inverse, torch.int16, (r, 1 << 16), dev)
-    _check("packed", packed, torch.int32, None, dev)
-    _check("cdf_length", cdf_length, torch.int32, (r,), dev)
-    _check("offset", offset, torch.int32, (r,), dev)
+    _check("search.layout", layout, torch.int32, None, dev)
     if words.numel() == 0:
         raise ValueError("words: an empty stream")
+    if layout.dim() != 1 or layout.numel() % 4 or layout.data_ptr() % 16:
+        raise ValueError("search.layout: expected a 16-byte aligned int32 vector of a "
+                         "multiple of 4 words (device_rans.search_table)")
+    if variant not in TABLE_DECODE_VARIANTS:
+        raise ValueError(f"the decode_lanes kernel has no variant {variant}; it has "
+                         f"{list(TABLE_DECODE_VARIANTS)}")
+    if decode_shared_bytes(search, variant) > MAX_SHARED_BYTES:
+        raise ValueError(f"the decode_lanes kernel's {variant} CTA takes at most "
+                         f"{MAX_SHARED_BYTES} bytes of shared memory, its indexes "
+                         f"{decode_shared_bytes(search, (variant[0], False))} of them; this "
+                         f"table has {layout.numel() * 4}")
     out = torch.empty(steps * k, dtype=torch.int32, device=dev)
     p = build.ptr
     _raise_on(_lib().rans_decode_lanes(
-        p(words), words.numel(), p(base), p(x), p(rp), p(indexes), p(inverse), p(packed), length,
-        p(cdf_length), p(offset), steps, k, p(out), build.stream(indexes)), "decode_lanes")
-    decode_lanes.launches += 1
+        p(words), words.numel(), p(base), p(x), p(rp), p(indexes), p(layout), layout.numel(),
+        search.buckets_at, search.entries_at, search.shift, steps, k,
+        TABLE_DECODE_VARIANTS.index(variant), p(out), build.stream(indexes)), "decode_lanes")
     return out
 
 

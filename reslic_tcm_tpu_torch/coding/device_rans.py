@@ -19,13 +19,14 @@ into one flat stream read at per-lane offsets (``lane_offsets``).
 
 Tensors: symbols, indexes, words and counts are int32 (a word is a value in
 [0, 2^16)); the CDF tables are int32, the inverse table int16 and the
-packed table int32 holding the bits of JAX's uint32 ``start << 16 | freq``.
+packed table int32 holding the bits of JAX's uint32 ``start << 16 | freq``;
+the search table (``search_table``) is one int32 array.
 The decoder's carry is ``(x, rp)``, int64 [K] each: the lane states (uint32
 values) and the read pointers.
 
 On CUDA tensors the lane loops run as the kernels of ``csrc/device_rans.cu``
 (``coding/device_kernels.py``: D1 encodes with the packed table, D2 decodes
-with the inverse and packed tables); on CPU tensors as the plain versions
+with the search table); on CPU tensors as the plain versions
 here, the JAX scan body vectorised over lanes with a Python loop over
 steps. The choice follows the tensors' device, never a failure. JAX's
 ``compact="gather"`` option (a TPU tuning knob; both formulations give the
@@ -52,14 +53,25 @@ class DeviceStream(NamedTuple):
     n_symbols: int
 
 
+class SearchTable(NamedTuple):
+    """D2's table (``search_table``): one int32 array of three parts, which
+    the kernel stages in shared memory where it fits."""
+
+    layout: torch.Tensor  # int32 [n], n a multiple of 4 (numpy from search_table)
+    buckets_at: int  # where the bucket index starts (int32 words)
+    entries_at: int  # where the entries start (int32 words)
+    shift: int  # a bucket spans 2^shift cf
+
+
 class LaneTables(NamedTuple):
     """One set of coding tables on a device, in the lane coders' types."""
 
     cdf: torch.Tensor  # int32 [R, L]
     cdf_length: torch.Tensor  # int32 [R]
     offset: torch.Tensor  # int32 [R]
-    inverse: torch.Tensor  # int16 [R, 2^16]
+    inverse: torch.Tensor  # int16 [R, 2^16] (the plain decoder's)
     packed: torch.Tensor  # int32 [R, L]
+    search: SearchTable  # D2's
 
 
 def build_inverse_table(cdf: np.ndarray, cdf_length: np.ndarray) -> np.ndarray:
@@ -82,14 +94,66 @@ def build_packed_table(cdf: np.ndarray, cdf_length: np.ndarray) -> np.ndarray:
     return packed
 
 
+BUCKET_BITS = 8  # D2's bucket index: 2^8 buckets a row, each 2^8 cf wide
+
+
+def search_table(cdf: np.ndarray, cdf_length: np.ndarray, offset: np.ndarray) -> SearchTable:
+    """D2's table, its layout an int32 numpy array [n] of three parts:
+
+    * rows, int32 [R, 4]: where row r's entries and buckets start, its
+      cdf_length and its offset;
+    * the bucket index, uint16 [R, 2^BUCKET_BITS + 1] (two to an int32 word,
+      low half first), from ``buckets_at``: bucket j of row r holds the last
+      symbol s with cdf[r][s] <= j << shift, shift = 16 - BUCKET_BITS;
+    * the entries, from ``entries_at``: row r's symbols s = 0 .. len - 2
+      back to back, each ``start << 16 | freq`` as in the packed table,
+      then zeros to a multiple of 4 words (the kernel copies 16 bytes at a
+      time).
+
+    The symbol with cf in bucket j is the last s in [bucket j, min(bucket
+    j + 1, len - 2)] with start(s) <= cf: the inverse table's symbol, found
+    by a short search (y's 64 rows: 106 KB of entries against the inverse
+    table's 8 MB). Each row must be non-decreasing and reach 2^16 in its
+    last entry only (every quantized CDF does: no bin is empty), else
+    ValueError."""
+    r = cdf.shape[0]
+    lengths = np.asarray(cdf_length, np.int64)
+    shift = PROB_BITS - BUCKET_BITS
+    nb = (1 << BUCKET_BITS) + 1
+    edges = np.arange(nb, dtype=np.int64) << shift
+    buckets = np.zeros((r, nb), np.uint16)
+    entries = []
+    for i in range(r):
+        row = cdf[i, : lengths[i]].astype(np.int64)
+        if (lengths[i] < 2 or lengths[i] > 1 << 16 or row[0] < 0 or row[-2] >= 1 << PROB_BITS
+                or row[-1] != 1 << PROB_BITS or (np.diff(row) < 0).any()):
+            raise ValueError(f"row {i} of the table is not a CDF rising to 2^16 in its last "
+                             f"of {lengths[i]} entries, which the D2 kernel needs")
+        buckets[i] = np.searchsorted(row, edges, side="right") - 1
+        entries.append((row[:-1] << 16) | np.diff(row))
+    starts = np.concatenate([[0], np.cumsum(lengths - 1)[:-1]])
+    rows = np.stack([starts, np.arange(r) * nb, lengths, np.asarray(offset, np.int64)], 1)
+    buckets_at = 4 * r
+    entries_at = buckets_at + -(-r * nb // 8) * 4
+    n = entries_at + -(-int(starts[-1] + lengths[-1] - 1) // 4) * 4
+    layout = np.zeros(n, np.uint32)
+    layout[:buckets_at] = rows.reshape(-1).astype(np.int32).view(np.uint32)
+    layout[buckets_at:entries_at].view(np.uint16)[: r * nb] = buckets.reshape(-1)
+    flat = np.concatenate(entries)
+    layout[entries_at:entries_at + flat.size] = flat
+    return SearchTable(layout.view(np.int32), buckets_at, entries_at, shift)
+
+
 def lane_tables(cdf, cdf_length, offset, device) -> LaneTables:
-    """The tables of one CDF set (numpy) on ``device``, with the inverse and
-    packed tables built from them."""
+    """The tables of one CDF set (numpy) on ``device``, with the inverse,
+    packed and search tables built from them."""
     t = lambda a, dtype: torch.from_numpy(np.ascontiguousarray(a)).to(device, dtype)  # noqa: E731
     inverse = build_inverse_table(cdf, cdf_length).astype(np.int16)
     packed = build_packed_table(cdf, cdf_length).view(np.int32)
+    search = search_table(cdf, cdf_length, offset)
     return LaneTables(t(cdf, torch.int32), t(cdf_length, torch.int32), t(offset, torch.int32),
-                      t(inverse, torch.int16), t(packed, torch.int32))
+                      t(inverse, torch.int16), t(packed, torch.int32),
+                      search._replace(layout=t(search.layout, torch.int32)))
 
 
 def _kernels():
@@ -218,21 +282,21 @@ def decoder_init(words, counts, offsets=None):
 
 
 def decode_segment(carry, words, indexes, cdf, cdf_length, offset, k: int, inverse=None,
-                   packed=None, lane_offsets=None):
+                   packed=None, lane_offsets=None, search=None):
     """Decode len(indexes) symbols (a multiple of k), carrying the lanes'
     state: the channel-AR slice loop chains segments on the device. Returns
     (carry, symbols int32). With ``lane_offsets``, ``words`` is a flat
-    compacted stream. On a CUDA tensor the inverse and packed tables are
-    required (kernel D2)."""
+    compacted stream. On a CUDA tensor the search table is required (kernel
+    D2) and the other tables are not read; on a CPU tensor the inverse and
+    packed tables are used where given."""
     indexes = indexes.reshape(-1).to(torch.int32)
     x, rp = carry
     base = lane_base(words, k, lane_offsets)
     if indexes.is_cuda:
-        if inverse is None or packed is None:
-            raise ValueError("the CUDA lane decoder takes the inverse and packed tables")
+        if search is None:
+            raise ValueError("the CUDA lane decoder takes the search table")
         x, rp = x.clone(), rp.clone()
-        syms = _kernels().decode_lanes(x, rp, words, base, indexes, inverse, packed,
-                                       cdf_length, offset, k)
+        syms = _kernels().decode_lanes(x, rp, words, base, indexes, search, k)
         return (x, rp), syms
     return plain_decode_lanes((x, rp), words, base, indexes, cdf, cdf_length, offset, k,
                               inverse, packed)
@@ -292,7 +356,7 @@ def plain_decode_lanes(carry, words, base, indexes, cdf, cdf_length, offset, k: 
 
 
 def decode_interleaved(words, counts, indexes, cdf, cdf_length, offset, n: int,
-                       k: int = 256, inverse=None, packed=None, lane_offsets=None):
+                       k: int = 256, inverse=None, packed=None, lane_offsets=None, search=None):
     """Decode a whole stream: int32 [n]."""
     indexes = indexes.reshape(-1).to(torch.int32)
     pad = (-n) % k
@@ -300,5 +364,6 @@ def decode_interleaved(words, counts, indexes, cdf, cdf_length, offset, n: int,
         indexes = torch.cat([indexes, indexes.new_zeros(pad)])
     carry = decoder_init(words, counts, offsets=lane_offsets)
     _, syms = decode_segment(carry, words, indexes, cdf, cdf_length, offset, k,
-                             inverse=inverse, packed=packed, lane_offsets=lane_offsets)
+                             inverse=inverse, packed=packed, lane_offsets=lane_offsets,
+                             search=search)
     return syms[:n]

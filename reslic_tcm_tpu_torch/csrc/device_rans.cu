@@ -7,18 +7,35 @@
 // coding/device_rans.py and coding/analytic_rans.py:
 //
 //   D1 rans_encode_kernel     encode_interleaved (packed-table variant)
-//   D2 rans_decode_kernel     decode_segment (inverse-table variant)
+//   D2 rans_decode_kernel     decode_segment (inverse-table variant's bits)
 //   D3 gaussian_encode_kernel encode_gaussian_grouped's lane walk
 //   D4 gaussian_decode_kernel decode_gaussian_grouped_segment
 //
 // What bounds them on this card: neither bytes nor operations. A lane is a
 // chain of dependent state updates, one per step (480 steps for a 768x512
 // TCM-S image at k=1024), and only k lanes run at once, so a launch's time
-// is the chain's latency. D1 and D2 keep the chain short: one thread walks
-// a lane with its state in a register, and D1 writes its words straight
-// into its row (no compaction pass). The analytic kernels compute their CDF
-// boundaries from sigma (no table gathers), an erf each, and take that work
-// off the chain where it does not depend on the state:
+// is the chain's latency. Each kernel takes off the chain whatever does not
+// depend on the state:
+//
+//   D1 splits a CTA into groups of producer warps, each of which looks up
+//   each symbol's table entry and the reciprocal of its freq for its own
+//   slot of a ring of tiles (steps x lanes) in shared memory, so that the
+//   groups' loads overlap, and one walker warp, which runs the integer
+//   chain over the tiles (a thread per lane): a compare, a shift, and a
+//   quotient from a high multiply with one correction in place of an
+//   integer divide. It writes each lane's words straight into its row (no
+//   compaction pass).
+//
+//   D2 finds each symbol by a short search in shared memory in place of the
+//   inverse table's 8-24 MB gather: a CTA stages the launch's search table
+//   (each row's entries back to back and a bucket index of 256 buckets a
+//   row, 143 KB for y's 64 rows) with cp.async while its lanes load their
+//   carry; a thread per lane then reads its bucket, searches the few
+//   entries the bucket spans and takes the entry it lands on. Each lane
+//   holds its next two words in registers and copies its indexes into
+//   shared memory a chunk of kChunk steps ahead, so neither read is on the
+//   chain. A table too large for shared memory is read where it lies, with
+//   the same bits.
 //
 //   D3 splits a CTA into producer warps, which compute each symbol's
 //   (start, freq) for tiles of steps x lanes into a ring in shared memory,
@@ -34,8 +51,8 @@
 //   bin is found; the next step's parameters are computed while the barrier
 //   waits.
 //
-// Exact integer / and % replace JAX's float-estimate quotient with its two
-// corrections, which gives the same quotient.
+// D3 divides with exact integer / and %, D1 with its reciprocal: both give
+// the quotient of JAX's float estimate with its two corrections.
 //
 // Bits: the analytic boundaries must equal XLA's float32 arithmetic bit for
 // bit, erf included (xla_erf: clamp, then x * alpha(x^2) / beta(x^2), each
@@ -51,9 +68,10 @@
 //
 // Tensors (all from the wrapper, coding/device_kernels.py): symbols,
 // indexes, words and counts int32 (a word is a value in [0, 2^16)); CDF
-// lengths and offsets int32; the inverse table int16 [R][65536]; the packed
-// table int32 [R][L] holding uint32 start << 16 | freq; lane states and read
-// pointers int64 (a state is a uint32 value).
+// lengths and offsets int32; the packed table int32 [R][L] holding uint32
+// start << 16 | freq; D2's search table one int32 array
+// (coding/device_rans.py::search_table); lane states and read pointers
+// int64 (a state is a uint32 value).
 //
 // Interface: plain C, raw pointers, the launch stream; each function returns
 // cudaGetLastError() of its launch (0 on success).
@@ -72,108 +90,351 @@ constexpr int kTotal = 1 << 16;
 constexpr int kCmax = 511;
 constexpr int kMaxThreads = 1024;
 
+// Named barriers (id 0 is __syncthreads'): in D1 and D3, tile slot r of a
+// ring of R is full behind barrier 1 + r and empty behind barrier 1 + R + r.
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("barrier.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("barrier.arrive %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
 // ------------------------------ D1: encode ------------------------------
 
-// One thread per lane: walk the steps in reverse and write the emitted
-// words in emission order into the lane's row; words past `cap` are dropped
-// and counted (the wrapper reports overflow from the count).
-__global__ void rans_encode_kernel(const int* __restrict__ symbols, const int* __restrict__ indexes,
-                                   const int* __restrict__ packed, int L,
-                                   const int* __restrict__ cdf_length, const int* __restrict__ offset,
-                                   int steps, int k, int cap, int* __restrict__ words,
-                                   int* __restrict__ counts) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= k) return;
-  int* row = words + static_cast<long long>(lane) * cap;
+// A CTA of D1 codes kEncLanes lanes in tiles of kEncDepth steps; kEncRing
+// tiles are in flight, each slot of the ring filled by its own group of
+// kEncProducers producer warps, so that the groups' loads overlap.
+constexpr int kEncLanes = 32;
+constexpr int kEncDepth = 32;
+constexpr int kEncProducers = 4;
+constexpr int kEncRing = 4;
+constexpr int kGroupThreads = kEncProducers * 32;
+constexpr int kEncThreads = kEncRing * kGroupThreads + 32;
+constexpr int kSlotThreads = kGroupThreads + 32;  // a slot's barriers: its group and the walker
+constexpr int kPer = kEncDepth / kEncProducers;  // a producer thread's elements a tile
+
+// The quotient x / freq for any uint32 x and freq in [1, 65535], from
+// m = 0xFFFFFFFF / freq: m >= 2^32 / freq - 1, so x * m / 2^32 lies in
+// (x / freq - 1, x / freq] and its floor is the quotient or one less; one
+// correction on the remainder makes it exact
+// (tests/test_torch_port_table_lanes.py checks every freq).
+__device__ __forceinline__ uint32_t put(uint32_t x, uint32_t start, uint32_t freq, uint32_t m) {
+  uint32_t q = __umulhi(x, m);
+  uint32_t r = x - q * freq;
+  if (r >= freq) {
+    ++q;
+    r -= freq;
+  }
+  return (q << 16) | (r + start);
+}
+
+// A CTA codes kEncLanes lanes (lanes blockIdx.x * kEncLanes on) walking
+// the steps in reverse. Producer group g (warps g * kEncProducers on) looks
+// up each symbol's table entry for tiles g, g + kEncRing, ... (kEncDepth
+// steps of the CTA's lanes, a warp's lanes a step) into slot g of the ring:
+// the entry start << 16 | freq, the reciprocal m of freq and, for an
+// escaped symbol, its lane's bit in the step's escape mask. The last warp
+// walks the lanes (a thread per lane) over the tiles and writes each
+// lane's words in emission order into its row; words past `cap` are
+// dropped and counted (the wrapper reports overflow from the count). Only
+// the walker's compare, shift and quotient are on the lane's chain; an
+// escape (two raw words, then the escape bin) reads its raw symbol.
+__global__ void __launch_bounds__(kEncThreads)
+rans_encode_kernel(const int* __restrict__ symbols, const int* __restrict__ indexes,
+                   const int* __restrict__ packed, int L, const int* __restrict__ cdf_length,
+                   const int* __restrict__ offset, int steps, int k, int cap,
+                   int* __restrict__ words, int* __restrict__ counts) {
+  __shared__ uint32_t tile_sf[kEncRing][kEncDepth][kEncLanes];
+  __shared__ uint32_t tile_m[kEncRing][kEncDepth][kEncLanes];
+  __shared__ uint32_t tile_esc[kEncRing][kEncDepth];
+  const int t = threadIdx.x;
+  const int lane0 = blockIdx.x * kEncLanes;
+  const int n_tiles = (steps + kEncDepth - 1) / kEncDepth;
+  if (t < kEncRing * kGroupThreads) {
+    const int slot = t / kGroupThreads, w = (t % kGroupThreads) >> 5;
+    const int l = t & 31, lane = lane0 + l;
+    for (int i = slot; i < n_tiles; i += kEncRing) {
+      if (i >= kEncRing) named_sync(1 + kEncRing + slot, kSlotThreads);
+      const int top = steps - 1 - i * kEncDepth;  // the tile's first step
+      // the loads of a thread's kPer elements in three rounds, each round's
+      // loads independent of one another
+      int sym[kPer], idx[kPer], len[kPer], off[kPer];
+      bool ok[kPer];
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        const int d = w + j * kEncProducers;
+        const long long p = static_cast<long long>(top - d) * k + lane;
+        ok[j] = d <= top && lane < k;
+        sym[j] = ok[j] ? symbols[p] : 0;
+        idx[j] = ok[j] ? indexes[p] : 0;
+      }
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        len[j] = cdf_length[idx[j]];
+        off[j] = offset[idx[j]];
+      }
+      uint32_t sf[kPer];
+      bool esc[kPer];
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        const int max_value = len[j] - 2;
+        int val = sym[j] - off[j];
+        esc[j] = ok[j] && (val < 0 || val >= max_value);
+        if (esc[j]) val = max_value;
+        sf[j] = ok[j] ? static_cast<uint32_t>(packed[static_cast<long long>(idx[j]) * L + val])
+                      : 1u;
+      }
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        const int d = w + j * kEncProducers;
+        if (ok[j]) {
+          tile_sf[slot][d][l] = sf[j];
+          tile_m[slot][d][l] = 0xFFFFFFFFu / (sf[j] & kMask16);
+        }
+        const unsigned mask = __ballot_sync(0xffffffffu, esc[j]);
+        if (l == 0) tile_esc[slot][d] = mask;
+      }
+      named_arrive(1 + slot, kSlotThreads);
+    }
+    return;
+  }
+  const int l = t - kEncRing * kGroupThreads;
+  const int lane = lane0 + l;
+  const bool active = lane < k;
+  int* row = words + static_cast<long long>(active ? lane : 0) * cap;
   int pos = 0;
   auto emit = [&](uint32_t w) {
     if (pos < cap) row[pos] = static_cast<int>(w);
     ++pos;
   };
   uint32_t x = kRansL;
-  for (int s = steps - 1; s >= 0; --s) {
-    const long long p = static_cast<long long>(s) * k + lane;
-    const int sym = symbols[p];
-    const int idx = indexes[p];
-    const int max_value = cdf_length[idx] - 2;
-    int val = sym - offset[idx];
-    if (val < 0 || val >= max_value) {
-      // escape: two raw 16-bit words (the state invariant renormalises each)
-      const uint32_t raw = static_cast<uint32_t>(sym);
-      emit(x & kMask16);
-      x = ((x >> 16) << 16) | (raw & kMask16);
-      emit(x & kMask16);
-      x = ((x >> 16) << 16) | (raw >> 16);
-      val = max_value;
+  for (int i = 0; i < n_tiles; ++i) {
+    const int slot = i % kEncRing;
+    named_sync(1 + slot, kSlotThreads);
+    const int top = steps - 1 - i * kEncDepth;
+    const int depth = top + 1 < kEncDepth ? top + 1 : kEncDepth;
+    if (active) {
+#pragma unroll 4
+      for (int d = 0; d < depth; ++d) {
+        const uint32_t sf = tile_sf[slot][d][l];
+        const uint32_t m = tile_m[slot][d][l];
+        const uint32_t start = sf >> 16, freq = sf & kMask16;
+        if ((tile_esc[slot][d] >> l) & 1u) {
+          // escape: two raw 16-bit words (the state invariant renormalises
+          // each); the raw symbol is read where it lies (escapes are rare)
+          const uint32_t raw = static_cast<uint32_t>(
+              symbols[static_cast<long long>(top - d) * k + lane]);
+          emit(x & kMask16);
+          x = ((x >> 16) << 16) | (raw & kMask16);
+          emit(x & kMask16);
+          x = ((x >> 16) << 16) | (raw >> 16);
+        }
+        // renormalise without a branch: the store is predicated
+        const bool out = x >= (freq << 16);
+        if (out && pos < cap) row[pos] = static_cast<int>(x & kMask16);
+        pos += out;
+        x = out ? x >> 16 : x;
+        x = put(x, start, freq, m);
+      }
     }
-    const uint32_t sf = static_cast<uint32_t>(packed[static_cast<long long>(idx) * L + val]);
-    const uint32_t start = sf >> 16, freq = sf & kMask16;
-    if (x >= (freq << 16)) {
-      emit(x & kMask16);
-      x >>= 16;
-    }
-    x = ((x / freq) << 16) | ((x % freq) + start);
+    // the producers wait on this slot only for a tile they still have to fill
+    if (i + kEncRing < n_tiles) named_arrive(1 + kEncRing + slot, kSlotThreads);
   }
-  emit(x & kMask16);
-  emit(x >> 16);
-  counts[lane] = pos;
+  if (active) {
+    emit(x & kMask16);
+    emit(x >> 16);
+    counts[lane] = pos;
+  }
 }
 
 // ------------------------------ D2: decode ------------------------------
 
-// One thread per lane over one segment; the carry (state, read pointer)
-// is read from and written back to device memory, so segments chain.
-// base[lane] is where the lane's word 0 lies (lane * cap for per-lane rows,
-// the lane offset for a flat stream); reads are clamped into the stream.
-__global__ void rans_decode_kernel(const int* __restrict__ words, long long n_words,
-                                   const long long* __restrict__ base, long long* __restrict__ x_io,
-                                   long long* __restrict__ rp_io, const int* __restrict__ indexes,
-                                   const short* __restrict__ inverse, const int* __restrict__ packed,
-                                   int L, const int* __restrict__ cdf_length,
-                                   const int* __restrict__ offset, int steps, int k,
-                                   int* __restrict__ out) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= k) return;
-  const long long b = base[lane];
-  uint32_t x = static_cast<uint32_t>(x_io[lane]);
-  long long rp = rp_io[lane];
-  auto read = [&]() -> uint32_t {
-    long long i = b + (rp > 0 ? rp : 0);
+// D2's table, one int32 array from coding/device_rans.py::search_table:
+// rows int4 [R] (entry start, bucket start, cdf_length, offset) from word
+// 0, the bucket index uint16 [R][nb] from buckets_at, the entries uint32
+// start << 16 | freq from entries_at (a multiple of 4 words each, and in all).
+// Bucket j of a row holds the last symbol s with cdf[s] <= j << shift.
+constexpr int kMaxSmem = 232448;  // dynamic shared memory a CTA can take
+constexpr int kMaxDevices = 64;
+constexpr int kChunk = 32;        // steps of indexes a lane stages at a time
+
+__device__ __forceinline__ void cp_async16(int4* dst, const int4* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(__cvta_generic_to_global(src)) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(int* dst, const int* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(__cvta_generic_to_global(src)) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most n of this thread's cp.async groups are in flight
+template <int n>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
+}
+
+// Dynamic shared memory of a D2 launch: the table where staged, then each
+// lane's two chunks of indexes.
+__host__ __device__ constexpr int decode_smem_bytes(int lanes, bool staged, int table_words) {
+  return (staged ? table_words * 4 : 0) + 2 * kChunk * lanes * 4;
+}
+
+// A thread per lane over one segment; the carry (state, read pointer) is
+// read from and written back to device memory, so segments chain. base[lane]
+// is where the lane's word 0 lies (lane * cap for per-lane rows, the lane
+// offset for a flat stream); reads are clamped into the stream. With
+// kStaged the CTA first copies the table into shared memory (cp.async,
+// while the lanes load their carry and their next two words); else it
+// reads the table where it lies. Each lane copies its own indexes into its
+// column of a two-chunk ring in shared memory (cp.async), a chunk ahead of
+// its walk, so no global load waits on the chain. Per step the chain is:
+// its cf's bucket (two 16-bit loads), a binary search of the entries
+// between the bucket's symbol and the next bucket's (none where they are
+// equal), the entry, the state update and, where it renormalises, the word
+// already in a register. The symbol is the last s with cdf[s] <= cf, what
+// the inverse table holds, because each row is non-decreasing.
+template <int kLanes, bool kStaged>
+__global__ void __launch_bounds__(kLanes)
+rans_decode_kernel(const int* __restrict__ words, long long n_words,
+                   const long long* __restrict__ base, long long* __restrict__ x_io,
+                   long long* __restrict__ rp_io, const int* __restrict__ indexes,
+                   const int* __restrict__ table, int table_words, int buckets_at,
+                   int entries_at, int shift, int steps, int k, int* __restrict__ out) {
+  extern __shared__ int4 smem[];
+  const int t = threadIdx.x;
+  const int lane = blockIdx.x * kLanes + t;
+  const bool active = lane < k;
+  int* ring = reinterpret_cast<int*>(smem) + (kStaged ? table_words : 0) + t;
+  const int n_chunks = (steps + kChunk - 1) / kChunk;
+  // this lane's indexes of chunk c into ring slot c & 1 (its column)
+  auto stage = [&](int c) {
+    if (active && c < n_chunks) {
+      const int s0 = c * kChunk;
+      const int depth = min(kChunk, steps - s0);
+      int* dst = ring + (c & 1) * kChunk * kLanes;
+      for (int d = 0; d < depth; ++d)
+        cp_async4(dst + d * kLanes, indexes + static_cast<long long>(s0 + d) * k + lane);
+    }
+    cp_async_commit();
+  };
+  if constexpr (kStaged) {
+    const int4* src = reinterpret_cast<const int4*>(table);
+    for (int i = t; i < table_words / 4; i += kLanes) cp_async16(smem + i, src + i);
+  }
+  stage(0);
+  const long long b = active ? base[lane] : 0;
+  uint32_t x = active ? static_cast<uint32_t>(x_io[lane]) : 0u;
+  long long rp = active ? rp_io[lane] : 0;
+  auto read = [&](long long r) -> uint32_t {
+    long long i = b + (r > 0 ? r : 0);
     if (i > n_words - 1) i = n_words - 1;
     return static_cast<uint32_t>(words[i]);
+  };
+  // w0 is the word at rp, w1 the one at rp - 1: the next two a lane reads
+  uint32_t w0 = 0, w1 = 0;
+  if (active) {
+    w0 = read(rp);
+    w1 = read(rp - 1);
+  }
+  const int* tab = table;
+  if constexpr (kStaged) {
+    cp_async_wait<0>();
+    __syncthreads();
+    tab = reinterpret_cast<const int*>(smem);
+  }
+  if (!active) return;
+  const int4* rows = reinterpret_cast<const int4*>(tab);
+  const unsigned short* buckets = reinterpret_cast<const unsigned short*>(tab + buckets_at);
+  const uint32_t* entries = reinterpret_cast<const uint32_t*>(tab + entries_at);
+  auto take = [&]() {
+    x = (x << 16) | w0;
+    --rp;
+    w0 = w1;
+    w1 = read(rp - 1);
   };
   auto get_bits16 = [&]() -> uint32_t {
     const uint32_t val = x & kMask16;
     x >>= 16;
-    if (x < kRansL) {
-      x = (x << 16) | read();
-      --rp;
-    }
+    if (x < kRansL) take();
     return val;
   };
-  for (int s = 0; s < steps; ++s) {
-    const long long p = static_cast<long long>(s) * k + lane;
-    const int idx = indexes[p];
-    const uint32_t cf = x & kMask16;
-    const int sym = inverse[static_cast<long long>(idx) * kTotal + cf];
-    const uint32_t sf = static_cast<uint32_t>(packed[static_cast<long long>(idx) * L + sym]);
-    const uint32_t start = sf >> 16, freq = sf & kMask16;
-    x = freq * (x >> 16) + cf - start;
-    if (x < kRansL) {
-      x = (x << 16) | read();
-      --rp;
-    }
-    if (sym == cdf_length[idx] - 2) {
-      const uint32_t hi = get_bits16();
-      const uint32_t lo = get_bits16();
-      out[p] = static_cast<int>((hi << 16) | lo);
-    } else {
-      out[p] = sym + offset[idx];
+  for (int c = 0; c < n_chunks; ++c) {
+    stage(c + 1);
+    cp_async_wait<1>();  // this lane's chunk c is in
+    const int* idx = ring + (c & 1) * kChunk * kLanes;
+    const int s0 = c * kChunk;
+    const int depth = min(kChunk, steps - s0);
+    int4 row = rows[idx[0]];
+#pragma unroll 4
+    for (int d = 0; d < depth; ++d) {
+      const long long p = static_cast<long long>(s0 + d) * k + lane;
+      const int4 next_row = rows[idx[min(d + 1, depth - 1) * kLanes]];
+      const uint32_t cf = x & kMask16;
+      const int bucket = row.y + static_cast<int>(cf >> shift);
+      int lo = buckets[bucket];
+      int hi = min(static_cast<int>(buckets[bucket + 1]), row.z - 2);
+      const uint32_t* e = entries + row.x;
+      while (lo < hi) {
+        const int mid = (lo + hi + 1) >> 1;
+        if ((e[mid] >> 16) <= cf) {
+          lo = mid;
+        } else {
+          hi = mid - 1;
+        }
+      }
+      const uint32_t sf = e[lo];
+      x = (sf & kMask16) * (x >> 16) + cf - (sf >> 16);
+      if (x < kRansL) take();
+      if (lo == row.z - 2) {
+        const uint32_t hi16 = get_bits16();
+        const uint32_t lo16 = get_bits16();
+        out[p] = static_cast<int>((hi16 << 16) | lo16);
+      } else {
+        out[p] = lo + row.w;
+      }
+      row = next_row;
     }
   }
   x_io[lane] = x;
   rp_io[lane] = rp;
 }
+
+template <int kLanes, bool kStaged>
+int launch_rans_decode(const int* words, long long n_words, const long long* base, long long* x,
+                       long long* rp, const int* indexes, const int* table, int table_words,
+                       int buckets_at, int entries_at, int shift, int steps, int k, int* out,
+                       cudaStream_t s) {
+  const int smem = decode_smem_bytes(kLanes, kStaged, table_words);
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  // the shared-memory limit is raised once per device (a benign race)
+  static bool raised[kMaxDevices] = {};
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (device >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!raised[device]) {
+    e = cudaFuncSetAttribute(rans_decode_kernel<kLanes, kStaged>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    raised[device] = true;
+  }
+  rans_decode_kernel<kLanes, kStaged><<<(k + kLanes - 1) / kLanes, kLanes, smem, s>>>(
+      words, n_words, base, x, rp, indexes, table, table_words, buckets_at, entries_at, shift,
+      steps, k, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Instances (lanes a CTA, staged): coding/device_kernels.py's
+// TABLE_DECODE_VARIANTS, in that order.
+#define TABLE_DECODE_INSTANCES(X) X(0, 128, true) X(1, 32, false)
 
 // --------------------- analytic boundaries (XLA's bits) ---------------------
 
@@ -245,16 +506,6 @@ constexpr int kDepth = 32;
 constexpr int kProducers = 8;
 constexpr int kRing = 4;
 constexpr int kEncodeThreads = (kProducers + 1) * 32;
-
-// Named barriers (id 0 is __syncthreads'): tile slot r is full behind
-// barrier 1 + r and empty behind barrier 1 + kRing + r.
-__device__ __forceinline__ void named_sync(int id, int threads) {
-  asm volatile("barrier.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
-}
-
-__device__ __forceinline__ void named_arrive(int id, int threads) {
-  asm volatile("barrier.arrive %0, %1;" ::"r"(id), "r"(threads) : "memory");
-}
 
 // A CTA codes kLanes lanes (lanes blockIdx.x * kLanes on). Warps 0 ..
 // kProducers - 1 compute each symbol's (start, freq) from sigma and the
@@ -483,23 +734,33 @@ int rans_encode_lanes(const int* symbols, const int* indexes, const int* packed,
                       const int* cdf_length, const int* offset, int steps, int k, int cap,
                       int* words, int* counts, void* stream) {
   if (k <= 0 || steps < 0 || cap < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int threads = 128;
-  rans_encode_kernel<<<blocks_for(k, threads), threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      symbols, indexes, packed, L, cdf_length, offset, steps, k, cap, words, counts);
+  rans_encode_kernel<<<blocks_for(k, kEncLanes), kEncThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(symbols, indexes, packed, L,
+                                                            cdf_length, offset, steps, k, cap,
+                                                            words, counts);
   return static_cast<int>(cudaGetLastError());
 }
 
 // D2. words: n_words int32; base, x, rp: [k]; indexes, out: [steps * k];
-// inverse: [R][65536] int16; packed: [R][L].
+// table: table_words int32 (16-byte aligned, table_words a multiple of 4),
+// the search table with its buckets 2^shift cf wide. variant: an index
+// into TABLE_DECODE_INSTANCES; a staged variant refuses a table of more
+// than kMaxSmem bytes. The result does not depend on the variant.
 int rans_decode_lanes(const int* words, long long n_words, const long long* base, long long* x,
-                      long long* rp, const int* indexes, const short* inverse, const int* packed,
-                      int L, const int* cdf_length, const int* offset, int steps, int k, int* out,
-                      void* stream) {
-  if (k <= 0 || steps < 0 || n_words <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int threads = 128;
-  rans_decode_kernel<<<blocks_for(k, threads), threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      words, n_words, base, x, rp, indexes, inverse, packed, L, cdf_length, offset, steps, k, out);
-  return static_cast<int>(cudaGetLastError());
+                      long long* rp, const int* indexes, const int* table, int table_words,
+                      int buckets_at, int entries_at, int shift, int steps, int k, int variant,
+                      int* out, void* stream) {
+  if (k <= 0 || steps < 0 || n_words <= 0 || table_words <= 0 || table_words % 4)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define TABLE_DECODE_CASE(i, lanes, staged)                                                   \
+  if (variant == i)                                                                          \
+    return launch_rans_decode<lanes, staged>(words, n_words, base, x, rp, indexes, table,    \
+                                             table_words, buckets_at, entries_at, shift,     \
+                                             steps, k, out, s);
+  TABLE_DECODE_INSTANCES(TABLE_DECODE_CASE)
+#undef TABLE_DECODE_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // D3. symbols (clamped to the support), sigma: [steps * k]; ws: [steps][k];

@@ -617,7 +617,8 @@ class ChannelARCodec:
         rows = torch.arange(zc, dtype=torch.int32, device=self.device).repeat(b * zh * zw)
         syms = dr.decode_interleaved(words, counts, rows, *tables[:3], n=rows.numel(),
                                      k=counts.numel(), inverse=tables.inverse,
-                                     packed=tables.packed, lane_offsets=lane_offsets)
+                                     packed=tables.packed, lane_offsets=lane_offsets,
+                                     search=tables.search)
         z = to_nchw(syms.to(torch.float32).reshape(b, zh, zw, zc))
         return z + self.module._z_offset()
 
@@ -680,7 +681,7 @@ class ChannelARCodec:
         decode = _chained(dr.decoder_init(y_words, y_counts),
                           lambda carry, indexes: dr.decode_segment(
                               carry, y_words, indexes, *yt[:3], k=k, inverse=yt.inverse,
-                              packed=yt.packed))
+                              packed=yt.packed, search=yt.search))
         y_hat = self._decode_slices(z_hat, (zh * 4, zw * 4), lv, False, decode)
         return {"x_hat": to_nhwc(self.module.synthesize(y_hat, lv)), "y_hat": to_nhwc(y_hat)}
 

@@ -26,7 +26,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from torch_port_inputs import (attn_inputs, coder_symbols, coder_tables,  # noqa: E402
                                conv_inputs, err_ok, gaussian_inputs, oihw, port_attn_args,
-                               qkv_inputs)
+                               qkv_inputs, scale_symbols, scale_tables)
 
 from reslic_tcm_tpu_torch.coding import device_kernels as PDK  # noqa: E402
 from reslic_tcm_tpu_torch.ops import flash_window_attn as PF  # noqa: E402
@@ -693,18 +693,28 @@ def _coder_plain_and_card(cuda, *arrays):
             [torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in arrays])
 
 
+def _table_case(kind):
+    """(tables, symbol maker): ``coder_tables``' six random rows, or the
+    64-row scale table that codes y (rows up to 3,133 entries)."""
+    if kind == "scale":
+        return scale_tables(), lambda seed, n, r: scale_symbols(seed, n)
+    return coder_tables(40), coder_symbols
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("k,steps", [(8, 40), (100, 12), (1024, 6)])
-def test_table_lane_kernels_match_plain_on_card(cuda, k, steps):
+@pytest.mark.parametrize("kind", ["random", "scale"])
+@pytest.mark.parametrize("k,steps", [(8, 40), (100, 12), (1024, 6), (4096, 4)])
+def test_table_lane_kernels_match_plain_on_card(cuda, kind, k, steps):
     """D1 and D2 (kernels) against the plain versions: words and counts, then
     the symbols and carries of three chained segments, from per-lane rows
-    and from the flat compaction; escapes forced."""
+    and from the flat compaction, through the wrapper's D2 variant and
+    every other one that takes the table; escapes forced."""
     from reslic_tcm_tpu_torch.coding import analytic_rans as ar
     from reslic_tcm_tpu_torch.coding import device_kernels as dk
     from reslic_tcm_tpu_torch.coding import device_rans as dr
 
-    tables = coder_tables(40)
-    sym, idx = coder_symbols(41, k * steps, tables[0].shape[0])
+    tables, make_symbols = _table_case(kind)
+    sym, idx = make_symbols(41, k * steps, tables[0].shape[0])
     tc, tg = dr.lane_tables(*tables, "cpu"), dr.lane_tables(*tables, cuda)
     (sym_c, idx_c), (sym_g, idx_g) = _coder_plain_and_card(cuda, sym, idx)
     cap = steps * 3 + 2
@@ -718,24 +728,68 @@ def test_table_lane_kernels_match_plain_on_card(cuda, k, steps):
                                        small)
     assert torch.equal(w_small.cpu(), want_w[:, :small]) and torch.equal(c_small.cpu(), want_c)
     flat, _ = ar.compact_stream(want_w, want_c, int(want_c.sum()))
+    variants = dk.decode_variants(tg.search)
+    assert len(variants) == len(dk.TABLE_DECODE_VARIANTS)  # both tables fit
     for stream, offsets in ((want_w, None), (flat, ar.lane_offsets(want_c))):
-        carry_c = dr.decoder_init(stream, want_c, offsets)
-        carry_g = tuple(t.to(cuda) for t in carry_c)
         stream_g = stream.to(cuda)
         offsets_g = None if offsets is None else offsets.to(cuda)
+        base_g = dr.lane_base(stream_g, k, offsets_g)
+        carry_c = dr.decoder_init(stream, want_c, offsets)
+        carry_g = tuple(t.to(cuda) for t in carry_c)
+        forced = {v: tuple(t.to(cuda) for t in carry_c) for v in variants}
         for part in np.array_split(np.arange(k * steps).reshape(steps, k), 3):
             part = part.reshape(-1)
             carry_g, got = dr.decode_segment(carry_g, stream_g, idx_g[part], tg.cdf,
-                                             tg.cdf_length, tg.offset, k, inverse=tg.inverse,
-                                             packed=tg.packed, lane_offsets=offsets_g)
+                                             tg.cdf_length, tg.offset, k, lane_offsets=offsets_g,
+                                             search=tg.search)
             carry_c, want = dr.decode_segment(carry_c, stream, idx_c[part], tc.cdf,
                                               tc.cdf_length, tc.offset, k, inverse=tc.inverse,
                                               packed=tc.packed, lane_offsets=offsets)
             assert torch.equal(got.cpu(), want) and torch.equal(want, sym_c[part])
             assert all(torch.equal(a.cpu(), b) for a, b in zip(carry_g, carry_c))
+            for v, (x, rp) in forced.items():
+                got = dk.decode_with(x, rp, stream_g, base_g, idx_g[part].contiguous(),
+                                     tg.search, k, v)
+                assert torch.equal(got.cpu(), want), v
+                assert torch.equal(x.cpu(), carry_c[0]) and torch.equal(rp.cpu(), carry_c[1]), v
     after = dk.launch_counts()
     assert after["encode_lanes"] == before["encode_lanes"] + 2
     assert after["decode_lanes"] == before["decode_lanes"] + 6
+
+
+@pytest.mark.cuda
+def test_d2_decodes_a_table_too_large_to_stage(cuda):
+    """A table of 200 rows of up to 2,000 entries (about 0.8 MB, past a
+    CTA's shared memory): the wrapper reads it where it lies, with the
+    plain version's bits, and a staged variant refuses it, naming its size."""
+    from reslic_tcm_tpu_torch.coding import device_kernels as dk
+    from reslic_tcm_tpu_torch.coding import device_rans as dr
+
+    k, steps = 256, 24
+    tables = coder_tables(44, r=200, width=2000)
+    sym, idx = coder_symbols(45, k * steps, 200)
+    tc, tg = dr.lane_tables(*tables, "cpu"), dr.lane_tables(*tables, cuda)
+    assert tg.search.layout.numel() * 4 > dk.MAX_SHARED_BYTES
+    variants = dk.decode_variants(tg.search)
+    assert variants and not any(staged for _, staged in variants)
+    assert not dk.decode_variant(tg.search)[1]
+    (sym_c, idx_c), (_, idx_g) = _coder_plain_and_card(cuda, sym, idx)
+    words, counts = dr.plain_encode_lanes(sym_c, idx_c, tc.cdf, tc.cdf_length, tc.offset, k,
+                                          steps * 3 + 2, tc.packed)
+    got = dr.decode_interleaved(words.to(cuda), counts.to(cuda), idx_g, tg.cdf, tg.cdf_length,
+                                tg.offset, n=k * steps, k=k, search=tg.search)
+    assert torch.equal(got.cpu(), sym_c)
+    x, rp = (t.to(cuda) for t in dr.decoder_init(words, counts))
+    words_g = words.to(cuda)
+    for v in variants:
+        got = dk.decode_with(x.clone(), rp.clone(), words_g, dr.lane_base(words_g, k, None),
+                             idx_g, tg.search, k, v)
+        assert torch.equal(got.cpu(), sym_c), v
+    size = tg.search.layout.numel() * 4
+    staged = next(v for v in dk.TABLE_DECODE_VARIANTS if v[1])
+    with pytest.raises(ValueError, match=f"this table has {size}"):
+        dk.decode_with(x, rp, words_g, dr.lane_base(words_g, k, None), idx_g, tg.search, k,
+                       staged)
 
 
 def _gaussian_case(seed, k, steps):
@@ -875,12 +929,33 @@ def test_erf_on_card_is_the_plain_erf(cuda):
 
 
 @pytest.mark.cuda
-def test_coder_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+def test_coder_wrappers_raise_on_what_the_kernels_do_not_take(cuda, monkeypatch):
     from reslic_tcm_tpu_torch.coding import device_kernels as dk
+    from reslic_tcm_tpu_torch.coding import device_rans as dr
 
     k = 64
     sig = torch.ones(k, device=cuda)
     sym = torch.zeros(k, dtype=torch.int32, device=cuda)
+    tg = dr.lane_tables(*coder_tables(40), cuda)
+    with pytest.raises(ValueError, match="int32"):
+        dk.encode_lanes(sym.long(), sym, tg.packed, tg.cdf_length, tg.offset, k, 8)
+    with pytest.raises(ValueError, match="shape"):
+        dk.encode_lanes(sym, sym[:32], tg.packed, tg.cdf_length, tg.offset, k, 8)
+    x = torch.full((k,), 1 << 16, dtype=torch.int64, device=cuda)
+    rp = torch.zeros(k, dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError, match="int64"):
+        dk.decode_lanes(x.int(), rp, sym, rp, sym, tg.search, k)
+    with pytest.raises(ValueError, match="shape"):
+        dk.decode_lanes(x[:32], rp, sym, rp, sym, tg.search, k)
+    with pytest.raises(ValueError, match="no variant"):
+        dk.decode_with(x, rp, sym, rp, sym, tg.search, k, (64, True))
+    # a variant the library was not built with: the launch fails and the
+    # wrapper raises
+    monkeypatch.setattr(dk, "TABLE_DECODE_VARIANTS", dk.TABLE_DECODE_VARIANTS + ((64, True),))
+    before = dk.launch_counts()["decode_lanes"]
+    with pytest.raises(RuntimeError, match="launch failed"):
+        dk.decode_with(x, rp, sym, rp, sym, tg.search, k, (64, True))
+    assert dk.launch_counts()["decode_lanes"] == before
     with pytest.raises(ValueError, match="float32"):
         dk.gaussian_encode_lanes(sym, sig.double(), k)
     with pytest.raises(ValueError, match="do not fill"):

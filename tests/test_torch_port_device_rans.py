@@ -320,8 +320,7 @@ def test_lane_kernels_refuse_cpu_tensors(gaussian, tables):
     x, rp = torch.zeros(K, dtype=torch.int64), torch.zeros(K, dtype=torch.int64)
     calls = [
         lambda: PK.encode_lanes(s, s, pt.packed, pt.cdf_length, pt.offset, K, 8),
-        lambda: PK.decode_lanes(x, rp, s, rp, s, pt.inverse, pt.packed, pt.cdf_length,
-                                pt.offset, K),
+        lambda: PK.decode_lanes(x, rp, s, rp, s, pt.search, K),
         lambda: PK.gaussian_encode_lanes(s, sg, K),
         lambda: PK.gaussian_decode_lanes(x, torch.zeros((), dtype=torch.int64), s, sg, K),
     ]

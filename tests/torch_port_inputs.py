@@ -99,6 +99,32 @@ def coder_symbols(seed, n, r):
     return sym, rng.integers(0, r, n).astype(np.int32)
 
 
+def scale_tables():
+    """(cdf, cdf_length, offset) int32 of the 64-row Gaussian scale table
+    every channel-AR codec codes y with (rows of 5 to 3,133 entries)."""
+    from reslic_tcm_tpu_torch.entropy.gaussian import build_scale_tables
+    from reslic_tcm_tpu_torch.ops.math import get_scale_table
+
+    t = build_scale_tables(get_scale_table().numpy())
+    return t.quantized_cdf, t.cdf_length, t.offset
+
+
+def scale_symbols(seed, n):
+    """(symbols, indexes) int32 for ``scale_tables``' rows: Gaussian symbols
+    at each row's scale, so that every part of a wide row is reached, and
+    the escapes of ``coder_symbols`` (every 29th, the int32 extremes)."""
+    from reslic_tcm_tpu_torch.ops.math import get_scale_table
+
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, 64, n).astype(np.int32)
+    scale = get_scale_table().numpy()[idx]
+    sym = np.round(rng.normal(0.0, 1.5, n) * scale).astype(np.int32)
+    esc, _ = coder_symbols(seed, n, 1)
+    sym[::29] = esc[::29]
+    sym[5 % n], sym[6 % n] = esc[5 % n], esc[6 % n]
+    return sym, idx
+
+
 def gaussian_inputs(seed, n):
     """(sigma float32, symbols int32) of n Gaussian symbols, sigma
     log-uniform over [0.05, 300], before clamping to the coder's support."""
