@@ -141,13 +141,32 @@ Drives reslic_tcm_tpu_torch only (no JAX, no PIL), in these phases:
    batches at k=4096 beside the serial host path (MP/s, median of 3; the
    last timed run of each decodes every batch's y_hat exactly) and the
    profile of one run of each, with D1-D4's device time in it.
+5f. (run before 5b) Parallel, TCM-S from the committed weights: tiled_forward
+   of one 2048x1408 mosaic of 5d's first batch (seeded synthetic 768x512
+   images, 3x3, cropped) in 512x512 tiles (overlap 64, 8 tiles a
+   chunk: 20 tiles in 3 chunks) through B1-B3, launches counted (3 x one
+   forward pass's) and the path's kernels required; the same through their
+   plain versions on the card (ops/layers.py::plain_versions: x_hat within
+   1e-4, bits within 1e-4 relative) and the monolithic forward (mean
+   |x_hat difference| < 0.02, PSNR between them > 25 dB, bpp within 5%);
+   ms, MP/s, bpp and PSNR of each and a profile of one tiled pass. Then a
+   world of one over NCCL: mesh_sharded_forward of 5d's first 768x512
+   image (halo 64) against the module's forward of the image with its two
+   zero halos (x_hat within 1e-4, bits within 1e-4 relative) and the
+   monolithic forward (mean |difference| < 0.02; the bits' gap printed),
+   shard_for_inference with compress_batch / decompress_batch of that
+   batch of 8 (streams byte-identical to the unsharded codec's, y_hat exact),
+   and shard_train_step on TCM-S at 16 x 256x256 against train_step from
+   the same weights and seed (loss within 1e-6 relative over two steps, ms
+   per step of each). The phase's wall time is printed and held to 90 s.
 6. Profile: torch.profiler over one warm forward, compress and decompress
    of each slice at 768x512 (scale_gain_sc aside), over one step of each
    train slice and over one run of the serial and each pipelined variant
    (compress_pipelined alone, without its decode): the device's
    busy time and idle share of each, and the kernels that take the most
    device time.
-7. Summary: the kernels line (B1-B4), the coder_kernels line (D1-D4), the
+7. Summary: the kernels line (B1-B4; B1-B3's launches include the tiled
+   pass's), the coder_kernels line (D1-D4), the
    card line, the wall time, and last the {"ok": true, "device": ...} line.
 
 Each slice is driven with every launch counter set to 0 just before it and
@@ -213,6 +232,9 @@ PASS_LAUNCHES = {
     "device-coder": _TCM_LAUNCHES,
     # no kernel lies on the Balle-2018 path (5x5 stride-2 convolutions, unfused GDN)
     **{f"balle-{kind}": _NO_LAUNCHES for kind in BALLE_KINDS},
+    # TCM-S's tiled pass at 2048x1408 (the parallel phase): one forward
+    # pass's launches for each of its 3 chunks of 8 tiles
+    "tiled": {"forward": {k: 3 * n for k, n in _TCM_LAUNCHES["forward"].items()}},
 }
 # the kernels each slice's path must launch
 PATH_KERNELS = {s: [k for k, n in p["forward"].items() if n] for s, p in PASS_LAUNCHES.items()}
@@ -1955,6 +1977,195 @@ def phase_device_coder(torch, device, hw, batches, repeats=DC_REPEATS):
     return codec, path_launches, coder_launches, per_kernel
 
 
+# ------------------------------- parallel -------------------------------
+
+# TCM-S over 512x512 tiles (the JAX CLI's --tile default) of one 2048x1408
+# image: 20 tiles, 3 chunks of 8 (the last padded with 4 empty tiles)
+TILED_HW = (2048, 1408)
+TILE, TILE_OVERLAP, TILE_BATCH = 512, 64, 8
+DP_BATCH, DP_HW = 16, (256, 256)
+PARALLEL_BUDGET_S = 90.0
+
+
+def _psnr(torch, a, b) -> float:
+    return float(-10 * torch.log10(((a - b) ** 2).mean()))
+
+
+def _mosaic(images, hw) -> np.ndarray:
+    """[1, h, w, 3]: ``images`` (equal sizes) laid in rows, in turn, over
+    h x w and cropped to it."""
+    ih, iw = images[0].shape[:2]
+    rows, cols = -(-hw[0] // ih), -(-hw[1] // iw)
+    grid = [[images[(r * cols + c) % len(images)] for c in range(cols)] for r in range(rows)]
+    return np.block([[[im] for im in row] for row in grid])[None, :hw[0], :hw[1]]
+
+
+def phase_parallel(torch, device, images, tiled_hw=TILED_HW, tile=TILE, tile_batch=TILE_BATCH,
+                   train_batch=DP_BATCH, train_hw=DP_HW):
+    """The parallel slice on one device, TCM-S with the committed weights,
+    on ``images`` (the pipelined phase's first batch of seeded synthetic
+    images). Tiled: ``tiled_forward`` of one ``tiled_hw`` mosaic of them
+    (tile 512, overlap 64, ``tile_batch`` a chunk) through the kernels (launches
+    counted: each chunk's forward launches B1-B3 as one forward pass does),
+    then through their plain versions on the same device (x_hat within TOL,
+    bits within 1e-4 relative) and against the monolithic forward (mean
+    |x_hat difference| below 0.02, PSNR between them above 25 dB, bpp
+    within 5%), with ms, MP/s, bpp and PSNR of each and a profile of one
+    tiled pass. Then a world of one (NCCL on the card, gloo on the CPU):
+    ``mesh_sharded_forward`` of the first image against the module's forward of
+    the image with its two 64-row zero halos (x_hat within TOL, bits within
+    1e-4 relative) and against the monolithic forward (mean |difference|
+    below 0.02, as the JAX package's test; the bits are printed: the zero
+    halo at the outer edges adds 8-9% at 768x512 on TCM-S);
+    ``shard_for_inference`` on the batch of ``images``, streams
+    byte-identical to the unsharded codec's and the decode's y_hat exact;
+    the sharded train step (``shard_train_step``) at ``train_batch`` x
+    ``train_hw`` against ``train_step`` from the same weights and seed,
+    loss within 1e-6 relative over two steps, ms per step of each. Returns
+    the tiled pass's launches."""
+    from reslic_tcm_tpu_torch.cli.train import to_device
+    from reslic_tcm_tpu_torch.ops.launches import launch_counts, reset_launch_counts
+    from reslic_tcm_tpu_torch.ops.layers import plain_versions, to_nchw, to_nhwc
+    from reslic_tcm_tpu_torch.parallel import mesh as pmesh
+    from reslic_tcm_tpu_torch.parallel.multihost import free_port, initialize_distributed
+    from reslic_tcm_tpu_torch.parallel.spatial import (STRIDES, mesh_sharded_forward, tile_grid,
+                                                       tiled_forward)
+    from reslic_tcm_tpu_torch.training.step import (create_train_state, shard_train_step,
+                                                    step_noise, train_step)
+
+    t_phase = time.perf_counter()
+    on_card = device == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+
+    def timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    codec = _load_codec(device)
+    h, w = tiled_hw
+    x = torch.from_numpy(_mosaic(images, tiled_hw)).to(device)
+    n_chunks = -(-len(tile_grid(h, w, tile, TILE_OVERLAP)) // tile_batch)
+    log(f"parallel: TCM-S from {SNAPSHOT} on {device}; tiled_forward of one {h}x{w} mosaic of "
+        f"the pipelined phase's {len(images)} seeded synthetic {images[0].shape[0]}x"
+        f"{images[0].shape[1]} images, tile {tile}, overlap {TILE_OVERLAP}, {tile_batch} tiles "
+        f"a chunk: {n_chunks} chunks; set-up {time.perf_counter() - t_phase:.1f} s")
+    run = lambda: tiled_forward(codec, x, tile, TILE_OVERLAP, tile_batch)  # noqa: E731
+    reset_launch_counts()
+    (x_tiled, bits_tiled), ms_first = timed(run)
+    launches = launch_counts()
+    want = {k: n_chunks * v if on_card else 0 for k, v in PASS_LAUNCHES["tcm"]["forward"].items()}
+    log(f"parallel tiled: launches {json.dumps(launches)} ({n_chunks} chunks x one forward "
+        f"pass's)")
+    if launches != want:
+        raise AssertionError(f"tiled launches {launches}, expected {want}")
+    (x_again, _), ms_tiled = timed(run)
+    before = launch_counts()
+    with plain_versions():
+        (x_plain, bits_plain), ms_plain = timed(run)
+    if launch_counts() != before:
+        raise AssertionError("the plain versions launched a kernel")
+    mono, ms_mono = timed(lambda: codec.forward(x))
+    x_mono = torch.clamp(mono["x_hat"], 0, 1)
+    bits_mono = _bits(torch, mono["likelihoods"])
+    err = float((x_tiled - x_plain).abs().max())
+    tol = TOL * max(1.0, float(x_plain.abs().max()))
+    mp = h * w / 1e6
+    diff = (x_tiled - x_mono).abs()
+    bpp = {"tiled": bits_tiled / (h * w), "plain": bits_plain / (h * w),
+           "monolithic": bits_mono / (h * w)}
+    log(f"parallel tiled: kernels vs plain versions on {device}: x_hat max abs err {err:.3e} "
+        f"(limit {tol:.3e}), bits {bits_tiled:.2f} vs {bits_plain:.2f} (relative "
+        f"{abs(bits_tiled - bits_plain) / bits_plain:.2e}, limit 1e-4); repeat run equal: "
+        f"{bool(torch.equal(x_tiled, x_again))}")
+    log(f"parallel tiled: {ms_tiled:.1f} ms ({mp / ms_tiled * 1e3:.2f} MP/s; first run "
+        f"{ms_first:.1f} ms), plain versions {ms_plain:.1f} ms, monolithic forward "
+        f"{ms_mono:.1f} ms ({mp / ms_mono * 1e3:.2f} MP/s); bpp tiled {bpp['tiled']:.4f}, "
+        f"monolithic {bpp['monolithic']:.4f}; PSNR tiled {_psnr(torch, x_tiled, x):.3f} dB, "
+        f"monolithic {_psnr(torch, x_mono, x):.3f} dB; tiled vs monolithic: mean |diff| "
+        f"{float(diff.mean()):.2e}, PSNR {_psnr(torch, x_tiled, x_mono):.2f} dB")
+    if not (bool(torch.isfinite(x_tiled).all()) and err <= tol
+            and abs(bits_tiled - bits_plain) <= 1e-4 * bits_plain):
+        raise AssertionError("tiled forward: the kernels disagree with their plain versions")
+    if not (float(diff.mean()) < 0.02 and _psnr(torch, x_tiled, x_mono) > 25
+            and abs(bits_tiled - bits_mono) <= 0.05 * bits_mono):
+        raise AssertionError("tiled forward strays from the monolithic forward")
+    if on_card:
+        _profile_window(torch, f"tiled TCM-S {h}x{w} ({n_chunks} chunks of {tile_batch} x "
+                        f"{tile}x{tile})", run, watch=("swin_block_kernel", "conv_gemm_kernel"))
+
+    initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0, device)
+    try:
+        backend = torch.distributed.get_backend()
+        sh, sw = images[0].shape[:2]
+        img = torch.from_numpy(images[:1]).to(device)
+        (x_sh, bits_sh), ms_sh = timed(
+            lambda: mesh_sharded_forward(codec.module, to_nchw(img), None, halo=64))
+        # one rank's halo is two bands of 64 zero rows: its forward is the
+        # module's on the image so padded, centre rows kept
+        with torch.no_grad():
+            padded = codec.module(torch.nn.functional.pad(to_nchw(img), (0, 0, 64, 64)))
+        x_pad = torch.clamp(padded["x_hat"][:, :, 64:64 + sh], 0, 1)
+        bits_pad = _bits(torch, {k: lik[:, :, 64 // STRIDES[k]:(64 + sh) // STRIDES[k]]
+                                 for k, lik in padded["likelihoods"].items()})
+        mono = codec.forward(img)
+        bits_m = _bits(torch, mono["likelihoods"])
+        d = float((to_nhwc(x_sh) - torch.clamp(mono["x_hat"], 0, 1)).abs().mean())
+        e = float((x_sh - x_pad).abs().max())
+        log(f"parallel {backend} world of 1: mesh_sharded_forward {sh}x{sw}, halo 64: "
+            f"{ms_sh:.1f} ms; against the zero-padded forward: x_hat max abs err {e:.2e} "
+            f"(limit {TOL:.0e}), bits {bits_sh:.2f} vs {bits_pad:.2f} (limit 1e-4 relative); "
+            f"against the monolithic forward: mean |x_hat diff| {d:.2e} (limit 2e-2), bits "
+            f"{bits_sh:.2f} vs {bits_m:.2f} ({bits_sh / bits_m - 1:+.2%}, not held: the zero "
+            f"halo at the outer edges)")
+        if not (e <= TOL and abs(bits_sh - bits_pad) <= 1e-4 * bits_pad and d < 0.02):
+            raise AssertionError("mesh_sharded_forward disagrees with its reference")
+
+        batch, serve_batch = images, len(images)
+        ref, ms_ref = timed(lambda: codec.compress_batch(batch))
+        served = _load_codec(device)
+        served.shard_for_inference()
+        encs, ms_enc = timed(lambda: served.compress_batch(batch))
+        dec, ms_dec = timed(lambda: served.decompress_batch([e["strings"] for e in encs],
+                                                            encs[0]["shape"]))
+        same = [e["strings"] for e in encs] == [e["strings"] for e in ref]
+        exact = bool(torch.equal(dec["y_hat"], torch.cat([e["y_hat"] for e in encs])))
+        log(f"parallel {backend} world of 1: shard_for_inference, batch {serve_batch} x "
+            f"{sh}x{sw}: compress_batch {ms_enc:.1f} ms (unsharded {ms_ref:.1f}), "
+            f"decompress_batch {ms_dec:.1f} ms; streams byte-identical to the unsharded "
+            f"codec's: {same}; y_hat exact: {exact}")
+        if not (same and exact and tuple(dec["x_hat"].shape) == (serve_batch, sh, sw, 3)):
+            raise AssertionError("data-parallel serving differs from the unsharded codec")
+
+        mesh = pmesh.make_mesh()
+        crops = _crops(train_batch, train_hw, SEED + 3)
+        one = create_train_state(_train_tcm_s(device))
+        sharded = create_train_state(pmesh.shard_params(mesh, _train_tcm_s(device)))
+        step = shard_train_step(mesh)
+        for k in range(2):
+            want, ms_one = timed(lambda: train_step(
+                one, to_device(crops, device), TRAIN_LAMBDA, step_noise(SEED, one.step, device)))
+            got, ms_dp = timed(lambda: step(
+                sharded, pmesh.shard_batch(mesh, to_device(crops, device)), TRAIN_LAMBDA,
+                step_noise(SEED, sharded.step, device)))
+            a, b = float(got["loss"]), float(want["loss"])
+            log(f"parallel {backend} world of 1: train step {k + 1}, TCM-S {train_batch} x "
+                f"{train_hw[0]}x{train_hw[1]}: shard_train_step loss {a:.6f} vs train_step "
+                f"{b:.6f} (relative {abs(a - b) / abs(b):.2e}, limit 1e-6), {ms_dp:.1f} vs "
+                f"{ms_one:.1f} ms per step")
+            if not abs(a - b) <= 1e-6 * abs(b):
+                raise AssertionError("shard_train_step differs from train_step")
+    finally:
+        torch.distributed.destroy_process_group()
+    wall = time.perf_counter() - t_phase
+    log(f"parallel: phase wall {wall:.1f} s (limit {PARALLEL_BUDGET_S:.0f} s on the card)")
+    if on_card and wall > PARALLEL_BUDGET_S:
+        raise AssertionError(f"the parallel phase took {wall:.1f} s")
+    return launches
+
+
 # -------------------------------- train ---------------------------------
 
 TRAIN_LAMBDA = 0.013
@@ -2290,6 +2501,8 @@ def main() -> int:
                                                                  1)
         _, launches["device-coder"], coder_launches, _ = phase_device_coder(
             torch, "cpu", (256, 256), pipe_batches, repeats=1)
+        launches["tiled"] = phase_parallel(torch, "cpu", pipe_batches[0], (640, 512), 256, 4,
+                                           train_batch=2, train_hw=(128, 128))
         for slice_name in TRAIN_SLICES:
             phase_train(torch, "cpu", slice_name, 2, (128, 128), 1, 2)
         log("kernels " + json.dumps({"launches": launches}))
@@ -2327,6 +2540,7 @@ def main() -> int:
     pipe_codec, pipe_batches, paths["pipelined"] = phase_pipelined(torch, "cuda", IMAGE_HW)
     _, paths["device-coder"], coder_launches, coder_per_image = phase_device_coder(
         torch, "cuda", IMAGE_HW, pipe_batches)
+    paths["tiled"] = phase_parallel(torch, "cuda", pipe_batches[0])
     torch.cuda.synchronize()
     for path, launches in paths.items():
         log(f"main path {path}: launches {json.dumps(launches)}")
@@ -2372,7 +2586,8 @@ def main() -> int:
             f"{k['max_abs_err']:.2e}, {k['ms'] * 1e3:.0f} us per forward pass "
             f"(plain {k['plain_ms'] * 1e3:.0f} us, bound {max(k['t_ops'], k['t_bytes']) * 1e3:.0f} us)")
     log("launches: the slices' main-path runs (two images each, all three passes, every "
-        "level or point of the variable-rate slices) and the pipelined phase's serial run; "
+        "level or point of the variable-rate slices), the pipelined phase's serial run, the "
+        "device-coder path's runs and the parallel phase's tiled pass (B1-B3); "
         "ms, plain_ms, library_ms and bound_ms: the kernel's launches in one 768x512 forward "
         "pass of TCM-S plus one of TCM N=128, one of TCM N=192 and one of WACNN, at their "
         "main-path shapes (kernel_per_pass lines: each slice's share); "

@@ -17,6 +17,12 @@ take the quantizer knobs they were trained with from ``--lambda_list`` and
 ``scale_gain_sc`` needs a quality map and is refused, as by the JAX CLI;
 ``--device-coder`` with another model than TCM is refused too (the JAX CLI
 reads it only on its TCM branch).
+On the TCM forward-estimate branch, as in the JAX CLI, ``--shard-spatial n``
+splits each padded image's rows over the n ranks of a process group
+(``parallel/spatial.py::mesh_sharded_forward``; one process per rank, e.g.
+``torchrun --nproc-per-node n``; n = 1 sets up a world of one), else
+``--tile t`` (with ``--tile-overlap``) runs an image whose padded side
+exceeds t as overlapping tiles (``tiled_forward``).
 Runs on the CUDA device unless ``--platform cpu``.
 """
 
@@ -42,8 +48,6 @@ PAD = 128
 # item that brings each
 _NOT_YET = {
     "bf16": "ROADMAP queue A item 15 (bf16 throughput mode)",
-    "tile": "ROADMAP queue A item 13 (parallel: spatial tiling)",
-    "shard_spatial": "ROADMAP queue A item 13 (parallel: spatial sharding)",
 }
 
 
@@ -86,13 +90,17 @@ def read_image(path) -> np.ndarray:
     return np.asarray(Image.open(path).convert("RGB"), np.float32) / 255.0
 
 
-def evaluate(codec, images, real: bool = True, log=print, device_coder: bool = False) -> dict:
+def evaluate(codec, images, real: bool = True, log=print, device_coder: bool = False,
+             tile: int = 0, tile_overlap: int = 64, shard_spatial: int = 0) -> dict:
     """Evaluate ``codec`` on HWC float32 images in [0, 1], each padded to a
     multiple of 128. Returns the averages and one record per image: bpp (the
     coded size with ``real``, else the forward estimate), PSNR, MS-SSIM in
     dB, times in ms, the kernel launches of each pass and, with ``real``,
     whether the decoder reproduced the encoder's y_hat exactly. With
-    ``device_coder`` the real codec is the analytic device coder."""
+    ``device_coder`` the real codec is the analytic device coder. The
+    forward estimate runs spatially sharded over the ``shard_spatial``
+    ranks of the process group, else tiled when ``tile`` is set and the
+    padded image's larger side exceeds it (``_forward_estimate``)."""
     dev = codec.device
     records = []
     for img in images:
@@ -123,13 +131,12 @@ def evaluate(codec, images, real: bool = True, log=print, device_coder: bool = F
         else:
             sync(dev)
             before, t0 = launch_counts(), time.perf_counter()
-            out = codec.forward(xp)
+            x_hat, bits, pixels = _forward_estimate(codec, xp, tile, tile_overlap, shard_spatial)
             sync(dev)
             rec["forward_ms"] = (time.perf_counter() - t0) * 1e3
             rec["launches_forward"] = launches_since(before)
-            x_hat = crop_nhwc(torch.clamp(out["x_hat"], 0, 1), pad)
-            bits = sum(float(-torch.log2(lik).sum()) for lik in out["likelihoods"].values())
-            rec["bpp"] = bits / (xp.shape[1] * xp.shape[2])
+            x_hat = crop_nhwc(x_hat, pad)
+            rec["bpp"] = bits / pixels
         rec["psnr"] = compute_psnr(x, x_hat)
         rec["ms_ssim_db"] = msssim_to_db(float(ms_ssim(x, x_hat)))
         if real:
@@ -156,6 +163,28 @@ def evaluate(codec, images, real: bool = True, log=print, device_coder: bool = F
     log(f"average_Bit-rate: {summary['bpp']:.3f} bpp")
     log(f"average_time: {summary['time_ms']:.3f} ms")
     return summary
+
+
+def _forward_estimate(codec, xp, tile: int, tile_overlap: int, shard_spatial: int):
+    """(x_hat clipped, NHWC at xp's size; bits; the pixels they cover) of the
+    padded NHWC image ``xp``, as the JAX CLI's forward branch: spatially
+    sharded (rows padded, edge values repeated, to a multiple of 128 a
+    rank; halo min(128, rows a rank)), tiled, or the monolithic forward."""
+    from ..ops.layers import to_nchw, to_nhwc
+    from ..parallel.spatial import mesh_sharded_forward, tiled_forward, total_bits
+
+    hp, wp = xp.shape[1], xp.shape[2]
+    if shard_spatial:
+        rows = -(-hp // (128 * shard_spatial)) * (128 * shard_spatial)
+        xs = torch.nn.functional.pad(to_nchw(xp), (0, 0, 0, rows - hp), mode="replicate")
+        x_hat, bits = mesh_sharded_forward(codec.module, xs, None,
+                                           min(128, rows // shard_spatial))
+        return to_nhwc(x_hat)[:, :hp], bits, rows * wp
+    if tile and max(hp, wp) > tile:
+        x_hat, bits = tiled_forward(codec, xp, tile, tile_overlap)
+        return x_hat, bits, hp * wp
+    out = codec.forward(xp)
+    return torch.clamp(out["x_hat"], 0, 1), total_bits(out["likelihoods"]), hp * wp
 
 
 def load_checkpoint(codec, path: str) -> None:
@@ -243,8 +272,6 @@ def _eval_generic(args, device, img_list) -> int:
 
 
 def main(argv=None):
-    from ..models.tcm import make_tcm
-
     args = parse_args(argv if argv is not None else sys.argv[1:])
     for flag, item in _NOT_YET.items():
         if getattr(args, flag):
@@ -254,6 +281,22 @@ def main(argv=None):
             f"--device-coder codes TCM only, as in the JAX CLI (its other models take the host "
             f"coder); drop it for --model {args.model}")
     device = _device(args)
+    if not args.shard_spatial:
+        return _main(args, device, print)
+    from ..parallel.multihost import ensure_world, is_coordinator
+
+    created = not torch.distributed.is_initialized()
+    ensure_world(args.shard_spatial, device)
+    try:
+        return _main(args, device, print if is_coordinator() else lambda *_: None)
+    finally:
+        if created:
+            torch.distributed.destroy_process_group()
+
+
+def _main(args, device, log) -> int:
+    from ..models.tcm import make_tcm
+
     img_list = list_images(args.data)
     if not img_list:
         print(f"no images under {args.data}")
@@ -270,8 +313,9 @@ def main(argv=None):
         load_checkpoint(codec, args.checkpoint)
     if args.real:
         codec.update()
-    evaluate(codec, (read_image(p) for p in img_list), real=args.real,
-             device_coder=args.device_coder)
+    evaluate(codec, (read_image(p) for p in img_list), real=args.real, log=log,
+             device_coder=args.device_coder, tile=args.tile, tile_overlap=args.tile_overlap,
+             shard_spatial=args.shard_spatial)
     return 0
 
 

@@ -17,6 +17,14 @@ snapshot of JAX parameters (a warm start) or the port's own checkpoint,
 whose optimisers, scheduler, step and epoch ``--continue_train`` resumes.
 Runs on the CUDA device unless ``--platform cpu``. wandb is not ported.
 
+``--coordinator host:port --num_processes n --process_id i`` makes the run
+one rank of n (NCCL on the card, gloo with ``--platform cpu``; rank 0
+listens at the coordinator): ``--batch-size`` is then global, each rank
+loads its rows (its own shuffle, seeded with ``--seed`` + rank) and takes
+the data-parallel step (``training/step.py::shard_train_step``), every rank
+keeps the same rate level, validation loss and learning rate, and only
+rank 0 saves.
+
     python -m reslic_tcm_tpu_torch.cli.train -m tcm --N 64 -d <root with
         train/data and test/data> --lambda_list 0.013 --save_path runs/
 """
@@ -37,7 +45,6 @@ from .eval import load_checkpoint as load_snapshot
 # options the port does not run yet, with the ROADMAP item that brings each
 _NOT_YET = {
     "bf16": "ROADMAP queue A item 15 (bf16 throughput mode)",
-    "coordinator": "ROADMAP queue A item 13 (parallel: multi-host training)",
 }
 
 
@@ -57,11 +64,24 @@ def main(argv=None):
         if getattr(args, flag):
             raise NotImplementedError(f"--{flag} is not ported yet: {item}")
     device = _device(args)
+    if args.coordinator:
+        from ..parallel.multihost import initialize_distributed
 
+        initialize_distributed(args.coordinator, args.num_processes, args.process_id, device)
+    try:
+        return _train(args, device)
+    finally:
+        if args.coordinator:
+            torch.distributed.destroy_process_group()
+
+
+def _train(args, device) -> int:
     from ..data.datasets import ImageFolder, KodakDataset, Loader
     from ..models import get_model
+    from ..parallel.mesh import make_mesh, shard_params
+    from ..parallel.multihost import is_coordinator, local_batch_size, rank_and_size
     from ..training.optimizer import set_learning_rate
-    from ..training.step import create_train_state, step_noise, train_step
+    from ..training.step import create_train_state, shard_train_step, step_noise, train_step
     from ..utils.checkpoint import ReduceLROnPlateau, load_checkpoint, restore
     from ..utils.helper import AverageMeter, sec_to_hours
 
@@ -76,7 +96,9 @@ def main(argv=None):
                            patch_size=patch, train=True)
     valid_ds = ImageFolder(args.dataset, num_images=args.num_images_val, split="test",
                            patch_size=patch, train=False)
-    train_loader = Loader(train_ds, args.batch_size, seed=seed)
+    mesh = make_mesh() if args.coordinator else None
+    train_loader = Loader(train_ds, local_batch_size(args.batch_size, mesh),
+                          seed=seed + rank_and_size(mesh)[0])
     valid_loader = Loader(valid_ds, args.test_batch_size, seed=0, shuffle=False,
                           drop_last=False)
     kodak = KodakDataset(args.kodak) if os.path.isdir(args.kodak) else None
@@ -92,6 +114,10 @@ def main(argv=None):
             restored = load_checkpoint(args.checkpoint)
             module.load_state_dict(restored["state_dict"])
 
+    step_fn = train_step
+    if mesh is not None:
+        shard_params(mesh, module)
+        step_fn = shard_train_step(mesh)
     is_stanh = is_stanh_name(args.model)
     _warn_frozen_uniform_levels(args)
     if args.freeze and is_stanh:
@@ -120,7 +146,7 @@ def main(argv=None):
         for i, batch in enumerate(train_loader):
             p = random.randint(0, len(lambda_list) - 1)
             beta = float(ann_g.beta) if (is_stanh and ann_g is not None) else None
-            metrics = train_step(state, to_device(batch, device), lambda_list[p],
+            metrics = step_fn(state, to_device(batch, device), lambda_list[p],
                                  step_noise(seed, state.step, device), args.type, lv=p,
                                  beta=beta)
             if is_stanh and ann_g is not None:
@@ -142,7 +168,7 @@ def main(argv=None):
         set_learning_rate(state.optimizer, scheduler.step(val_loss))
         is_best = val_loss < best_loss
         best_loss = min(val_loss, best_loss)
-        if args.save:
+        if args.save and is_coordinator():
             _save(args, state, scheduler, epoch, val_loss, is_best)
         sec_to_hours(time.time() - start)
         print("END OF EPOCH ", epoch)

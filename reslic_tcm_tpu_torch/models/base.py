@@ -43,6 +43,11 @@ that event and runs rANS. ``compress_pipelined`` enqueues batch i+1 while
 a worker thread codes batch i; ``roundtrip_pipelined`` also decodes batch
 i in worker threads while the next batches encode. On the CPU the same
 code runs in order.
+
+Data-parallel serving (``shard_for_inference``): with the codec on every
+rank of a process group, ``compress_batch`` and ``decompress_batch`` code a
+batch that the ranks divide in rows, rank r its own, and hand every rank
+the whole batch's results.
 """
 
 from __future__ import annotations
@@ -61,6 +66,8 @@ from ..entropy import factorized as fz
 from ..entropy.gaussian import GaussianConditional
 from ..ops.layers import to_nchw, to_nhwc
 from ..ops.math import build_indexes, gaussian_likelihood, ste_round
+from ..parallel.multihost import (broadcast_module, distribute_batch, gather_cat,
+                                  gather_objects, rank_and_size)
 
 
 _numerics_lock = threading.Lock()
@@ -308,6 +315,8 @@ class ChannelARCodec:
         self._scale_table: torch.Tensor | None = None
         self._medians: np.ndarray | None = None
         self._lane_tables: dict = {}
+        self._sharded = False  # shard_for_inference
+        self._inference_mesh = None
 
     def _upload(self, x) -> torch.Tensor:
         """NHWC image(s) in [0, 1] as float32 NHWC on the codec's device. A
@@ -453,8 +462,38 @@ class ChannelARCodec:
 
     def compress_batch(self, x, lv: int = 0) -> list[dict]:
         """Encode a batch at rate level ``lv``: the device stage, then each
-        image's y and z streams on the host."""
-        return self._code_staged(self._encode_device_stage(x, lv), lv)
+        image's y and z streams on the host. After ``shard_for_inference``
+        a batch that the ranks divide is coded in rows, and every rank
+        returns every image's entry."""
+        if not self._split(len(x)):
+            return self._code_staged(self._encode_device_stage(x, lv), lv)
+        mesh = self._inference_mesh
+        encs = self._code_staged(self._encode_device_stage(distribute_batch(mesh, x), lv), lv)
+        # the streams go through the host, y_hat stays on the device
+        y_hat = gather_cat(torch.cat([e.pop("y_hat") for e in encs]), mesh)
+        encs = gather_objects(encs, mesh)
+        for e, y in zip(encs, y_hat.split(1)):
+            e["y_hat"] = y
+        return encs
+
+    def shard_for_inference(self, mesh=None) -> None:
+        """Data-parallel serving over the data ranks of ``mesh`` (a
+        DeviceMesh, a ProcessGroup, or None for the default group), the
+        codec on each rank's device: the first rank's weights are broadcast
+        to every rank (and the tables rebuilt if ``update()`` had run), and
+        from then on ``compress_batch`` and ``decompress_batch`` split each
+        batch that the ranks divide into contiguous rows, one block a rank,
+        and gather the results; other batches run whole on every rank. The
+        streams are the one-process codec's, byte for byte."""
+        broadcast_module(self.module, mesh)
+        self._sharded, self._inference_mesh = True, mesh
+        if self.eb_tables is not None:
+            self.update()
+
+    def _split(self, b: int) -> bool:
+        """Whether a batch of ``b`` is split over the ranks: sharded, and
+        the ranks divide it."""
+        return self._sharded and b % rank_and_size(self._inference_mesh)[1] == 0
 
     def _code_staged(self, staged: dict, lv: int) -> list[dict]:
         """The host stage of a staged batch: wait for its copies, then code
@@ -509,12 +548,20 @@ class ChannelARCodec:
     def decompress(self, strings, shape, lv: int = 0) -> dict:
         return self.decompress_batch([strings], shape, lv)
 
-    @torch.no_grad()
-    @fp32_numerics()
     def decompress_batch(self, strings_list, shape, lv: int = 0) -> dict:
         """Decode B bitstreams coded at rate level ``lv`` together; each
         image keeps its own rANS decoder state. Returns {"x_hat": NHWC in
-        [0, 1], "y_hat": NHWC}."""
+        [0, 1], "y_hat": NHWC}. After ``shard_for_inference`` a batch that
+        the ranks divide is decoded in rows and gathered on every rank."""
+        if not self._split(len(strings_list)):
+            return self._decompress_batch(strings_list, shape, lv)
+        mesh = self._inference_mesh
+        dec = self._decompress_batch(distribute_batch(mesh, strings_list), shape, lv)
+        return {k: gather_cat(v, mesh) for k, v in dec.items()}
+
+    @torch.no_grad()
+    @fp32_numerics()
+    def _decompress_batch(self, strings_list, shape, lv: int = 0) -> dict:
         self._require_tables()
         from ..coding.rans import RansDecoder
 

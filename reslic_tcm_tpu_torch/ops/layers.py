@@ -7,15 +7,19 @@ ResidualBlockUpsample reach the fused-conv kernels (``ops/fused_conv.py``)
 through their wrappers, which run the kernel on a CUDA tensor and the plain
 PyTorch version on a CPU tensor.
 
-Routing, for these blocks and the window-attention modules: while autograd
-records (``records_grad``: grad mode on and a parameter that wants a
-gradient) a module takes its composed branch, the JAX package's unfused
-layers, on either device; otherwise it calls the kernel wrapper. The
-kernels have no backward, and their wrappers raise on tensors that want a
-gradient, so a routing mistake fails loudly.
+Routing, for these blocks and the window-attention modules (``composed``):
+while autograd records (``records_grad``: grad mode on and a parameter
+that wants a gradient), or inside ``plain_versions()``, a module takes its
+composed branch, the JAX package's unfused layers, on either device;
+otherwise it calls the kernel wrapper. The kernels have no backward, and
+their wrappers raise on tensors that want a gradient, so a routing mistake
+fails loudly.
 """
 
 from __future__ import annotations
+
+import contextlib
+import contextvars
 
 import torch
 import torch.nn.functional as F
@@ -38,6 +42,27 @@ def records_grad(module: nn.Module) -> bool:
     """True while autograd records through ``module``: grad mode is on and
     one of its parameters wants a gradient (the composed branch's cue)."""
     return torch.is_grad_enabled() and any(p.requires_grad for p in module.parameters())
+
+
+_PLAIN_VERSIONS = contextvars.ContextVar("plain_versions", default=False)
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Inside this block every kernel layer takes its composed branch on
+    either device: on the card, the plain versions of B1-B4 that a kernel
+    run is held against. Per thread (a context variable)."""
+    token = _PLAIN_VERSIONS.set(True)
+    try:
+        yield
+    finally:
+        _PLAIN_VERSIONS.reset(token)
+
+
+def composed(module: nn.Module) -> bool:
+    """The routing rule: the composed branch while autograd records through
+    ``module`` or inside ``plain_versions()``, else the kernel wrapper."""
+    return _PLAIN_VERSIONS.get() or records_grad(module)
 
 
 class DropPath(nn.Module):
@@ -175,7 +200,7 @@ class ResidualBlock(nn.Module):
         self.conv2 = conv3x3(channels, channels)
 
     def forward(self, x):
-        if records_grad(self):
+        if composed(self):
             return leaky_relu(self.conv2(leaky_relu(self.conv1(x)))) + x
         out = fused_residual_block(
             to_nhwc(x), self.conv1.weight, self.conv1.bias,
@@ -198,7 +223,7 @@ class ResidualBlockWithStride(nn.Module):
     def forward(self, x):
         out = leaky_relu(self.conv1(x))
         skip = self.skip(x) if self.skip is not None else x
-        if records_grad(self):
+        if composed(self):
             return self.gdn(self.conv2(out)) + skip
         beta, gamma = self.gdn.derived()
         res = fused_conv_gdn(
@@ -222,7 +247,7 @@ class ResidualBlockUpsample(nn.Module):
     def forward(self, x):
         out = leaky_relu(self.subpel_conv(x))
         identity = self.upsample(x)
-        if records_grad(self):
+        if composed(self):
             return self.igdn(self.conv(out)) + identity
         beta, gamma = self.igdn.derived()
         res = fused_conv_gdn(

@@ -15,9 +15,9 @@ Routing follows the JAX package:
 * WindowAttention on a batch of windows is ``fused_qkv_attention`` (kernel
   B4).
 
-While autograd records (``layers.records_grad``) each module takes its
-composed branch instead, on either device, as the JAX package does in
-training: SwinTransformerBlock LN -> WMSA (-inf mask) -> DropPath -> LN ->
+While autograd records, or inside ``layers.plain_versions()``
+(``layers.composed``), each module takes its composed branch instead, on
+either device, as the JAX package does in training: SwinTransformerBlock LN -> WMSA (-inf mask) -> DropPath -> LN ->
 MLP -> DropPath, WinBasedAttention its pad/roll/-100-mask path, and
 WindowAttention the composed qkv -> softmax -> proj (B4's plain version on
 the live parameters).
@@ -40,7 +40,7 @@ from torch import nn
 
 from .flash_window_attn import (KERNEL_WINDOW, flash_window_block, prepare_window_block,
                                 shift_window_mask, window_partition, window_reverse)
-from .layers import DropPath, ResidualUnit, conv1x1, records_grad, to_nchw, to_nhwc
+from .layers import DropPath, ResidualUnit, composed, conv1x1, to_nchw, to_nhwc
 from .qkv_attention import fused_qkv_attention, plain_qkv_attention, prepare_qkv_attention
 
 
@@ -144,7 +144,7 @@ class SwinTransformerBlock(nn.Module):
     def forward(self, x):
         msa = self.msa
         w = msa.window_size
-        if w != KERNEL_WINDOW or records_grad(self):
+        if w != KERNEL_WINDOW or composed(self):
             x = x + self.drop_path(msa(self.ln1(x)))
             return x + self.drop_path(self.mlp(self.ln2(x)))
         shifted = msa.type != "W"
@@ -242,7 +242,7 @@ class WindowAttention(nn.Module):
     def forward(self, x, mask=None):
         """x: [B_, N, C] windows; mask: [nW, N, N] additive (window i takes
         mask[i % nW]) or None."""
-        if records_grad(self):
+        if composed(self):
             return plain_qkv_attention(x, self.qkv.weight, self.qkv.bias, self.rel_bias(),
                                        self.proj.weight, self.proj.bias, mask)
         args, prepared = self.kernel_weights()
@@ -277,7 +277,7 @@ class WinBasedAttention(nn.Module):
     def forward(self, x):
         w, s = self.window_size, self.shift_size
         if w % KERNEL_WINDOW == 0 and s in (0, w // 2) and x.shape[1] % w == 0 \
-                and x.shape[2] % w == 0 and not records_grad(self):
+                and x.shape[2] % w == 0 and not composed(self):
             return self._fused(x)
         shortcut = x
         oh, ow = x.shape[1], x.shape[2]

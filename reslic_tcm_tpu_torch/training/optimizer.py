@@ -54,20 +54,23 @@ def configure_optimizers(module: nn.Module, learning_rate: float = 1e-4,
 
 
 @torch.no_grad()
-def clip_by_global_norm(params, max_norm: float | None) -> torch.Tensor:
+def clip_by_global_norm(params, max_norm: float | None, norm=None) -> torch.Tensor:
     """optax's clip_by_global_norm on the ``.grad`` of ``params``: the
     gradients stay as they are when their global norm is below
     ``max_norm`` and become g / norm * max_norm otherwise (no clipping when
     ``max_norm`` is 0 or None). Unlike ``clip_grad_norm_`` it adds no 1e-6
     to the norm. A parameter without a gradient gets zeros (optax counts it
     as a zero gradient). A few foreach launches in all, however many
-    tensors. Returns the norm before clipping."""
+    tensors. ``norm``: the global norm where the caller has it (the sharded
+    step's, over every rank's slices), else computed here. Returns the norm
+    before clipping."""
     grads = []
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
         grads.append(p.grad)
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    if norm is None:
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
     if max_norm:
         # g / 1 * 1 is g: one pair of launches either way, and no host sync
         one = torch.ones_like(norm)

@@ -16,6 +16,17 @@ TF32 flags. The rate level ``lv`` and the STanH temperature ``beta`` reach
 the modules whose forward takes them, as in the JAX step; the STanH
 codecs' ``gap_gaussian`` output becomes the ``gap`` metric (0 elsewhere),
 which the trainer feeds to the beta annealing.
+
+``shard_train_step(mesh)`` is the same step data-parallel over the mesh's
+"data" ranks (and tensor-parallel over its "model" ranks where
+``parallel.mesh.shard_params(tp=True)`` sliced the module): each rank
+feeds its rows of the global batch and keeps its rows of the global
+batch's noise, the gradients are averaged over the data ranks before the
+clip (as the JAX step's all-reduce precedes optax's clip), the aux
+gradients likewise, and the loss metrics are the global batch's. With the
+same seed, a world of n ranks takes the one-process step on the whole
+batch. An explicit bucketed ``all_reduce``, not DistributedDataParallel:
+the step runs two optimisers and the aux backward outside the forward.
 """
 
 from __future__ import annotations
@@ -70,35 +81,63 @@ def _level_kwargs(module: nn.Module, lv, beta) -> dict:
 
 @fp32_numerics()
 def train_step(state: TrainState, batch: torch.Tensor, lmbda: float, noise,
-               loss_type: str = "mse", lv: int | None = None, beta: float | None = None
-               ) -> dict:
+               loss_type: str = "mse", lv: int | None = None, beta: float | None = None,
+               sync=None) -> dict:
     """One step on ``batch`` (NCHW in [0, 1], on the module's device) with
     the ``noise`` callable of the training forward, at rate level ``lv``
     and STanH temperature ``beta`` where the module takes them. Updates the
     state in place; returns the metrics as 0-d tensors: loss, bpp_loss,
     mse_loss (or ms_ssim_loss), gap, grad_norm (the main gradients' global
-    norm before the clip) and aux_loss (after the aux step)."""
+    norm before the clip) and aux_loss (after the aux step). ``sync``: the
+    sharded step's ``parallel.mesh.GradientSync`` (``shard_train_step``),
+    None in one process."""
     module = state.module
     state.optimizer.zero_grad(set_to_none=True)
     out = module(batch, training=True, noise=noise, **_level_kwargs(module, lv, beta))
     losses = rate_distortion_loss(out, batch, lmbda, loss_type)
     losses["loss"].backward()
-    grad_norm = clip_by_global_norm(state.optimizer.param_groups[0]["params"],
-                                    state.clip_max_norm)
+    params = state.optimizer.param_groups[0]["params"]
+    norm = None
+    if sync is not None:
+        sync.reduce(params)
+        norm = sync.norm(params)
+    grad_norm = clip_by_global_norm(params, state.clip_max_norm, norm)
     state.optimizer.step()
 
     if state.aux_optimizer is not None:
         state.aux_optimizer.zero_grad(set_to_none=True)
         module.aux_loss().backward()
+        if sync is not None:
+            sync.reduce(state.aux_optimizer.param_groups[0]["params"])
         state.aux_optimizer.step()
 
     metrics = {k: v.detach() for k, v in losses.items()}
     metrics["gap"] = out.get("gap_gaussian", losses["loss"].new_zeros(())).detach()
+    if sync is not None:
+        metrics = sync.mean(metrics)
     metrics["grad_norm"] = grad_norm
     with torch.no_grad():
         metrics["aux_loss"] = module.aux_loss()
     state.step += 1
     return metrics
+
+
+def shard_train_step(mesh):
+    """``train_step`` sharded over ``mesh`` (``parallel.mesh.make_mesh``;
+    the module placed by ``shard_params``): the returned step(state, batch,
+    lmbda, noise, loss_type="mse", lv=None, beta=None) takes this rank's
+    rows of the global batch (``parallel.mesh.shard_batch``) and the global
+    batch's ``noise`` callable (``step_noise`` at the same seed on every
+    rank), and returns the global batch's metrics on every rank."""
+    from ..parallel.mesh import GradientSync, rank_noise
+    from ..parallel.multihost import rank_and_size
+
+    rank, size = rank_and_size(mesh)
+
+    def step(state: TrainState, batch, lmbda, noise, loss_type="mse", lv=None, beta=None):
+        return train_step(state, batch, lmbda, rank_noise(noise, rank, size), loss_type, lv,
+                          beta, sync=GradientSync(mesh, state.module))
+    return step
 
 
 @torch.no_grad()

@@ -998,3 +998,67 @@ def test_tcm_s_device_coder_on_card(cuda):
     dec = codec.decompress_device_analytic(enc)
     assert torch.equal(dec["y_hat"], enc["y_hat"])
     assert all(n > 0 for n in dk.launch_counts().values()), dk.launch_counts()
+
+
+@pytest.mark.cuda
+def test_tiled_tcm_on_card_matches_its_plain_versions(cuda):
+    """``parallel/spatial.py::tiled_forward`` of TCM (N=64, seeded random
+    weights) on a 640x512 image in 256x256 tiles (overlap 64, 4 a chunk:
+    12 tiles, 3 chunks) through B1-B3, each chunk launching them as one
+    forward pass does, against the same on the card through their plain
+    versions (``plain_versions``): x_hat within 1e-4, bits within 1e-4
+    relative."""
+    from reslic_tcm_tpu_torch.data.synthetic import synth_image
+    from reslic_tcm_tpu_torch.models.tcm import make_tcm
+    from reslic_tcm_tpu_torch.ops.launches import launch_counts, launches_since
+    from reslic_tcm_tpu_torch.ops.layers import plain_versions
+    from reslic_tcm_tpu_torch.parallel.spatial import tiled_forward
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    codec = make_tcm(N=64, M=320, device=cuda, seed=2)
+    img = synth_image(np.random.default_rng(5), 640, 512)[None]
+    before = launch_counts()
+    x_hat, bits = tiled_forward(codec, img, 256, 64, 4)
+    assert launches_since(before) == {"flash_window_block": 96, "fused_residual_block": 54,
+                                      "fused_conv_gdn": 27, "fused_qkv_attention": 0}
+    before = launch_counts()
+    with plain_versions():
+        x_plain, bits_plain = tiled_forward(codec, img, 256, 64, 4)
+    assert not any(launches_since(before).values())
+    err_ok(x_hat.cpu().numpy(), x_plain.cpu().numpy(), TOL_CARD)
+    assert abs(bits - bits_plain) <= 1e-4 * bits_plain, (bits, bits_plain)
+
+
+@pytest.mark.cuda
+def test_mesh_sharded_forward_over_nccl_in_a_world_of_one(cuda):
+    """A world of one over NCCL: ``mesh_sharded_forward`` of TCM (N=64,
+    random weights) at 768x512, halo 64, equals the module's forward of the
+    image with its two 64-row zero halos (x_hat within 1e-4, bits within
+    1e-4 relative) and stays within 0.02 mean |difference| of the
+    monolithic forward (tests/test_spatial.py's limit)."""
+    from reslic_tcm_tpu_torch.data.synthetic import synth_image
+    from reslic_tcm_tpu_torch.models.tcm import make_tcm
+    from reslic_tcm_tpu_torch.ops.layers import to_nchw
+    from reslic_tcm_tpu_torch.parallel.multihost import free_port, initialize_distributed
+    from reslic_tcm_tpu_torch.parallel.spatial import STRIDES, mesh_sharded_forward
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    codec = make_tcm(N=64, M=320, device=cuda, seed=3)
+    x = to_nchw(torch.from_numpy(synth_image(np.random.default_rng(6), 768, 512)[None]).to(cuda))
+    initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0, "cuda")
+    try:
+        assert torch.distributed.get_backend() == "nccl"
+        x_hat, bits = mesh_sharded_forward(codec.module, x, halo=64)
+    finally:
+        torch.distributed.destroy_process_group()
+    with torch.no_grad():
+        padded = codec.module(torch.nn.functional.pad(x, (0, 0, 64, 64)))
+        mono = codec.module(x)
+    want = torch.clamp(padded["x_hat"][:, :, 64:64 + 768], 0, 1)
+    want_bits = sum(float(-torch.log2(lik[:, :, 64 // STRIDES[k]:(64 + 768) // STRIDES[k]]).sum())
+                    for k, lik in padded["likelihoods"].items())
+    err_ok(x_hat.cpu().numpy(), want.cpu().numpy(), TOL_CARD)
+    assert abs(bits - want_bits) <= 1e-4 * want_bits, (bits, want_bits)
+    assert float((x_hat - torch.clamp(mono["x_hat"], 0, 1)).abs().mean()) < 0.02

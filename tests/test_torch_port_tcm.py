@@ -203,7 +203,8 @@ def test_load_checkpoint_reads_npz_snapshots(pair, tmp_path):
         assert torch.equal(codec.module.state_dict()[k], want), k
 
 
-@pytest.mark.parametrize("flag", [["--bf16"], ["--device-coder"], ["--tile", "512"],
+@pytest.mark.parametrize("flag", [["--bf16"], ["--device-coder"],
+                                  ["--tile", "128", "--tile-overlap", "32"],
                                   ["--shard-spatial", "2"],
                                   ["--model", "wacnn_gain", "--device-coder"]])
 def test_eval_cli_refuses_unported_options(flag, tmp_path, capsys):
@@ -211,18 +212,28 @@ def test_eval_cli_refuses_unported_options(flag, tmp_path, capsys):
     raise, naming their ROADMAP item. ``--device-coder`` is ported (ROADMAP
     A12): with TCM it codes a tiny image folder on the CPU through the
     analytic device coder and prints bpp and PSNR; with another model it
-    raises, since the JAX CLI reads it only on its TCM branch."""
-    if flag == ["--device-coder"]:
+    raises, since the JAX CLI reads it only on its TCM branch. ``--tile``
+    is ported (A13): the forward estimate of the same folder through
+    128x128 tiles. ``--shard-spatial 2`` is ported too, and raises here
+    because no process group of two ranks runs it."""
+    if flag[0] in ("--device-coder", "--tile"):
         from PIL import Image
 
         from reslic_tcm_tpu_torch.data.synthetic import synth_image
 
         img = synth_image(np.random.default_rng(6), 176, 192)
         Image.fromarray((img * 255).round().astype(np.uint8)).save(tmp_path / "a.png")
+        real = ["--real"] if flag == ["--device-coder"] else []
         assert peval.main(["--data", str(tmp_path), "--platform", "cpu", "--N", "32",
-                           "--M", "80", "--real", *flag]) == 0
+                           "--M", "80", *real, *flag]) == 0
         out = capsys.readouterr().out
-        assert "Bitrate:" in out and "PSNR:" in out and "average_Bit-rate:" in out
+        assert "PSNR:" in out and "average_Bit-rate:" in out
+        if real:
+            assert "Bitrate:" in out
+        return
+    if flag == ["--shard-spatial", "2"]:
+        with pytest.raises(ValueError, match="process group"):
+            peval.main(["--data", ".", "--platform", "cpu", *flag])
         return
     match = "TCM only" if "--model" in flag else "ROADMAP"
     with pytest.raises(NotImplementedError, match=match):

@@ -480,7 +480,10 @@ def test_train_cli_runs_an_epoch_and_the_tester(tmp_path, capsys):
 
 @pytest.mark.parametrize("argv, refusal", [
     (["--bf16"], (NotImplementedError, "item 15")),
-    (["--coordinator", "localhost:1"], (NotImplementedError, "item 13")),
+    # --coordinator is ported (item 13): without the process count and this
+    # process's id it is refused (tests/test_torch_port_parallel.py trains
+    # through it)
+    (["--coordinator", "localhost:1"], (ValueError, "process count")),
     # the last two cases keep the ids they had while STanH (item 10) and then
     # the gain codecs (item 11) were refused: wacnn_gain now trains an epoch;
     # scale_gain_sc stays refused, as no train step feeds its quality map

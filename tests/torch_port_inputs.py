@@ -6,6 +6,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+# the tiny TCM of the parallel slice's tests (tests/test_torch_port_tiled.py,
+# tests/test_torch_port_parallel.py and its worker)
+TINY_TCM = dict(N=32, M=40, hyper_ch=24, atten_inter_dim=16)
+
 
 def err_ok(got, want, tol) -> float:
     got, want = np.asarray(got), np.asarray(want)
