@@ -36,6 +36,15 @@ Drives reslic_tcm_tpu_torch only (no JAX, no PIL), in these phases:
    kernel's device time over 10 interleaved rounds of launches is printed.
    Where the profiler loses kernel records three times over, a device time
    is printed as not measured (NaN or null) beside the CUDA-event time.
+   Then the bf16 instances (csrc/fused_conv_bf16.cu, csrc/flash_window_attn_bf16.cu)
+   at the TCM-S, N=128 and N=192 main-path shapes of B1 (LN+MLP), B2 and
+   B3: each against its plain bf16 version on the card (max abs error
+   against 4e-3 * max(1, max |plain|): the two round the same operands to
+   bf16 and sum in other orders, so a value can round to the neighbouring
+   bf16 value), its device time beside the fp32 instance's on the same
+   input (both with prepared weights), the bound (bf16 tensor-core peak
+   989 TFLOP/s vs 3.35 TB/s, weights counted in bf16); B2/B3's other tile
+   and B1's other cluster on the same input give the same bits.
 4. TCM slices, each evaluate() on two seeded 768x512 synthetic images, the
    forward estimate and then real compress -> decompress, asserting an
    exact decode of y_hat, the documented kernel launches per pass, and
@@ -159,6 +168,14 @@ Drives reslic_tcm_tpu_torch only (no JAX, no PIL), in these phases:
    and shard_train_step on TCM-S at 16 x 256x256 against train_step from
    the same weights and seed (loss within 1e-6 relative over two steps, ms
    per step of each). The phase's wall time is printed and held to 90 s.
+5g. (run before 5b) bf16 mode (ChannelARCodec.set_matmul_precision("bfloat16"),
+   the eval CLI's --bf16): TCM-S with the committed weights and TCM N=192
+   with seeded weights (phase 4's codecs) on phase 4's two 768x512 images:
+   the forward estimate, compress and decompress (exact y_hat, the
+   documented launches per pass, every one a bf16 instance), and on TCM-S
+   the table device coder's pair (exact y_hat); bpp and PSNR beside the
+   same codec's fp32 forward; the device's busy time and idle share of one
+   profiled forward in each mode; the phase's wall time.
 6. Profile: torch.profiler over one warm forward, compress and decompress
    of each slice at 768x512 (scale_gain_sc aside), over one step of each
    train slice and over one run of the serial and each pipelined variant
@@ -166,7 +183,8 @@ Drives reslic_tcm_tpu_torch only (no JAX, no PIL), in these phases:
    busy time and idle share of each, and the kernels that take the most
    device time.
 7. Summary: the kernels line (B1-B4; B1-B3's launches include the tiled
-   pass's), the coder_kernels line (D1-D4), the
+   pass's; B1-B3's bf16 instances as rows of their own, their launches the
+   bf16 phase's), the coder_kernels line (D1-D4), the
    card line, the wall time, and last the {"ok": true, "device": ...} line.
 
 Each slice is driven with every launch counter set to 0 just before it and
@@ -188,9 +206,11 @@ import time
 
 import numpy as np
 
-BUDGET_S = 900
+BUDGET_S = 1150  # seconds; a run must end within 1200 (a full run on an H100 took 856)
 TOL = 1e-4
+TOL_BF16 = 4e-3  # bf16 instances vs their plain bf16 versions (phase 3's docstring)
 PEAK_FLOPS = 67e12  # H100 SXM fp32, CUDA cores (NVIDIA data sheet)
+PEAK_BF16_FLOPS = 989e12  # H100 SXM bf16, dense tensor cores (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
 SNAPSHOT = os.path.join("checkpoints", "tcm_s_lambda0.013_r5.npz")
 IMAGE_HW = (768, 512)
@@ -282,6 +302,16 @@ KERNEL_CASES = _tcm_cases(64, _B1) + [
 CONV_KERNELS = ("fused_residual_block", "fused_conv_gdn")  # B2, B3: one conv kernel, two tiles
 LIBRARY_KERNELS = ("fused_qkv_attention",)  # one PyTorch call computes the whole function
 
+# phase 3's bf16 rows: B1's LN+MLP flavour, B2 and B3 at the TCM slices' shapes
+BF16_KERNELS = (_B1, _B2, _B3)
+BF16_CASES = [c for c in KERNEL_CASES if c[0] in BF16_KERNELS
+              and (c[0] != _B1 or c[2][2]) and set(c[3]) & set(_TCM_SLICES.values())]
+BF16_SOURCES = {
+    _B1: "reslic_tcm_tpu_torch/csrc/flash_window_attn_bf16.cu",
+    _B2: "reslic_tcm_tpu_torch/csrc/fused_conv_bf16.cu",
+    _B3: "reslic_tcm_tpu_torch/csrc/fused_conv_bf16.cu",
+}
+
 KERNEL_SOURCES = {
     "flash_window_block": ("reslic_tcm_tpu_torch/csrc/flash_window_attn.cu",
                            "reslic_tcm_tpu/ops/flash_window_attn.py:239"),
@@ -296,6 +326,17 @@ KERNEL_SOURCES = {
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def _stopwatch():
+    """lap(label) logs the seconds since the previous lap (or the start)."""
+    last = [time.perf_counter()]
+
+    def lap(label: str) -> None:
+        now = time.perf_counter()
+        log(f"time {label}: {now - last[0]:.1f} s")
+        last[0] = now
+    return lap
 
 
 # ------------------------------- phase 1 --------------------------------
@@ -339,11 +380,12 @@ def phase_build():
 # ------------------------------- phase 3 --------------------------------
 
 
-def _cost(kernel: str, shape, option):
+def _cost(kernel: str, shape, option, weight_bytes: int = 4):
     """(FLOPs, bytes) the function needs: matmul and conv multiply-adds at 2
     FLOP each; each input (activations, weights, bias tables and mask) read
-    once and each output written once, in fp32. B1 counts LN1 and the MLP
-    only in the flavour that has them."""
+    once and each output written once, in fp32, except the weight matrices
+    of B1-B3 at ``weight_bytes`` each (2: the bf16 instances). B1 counts
+    LN1 and the MLP only in the flavour that has them."""
     if kernel == "fused_qkv_attention":
         nw, t, c = shape
         heads, masked = option
@@ -358,16 +400,17 @@ def _cost(kernel: str, shape, option):
         full = option[2]
         mlp = 8 * c if full else 0
         flops = windows * (2 * t * c * (3 * c + c + mlp) + 4 * t * t * c)
-        weights = 4 * c * c + 4 * c + t * t * (c // option[0])
+        matrices, vectors = 4 * c * c, 4 * c + t * t * (c // option[0])
         if full:
-            weights += 8 * c * c + 5 * c + 4 * c  # LN1, LN2, w1, b1, w2, b2
-        nbytes = 4 * (2 * px * c + weights)
+            matrices += 8 * c * c  # w1, w2
+            vectors += 5 * c + 4 * c  # LN1, LN2, b1, b2
+        nbytes = 4 * (2 * px * c + vectors) + weight_bytes * matrices
     elif kernel == "fused_residual_block":
         flops = px * 2 * (2 * 9 * c * c)
-        nbytes = 4 * (2 * px * c + 2 * (9 * c * c + c))
+        nbytes = 4 * (2 * px * c + 2 * c) + weight_bytes * 2 * 9 * c * c
     else:
         flops = px * (2 * 9 * c * c + 2 * c * c)
-        nbytes = 4 * (3 * px * c + 9 * c * c + c * c + 3 * c)
+        nbytes = 4 * (3 * px * c + 3 * c) + weight_bytes * (9 * c * c + c * c)
     return flops, nbytes
 
 
@@ -602,6 +645,99 @@ def phase_kernels(torch):
                     sk[key] += v * n
     for (slice_name, kernel), sk in per_slice_kernel.items():
         log("kernel_per_pass " + json.dumps({"slice": slice_name, "kernel": kernel, **sk}))
+    return per_kernel
+
+
+def _prepared(kernel, args, kw, compute_dtype):
+    """The wrapper's prepared weights for this case at compute_dtype."""
+    from reslic_tcm_tpu_torch.ops import flash_window_attn as F
+    from reslic_tcm_tpu_torch.ops import fused_conv as C
+
+    if kernel == _B1:
+        return F.prepare_window_block(*args[1:], head_dim=kw["head_dim"],
+                                      compute_dtype=compute_dtype)
+    if kernel == _B2:
+        return C.prepare_residual_block(args[1], args[3], compute_dtype=compute_dtype)
+    return C.prepare_conv_gdn(args[1], args[3], compute_dtype=compute_dtype)
+
+
+def phase_kernels_bf16(torch):
+    """Phase 3's bf16 rows (module docstring). Returns, per kernel, the sums
+    over one forward pass of TCM-S, TCM N=128 and TCM N=192."""
+    from reslic_tcm_tpu_torch.ops import flash_window_attn as F
+    from reslic_tcm_tpu_torch.ops import fused_conv as C
+
+    fns = {_B1: (F.flash_window_block, F.plain_window_block),
+           _B2: (C.fused_residual_block, C.plain_residual_block),
+           _B3: (C.fused_conv_gdn, C.plain_conv_gdn)}
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    t0 = time.perf_counter()
+    per_kernel, per_slice_kernel = {}, {}
+    with torch.no_grad():
+        for i, (kernel, shape, option, per_slice) in enumerate(BF16_CASES):
+            per_pass = sum(per_slice.values())
+            kern, plain = fns[kernel]
+            args, kw = _inputs(torch, kernel, shape, option, dev, SEED + 500 + i)
+            prep = {dt: _prepared(kernel, args, kw, dt) for dt in (bf16, torch.float32)}
+            run = {dt: (lambda dt=dt, **force: kern(*args, **kw, **force, compute_dtype=dt,
+                                                    prepared=prep[dt]))
+                   for dt in (bf16, torch.float32)}
+            got = run[bf16]()
+            want = plain(*args, **kw, compute_dtype=bf16)
+            torch.cuda.synchronize()
+            if not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"{kernel} bf16 {shape}: non-finite output")
+            diff = (got - want).abs()
+            err = float(diff.max())
+            bound = TOL_BF16 * max(1.0, float(want.abs().max()))
+            reps = 10 if np.prod(shape) >= 96 * 64 * 64 else 50
+            ms = _time_ms(torch, run[bf16], reps)
+            device_ms = _device_ms(torch, run[bf16], reps)
+            fp32_device_ms = _device_ms(torch, run[torch.float32], reps)
+            plain_ms = _time_ms(torch, lambda: plain(*args, **kw, compute_dtype=bf16), reps)
+            flops, nbytes = _cost(kernel, shape, option, weight_bytes=2)
+            t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+            if kernel == _B1:
+                forces = {k: {"cluster": k} for k in dict.fromkeys(
+                    (F.min_cluster(shape[3]), F.max_cluster(shape[3], option[0])))}
+            else:
+                forces = {t: {"tile": t} for t in C.TILES}
+            equal = all(bool(torch.equal(got, run[bf16](**f))) for f in forces.values())
+            case = {"kernel": f"{kernel}_bf16", "shape": list(shape), "option": option,
+                    "per_forward": per_slice, "max_abs_err": err, "tol": bound,
+                    "share_beyond_1e-5": float((diff > 1e-5).float().mean()), "ms": ms,
+                    "device_ms": device_ms, "fp32_device_ms": fp32_device_ms,
+                    "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+                    "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                    "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+                    "tflops": flops / device_ms / 1e9,
+                    "share_of_bound": max(t_ops, t_bytes) / device_ms,
+                    "splits": list(forces), "equal_across_splits": equal}
+            log("kernel_case_bf16 " + json.dumps(case))
+            if not err <= bound:
+                raise AssertionError(f"{kernel} bf16 {shape} {option}: max abs err {err:.3e} "
+                                     f"exceeds {bound:.3e}")
+            if not equal:
+                raise AssertionError(f"{kernel} bf16 {shape} {option}: the splits {list(forces)} "
+                                     f"give different bits")
+            k = per_kernel.setdefault(f"{kernel}_bf16", dict.fromkeys(
+                ("max_abs_err", "ms", "device_ms", "fp32_device_ms", "plain_ms", "t_ops",
+                 "t_bytes"), 0.0))
+            k["max_abs_err"] = max(k["max_abs_err"], err)
+            for key, v in (("ms", ms), ("device_ms", device_ms), ("fp32_device_ms", fp32_device_ms),
+                           ("plain_ms", plain_ms), ("t_ops", t_ops), ("t_bytes", t_bytes)):
+                k[key] += v * per_pass
+            for slice_name, n in per_slice.items():
+                sk = per_slice_kernel.setdefault((slice_name, f"{kernel}_bf16"), dict.fromkeys(
+                    ("launches", "ms", "device_ms", "fp32_device_ms", "plain_ms", "bound_ms"), 0.0))
+                sk["launches"] += n
+                for key, v in (("ms", ms), ("device_ms", device_ms),
+                               ("fp32_device_ms", fp32_device_ms), ("plain_ms", plain_ms),
+                               ("bound_ms", max(t_ops, t_bytes))):
+                    sk[key] += v * n
+    for (slice_name, kernel), sk in per_slice_kernel.items():
+        log("kernel_per_pass_bf16 " + json.dumps({"slice": slice_name, "kernel": kernel, **sk}))
+    log(f"phase 3 bf16 rows: {time.perf_counter() - t0:.1f} s")
     return per_kernel
 
 
@@ -2427,6 +2563,78 @@ def phase_train(torch, device, slice_name, batch_size, hw, warmup, steps):
 # ------------------------------- profile --------------------------------
 
 
+# bf16 phase (5g): the slices it drives, each on phase 4's codec of that name
+BF16_SLICES = {"bf16-tcm": "tcm", "bf16-tcm192": "tcm192"}
+# the launches per pass are TCM's, every one a bf16 instance (B4 is not on its path)
+BF16_PASS_LAUNCHES = {p: {k: n for k, n in ls.items() if k in BF16_KERNELS}
+                      for p, ls in _TCM_LAUNCHES.items()}
+
+
+def phase_bf16(torch, codecs: dict, device, hw):
+    """Phase 5g (module docstring). Returns {slice: the bf16 instances'
+    launches on its path}."""
+    from reslic_tcm_tpu_torch.cli.eval import evaluate
+    from reslic_tcm_tpu_torch.data.synthetic import synth_image
+    from reslic_tcm_tpu_torch.ops.launches import launch_counts, reset_launch_counts
+
+    t0 = time.perf_counter()
+    bf16, on_card = torch.bfloat16, device == "cuda"
+    images = [synth_image(np.random.default_rng(SEED + i), *hw) for i in range(2)]
+    paths = {}
+    for name, base in BF16_SLICES.items():
+        codec = codecs[base]
+        fp32 = evaluate(codec, images, real=False, log=lambda m: None)
+        codec.set_matmul_precision("bfloat16")
+        try:
+            reset_launch_counts()
+            est = evaluate(codec, images, real=False, log=lambda m: log("  " + m))
+            real = evaluate(codec, images, real=True, log=lambda m: log("  " + m))
+            if base == "tcm":
+                batch = np.stack(images)
+                enc = codec.compress_device(batch)
+                dec = codec.decompress_device(enc)
+                if not torch.equal(dec["y_hat"], enc["y_hat"]):
+                    raise AssertionError(f"{name}: the table device coder's decode did not "
+                                         f"reproduce the encoder's y_hat")
+                log(f"{name}: table device coder, two images in one stream: {enc['nbytes']} "
+                    f"bytes, y_hat exact")
+            paths[name] = launch_counts(bf16)
+            fp32_launches = launch_counts()
+            for j, (f, e, r) in enumerate(zip(fp32["records"], est["records"], real["records"])):
+                log(f"{name} image {j}: bf16 estimate {e['bpp']:.4f} bpp, PSNR {e['psnr']:.3f} "
+                    f"dB, real {r['bpp']:.4f} bpp, PSNR {r['psnr']:.3f} dB; fp32 estimate "
+                    f"{f['bpp']:.4f} bpp, PSNR {f['psnr']:.3f} dB; forward {e['forward_ms']:.1f} "
+                    f"ms (fp32 {f['forward_ms']:.1f}), encode {r['encode_ms']:.1f} ms, decode "
+                    f"{r['decode_ms']:.1f} ms")
+                if not r["y_hat_exact"]:
+                    raise AssertionError(f"{name} image {j}: decode did not reproduce the "
+                                         f"encoder's y_hat")
+                for pass_name, got in (("forward", e["launches_forward"]),
+                                       ("compress", r["launches_compress"]),
+                                       ("decompress", r["launches_decompress"])):
+                    _check_launches(j, f"{name} {pass_name}", got,
+                                    BF16_PASS_LAUNCHES[pass_name], on_card)
+            if any(fp32_launches.values()):
+                raise AssertionError(f"{name}: fp32 instances launched in bf16 mode: "
+                                     f"{fp32_launches}")
+            for kernel in BF16_KERNELS:
+                if on_card and paths[name][kernel] == 0:
+                    raise AssertionError(f"{kernel}'s bf16 instance was never launched on the "
+                                         f"{name} path")
+            log(f"main path {name}: bf16 launches {json.dumps(paths[name])}")
+            if on_card:
+                img = images[0][None]
+                for mode in ("bfloat16", None):
+                    codec.set_matmul_precision(mode)
+                    codec.forward(img)
+                    _profile_window(torch, f"{name} forward, matmul precision {mode}",
+                                    lambda: codec.forward(img))
+        finally:
+            codec.set_matmul_precision(None)
+    log(f"phase bf16: {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
 def phase_profile(torch, codecs: dict):
     """torch.profiler over one warm 768x512 forward, compress and decompress
     of each slice's codec: the device's busy time and idle share of the
@@ -2490,9 +2698,12 @@ def main() -> int:
 
     if args.cpu_rehearsal:
         torch.set_num_threads(min(4, os.cpu_count() or 1))
-        launches = {}
+        launches, codecs = {}, {}
         for slice_name in SLICES:
-            _, launches[slice_name] = phase_slice(torch, "cpu", (256, 256), slice_name)
+            codecs[slice_name], launches[slice_name] = phase_slice(torch, "cpu", (256, 256),
+                                                                   slice_name)
+        launches.update(phase_bf16(torch, codecs, "cpu", (256, 256)))
+        del codecs
         for slice_name in AC_SLICES:
             _, launches[slice_name] = phase_ac_slice(torch, "cpu", (256, 256), slice_name)
         for slice_name, (phase, _) in {**STANH_SLICES, **GAIN_SLICES}.items():
@@ -2515,10 +2726,16 @@ def main() -> int:
         return 2
     import reslic_tcm_tpu_torch  # noqa: F401  (fails here when run outside the repo)
 
+    lap = _stopwatch()
     card, smi = phase_device(torch)
     phase_build()
+    lap("device and build")
     per_kernel = phase_kernels(torch)
+    lap("phase 3 kernels")
     phase_splits(torch)
+    lap("phase 3 splits")
+    per_kernel_bf16 = phase_kernels_bf16(torch)
+    lap("phase 3 bf16 rows")
 
     paths, codecs = {}, {}
     for slice_name, (make, _) in SLICES.items():
@@ -2536,11 +2753,17 @@ def main() -> int:
         codecs[slice_name], paths[slice_name] = phase(torch, "cuda", IMAGE_HW)
         if make is not None:
             phase_gain_reference(torch, codecs[slice_name], make, lv=1)
+    lap("phases 4-5c slices")
     del codecs["scale-gain-sc"]  # its passes take a quality map: not profiled
     pipe_codec, pipe_batches, paths["pipelined"] = phase_pipelined(torch, "cuda", IMAGE_HW)
+    lap("phase 5d pipelined")
     _, paths["device-coder"], coder_launches, coder_per_image = phase_device_coder(
         torch, "cuda", IMAGE_HW, pipe_batches)
+    lap("phase 5e device coder")
     paths["tiled"] = phase_parallel(torch, "cuda", pipe_batches[0])
+    lap("phase 5f parallel")
+    bf16_paths = phase_bf16(torch, codecs, "cuda", IMAGE_HW)
+    lap("phase 5g bf16")
     torch.cuda.synchronize()
     for path, launches in paths.items():
         log(f"main path {path}: launches {json.dumps(launches)}")
@@ -2554,6 +2777,7 @@ def main() -> int:
         "wacnn-stanh": phase_train(torch, "cuda", "wacnn-stanh", 16, (256, 256), 3, 10),
         "scale-gain": phase_train(torch, "cuda", "scale-gain", 16, (256, 256), 3, 10),
     }
+    lap("phase 5b train")
     phase_profile(torch, codecs)
     def serial_roundtrip():
         for x in pipe_batches:
@@ -2571,6 +2795,7 @@ def main() -> int:
         _profile_window(torch, f"train step ({slice_name}, {b}x{h}x{w})",
                         lambda: _timed_step(torch, train_state, train_batch, SEED, "cuda"))
 
+    lap("phase 6 profile")
     kernels = []
     for kernel, k in per_kernel.items():
         src, tpu = KERNEL_SOURCES[kernel]
@@ -2585,6 +2810,29 @@ def main() -> int:
         log(f"kernel {kernel}: {n} launches on the main paths, max abs err "
             f"{k['max_abs_err']:.2e}, {k['ms'] * 1e3:.0f} us per forward pass "
             f"(plain {k['plain_ms'] * 1e3:.0f} us, bound {max(k['t_ops'], k['t_bytes']) * 1e3:.0f} us)")
+    for kernel, k in per_kernel_bf16.items():
+        base = kernel[:-len("_bf16")]
+        n = sum(launches[base] for launches in bf16_paths.values())
+        kernels.append({
+            "name": kernel, "route": "cuda", "source": BF16_SOURCES[base],
+            "replaces": KERNEL_SOURCES[base][1], "launches": n, "max_abs_err": k["max_abs_err"],
+            "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": max(k["t_ops"], k["t_bytes"]),
+            "bound_by": "operations" if k["t_ops"] >= k["t_bytes"] else "bytes",
+            "library_ms": None,
+            # null where the profiler lost a case's records (not measured)
+            "device_ms": None if np.isnan(k["device_ms"]) else k["device_ms"],
+            "fp32_device_ms": None if np.isnan(k["fp32_device_ms"]) else k["fp32_device_ms"],
+        })
+        log(f"kernel {kernel}: {n} launches on the bf16 paths, max abs err "
+            f"{k['max_abs_err']:.2e}, device {k['device_ms'] * 1e3:.0f} us per forward pass "
+            f"(fp32 instance {k['fp32_device_ms'] * 1e3:.0f} us, plain {k['plain_ms'] * 1e3:.0f} "
+            f"us, bound {max(k['t_ops'], k['t_bytes']) * 1e3:.0f} us)")
+    log("bf16 rows (*_bf16): launches: the bf16 phase's runs (TCM-S and TCM N=192, two images, "
+        "all three passes, and TCM-S's device-coder pair); ms, plain_ms, device_ms, "
+        "fp32_device_ms and bound_ms: the launches of one 768x512 forward pass of TCM-S, "
+        "TCM N=128 and TCM N=192 at their main-path shapes, with prepared weights; bound_ms "
+        "against the bf16 tensor-core peak, weights counted in bf16; library_ms null: no "
+        "single PyTorch call computes them")
     log("launches: the slices' main-path runs (two images each, all three passes, every "
         "level or point of the variable-rate slices), the pipelined phase's serial run, the "
         "device-coder path's runs and the parallel phase's tiled pass (B1-B3); "

@@ -23,6 +23,12 @@ splits each padded image's rows over the n ranks of a process group
 ``torchrun --nproc-per-node n``; n = 1 sets up a world of one), else
 ``--tile t`` (with ``--tile-overlap``) runs an image whose padded side
 exceeds t as overlapping tiles (``tiled_forward``).
+``--bf16`` (TCM only, as the JAX CLI reads it only on its TCM branch) sets
+the codec's matmul precision to bfloat16 after it is built
+(``ChannelARCodec.set_matmul_precision``): the forward estimate, the real
+codec (host or device coder) and the tiled forward run with bf16 operands
+and fp32 sums; ``--shard-spatial``'s forward stays fp32, as the JAX CLI
+runs it outside the codec's programs.
 Runs on the CUDA device unless ``--platform cpu``.
 """
 
@@ -43,12 +49,6 @@ from ..utils.metrics import compute_psnr, ms_ssim, msssim_to_db
 
 _IMG_EXTS = {".png", ".jpg", ".jpeg", ".bmp", ".ppm", ".webp"}
 PAD = 128
-
-# flags of the JAX CLI that this port does not run yet, with the ROADMAP
-# item that brings each
-_NOT_YET = {
-    "bf16": "ROADMAP queue A item 15 (bf16 throughput mode)",
-}
 
 
 def parse_args(argv):
@@ -102,6 +102,8 @@ def evaluate(codec, images, real: bool = True, log=print, device_coder: bool = F
     ranks of the process group, else tiled when ``tile`` is set and the
     padded image's larger side exceeds it (``_forward_estimate``)."""
     dev = codec.device
+    # the launches counted are those of the codec's precision's instances
+    cd = getattr(codec, "compute_dtype", torch.float32)
     records = []
     for img in images:
         x = torch.as_tensor(img, dtype=torch.float32, device=dev)[None]
@@ -111,17 +113,17 @@ def evaluate(codec, images, real: bool = True, log=print, device_coder: bool = F
         rec = {}
         if real:
             sync(dev)
-            before, t0 = launch_counts(), time.perf_counter()
+            before, t0 = launch_counts(cd), time.perf_counter()
             enc = codec.compress_device_analytic(xp) if device_coder else codec.compress(xp)
             sync(dev)
             t1 = time.perf_counter()
-            rec["launches_compress"] = launches_since(before)
-            before = launch_counts()
+            rec["launches_compress"] = launches_since(before, cd)
+            before = launch_counts(cd)
             dec = (codec.decompress_device_analytic(enc) if device_coder
                    else codec.decompress(enc["strings"], enc["shape"]))
             sync(dev)
             t2 = time.perf_counter()
-            rec["launches_decompress"] = launches_since(before)
+            rec["launches_decompress"] = launches_since(before, cd)
             rec.update(encode_ms=(t1 - t0) * 1e3, decode_ms=(t2 - t1) * 1e3,
                        y_hat_exact=bool(torch.equal(enc["y_hat"], dec["y_hat"])))
             x_hat = crop_nhwc(dec["x_hat"], pad)
@@ -130,11 +132,11 @@ def evaluate(codec, images, real: bool = True, log=print, device_coder: bool = F
             rec["bpp"] = nbytes * 8.0 / (h * w)
         else:
             sync(dev)
-            before, t0 = launch_counts(), time.perf_counter()
+            before, t0 = launch_counts(cd), time.perf_counter()
             x_hat, bits, pixels = _forward_estimate(codec, xp, tile, tile_overlap, shard_spatial)
             sync(dev)
             rec["forward_ms"] = (time.perf_counter() - t0) * 1e3
-            rec["launches_forward"] = launches_since(before)
+            rec["launches_forward"] = launches_since(before, cd)
             x_hat = crop_nhwc(x_hat, pad)
             rec["bpp"] = bits / pixels
         rec["psnr"] = compute_psnr(x, x_hat)
@@ -273,13 +275,14 @@ def _eval_generic(args, device, img_list) -> int:
 
 def main(argv=None):
     args = parse_args(argv if argv is not None else sys.argv[1:])
-    for flag, item in _NOT_YET.items():
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag.replace('_', '-')} is not ported yet: {item}")
     if args.device_coder and args.model != "tcm":
         raise NotImplementedError(
             f"--device-coder codes TCM only, as in the JAX CLI (its other models take the host "
             f"coder); drop it for --model {args.model}")
+    if args.bf16 and args.model != "tcm":
+        raise NotImplementedError(
+            f"--bf16 runs TCM only, as the JAX CLI reads it only on its TCM branch; the other "
+            f"codecs' bf16 mode is ROADMAP A15b: drop it for --model {args.model}")
     device = _device(args)
     if not args.shard_spatial:
         return _main(args, device, print)
@@ -308,6 +311,8 @@ def _main(args, device, log) -> int:
     if args.model != "tcm":
         return _eval_generic(args, device, img_list)
     codec = make_tcm(N=args.N, M=args.M, device=device)
+    if args.bf16:
+        codec.set_matmul_precision("bfloat16")
     if args.checkpoint:
         print("Loading", args.checkpoint)
         load_checkpoint(codec, args.checkpoint)

@@ -19,9 +19,20 @@ y_hat with the decoder's own per-slice functions on the same shapes, so
 the indexes match the decoder's bit for bit. (Two different programs for
 the same math can differ by an ulp in sigma, which is enough to move a
 scale index across a table boundary and desynchronize the decode.)
-For the same reason every pass of ``ChannelARCodec`` runs in full fp32
+For the same reason every pass of ``ChannelARCodec`` runs with TF32 off
 (``fp32_numerics``): with TF32 on, cuDNN's convolutions would round
 differently in an encoder and a decoder run under different settings.
+
+Matmul precision (``set_matmul_precision``, the JAX codec's): None keeps
+every product in fp32; "bfloat16" runs every pass that the JAX codec
+compiles under ``jax.default_matmul_precision`` (the forward, compress's and
+decompress's programs, the device coder's) inside
+``ops.layers.matmul_precision("bfloat16")``: bf16 operands with fp32 sums
+in the convolutions and linears and the bf16 instances of B1-B3, fp32
+activations. ``update()``'s tables stay fp32, as the JAX codec builds them
+outside its programs. The setting is the codec's, shared by its encoder and
+decoder, so their scale indexes stay equal; a stream must be decoded in the
+mode it was encoded in (the stream carries no flag, as JAX's does not).
 
 Gain hooks: ``gain_y``, ``gain_z``, ``inv_gain_z`` and ``inv_gain_y`` are
 identities here; the gain codecs (models/gain/gained.py) scale the latents
@@ -53,6 +64,7 @@ the whole batch's results.
 from __future__ import annotations
 
 import contextlib
+import functools
 import threading
 from concurrent.futures import ThreadPoolExecutor
 
@@ -64,7 +76,7 @@ from ..coding import analytic_rans as ar
 from ..coding import device_rans as dr
 from ..entropy import factorized as fz
 from ..entropy.gaussian import GaussianConditional
-from ..ops.layers import to_nchw, to_nhwc
+from ..ops.layers import PRECISIONS, matmul_precision, to_nchw, to_nhwc
 from ..ops.math import build_indexes, gaussian_likelihood, ste_round
 from ..parallel.multihost import (broadcast_module, distribute_batch, gather_cat,
                                   gather_objects, rank_and_size)
@@ -99,6 +111,16 @@ def fp32_numerics():
             if _numerics_depth == 0:
                 (torch.backends.cudnn.allow_tf32,
                  torch.backends.cuda.matmul.allow_tf32) = _numerics_saved
+
+
+def codec_pass(method):
+    """Decorator of a codec pass: ``fp32_numerics`` (TF32 off) and the
+    codec's ``matmul_precision`` around the call, in the calling thread."""
+    @functools.wraps(method)
+    def run(self, *args, **kwargs):
+        with fp32_numerics(), matmul_precision(self.matmul_precision):
+            return method(self, *args, **kwargs)
+    return run
 
 
 def uniform_noise(generator: torch.Generator):
@@ -305,9 +327,11 @@ class ChannelARModule(nn.Module):
 class ChannelARCodec:
     """A ChannelARModule on a device plus the host rANS coder (the
     reference's update() / compress() / decompress() / forward API). Each
-    pass runs under ``fp32_numerics``, whatever the caller's TF32 flags."""
+    pass runs under ``fp32_numerics``, whatever the caller's TF32 flags, and
+    at the codec's ``matmul_precision`` (``codec_pass``)."""
 
     def __init__(self, module: ChannelARModule, device):
+        self.matmul_precision = None  # set_matmul_precision
         self.device = torch.device(device)
         self.module = module.to(self.device).eval()
         self.gaussian_conditional = GaussianConditional()
@@ -317,6 +341,19 @@ class ChannelARCodec:
         self._lane_tables: dict = {}
         self._sharded = False  # shard_for_inference
         self._inference_mesh = None
+
+    def set_matmul_precision(self, precision: str | None) -> None:
+        """The products' precision for every pass: None (full fp32) or
+        "bfloat16" (bf16 operands, fp32 sums; module docstring). Encoder and
+        decoder share it; a stream decodes only in the mode that encoded it."""
+        if precision not in PRECISIONS:
+            raise ValueError(f"matmul precision {precision!r}: expected one of {PRECISIONS}")
+        self.matmul_precision = precision
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        """The kernels' operand type at this codec's precision."""
+        return torch.bfloat16 if self.matmul_precision == "bfloat16" else torch.float32
 
     def _upload(self, x) -> torch.Tensor:
         """NHWC image(s) in [0, 1] as float32 NHWC on the codec's device. A
@@ -351,7 +388,7 @@ class ChannelARCodec:
         return self.gaussian_conditional.tables
 
     @torch.no_grad()
-    @fp32_numerics()
+    @codec_pass
     def forward(self, x, lv: int = 0) -> dict:
         """Eval forward (bpp estimate) of NHWC images at rate level ``lv``;
         outputs NHWC."""
@@ -372,7 +409,7 @@ class ChannelARCodec:
         return self.compress_batch(x, lv)[0]
 
     @torch.no_grad()
-    @fp32_numerics()
+    @codec_pass
     def _encode_device_stage(self, x, lv: int = 0) -> dict:
         """The encoder's device work for a batch of NHWC images at rate
         level ``lv``, enqueued without blocking: symbols (int16) and scale
@@ -560,7 +597,7 @@ class ChannelARCodec:
         return {k: gather_cat(v, mesh) for k, v in dec.items()}
 
     @torch.no_grad()
-    @fp32_numerics()
+    @codec_pass
     def _decompress_batch(self, strings_list, shape, lv: int = 0) -> dict:
         self._require_tables()
         from ..coding.rans import RansDecoder
@@ -623,7 +660,7 @@ class ChannelARCodec:
         return tables
 
     @torch.no_grad()
-    @fp32_numerics()
+    @codec_pass
     def device_coder_inputs(self, x, lv: int = 0, analytic: bool = False) -> dict:
         """The encoder up to the device coder, for NHWC images x at level
         lv: "y" the int32 symbols of every slice (NHWC order, slice after
@@ -712,7 +749,7 @@ class ChannelARCodec:
                 "y_hat": inputs["y_hat"]}
 
     @torch.no_grad()
-    @fp32_numerics()
+    @codec_pass
     def decompress_device(self, enc: dict, lv: int = 0) -> dict:
         """Decode ``compress_device``'s streams on the device: the slice
         loop chains the lanes' state with no host round trip. Returns
@@ -798,7 +835,7 @@ class ChannelARCodec:
         return out
 
     @torch.no_grad()
-    @fp32_numerics()
+    @codec_pass
     def decompress_device_analytic(self, enc: dict, lv: int = 0, raw_u8: bool = False,
                                    psnr_vs=None) -> dict:
         """Decode ``compress_device_analytic``'s container on the device.

@@ -28,7 +28,7 @@ from ...entropy.stanh_models import (StanhEntropyBottleneck, StanhGaussianCondit
                                      stanh_gaussian_likelihood)
 from ...ops.layers import StackedConv1x1, to_nhwc
 from ..balle2018 import HyperpriorCodec, ScaleHyperprior
-from ..base import ChannelARCodec, fp32_numerics
+from ..base import ChannelARCodec, codec_pass, fp32_numerics
 from ..tcm import TCM
 from ..wacnn import WACNN, _g_s, draw_weights
 
@@ -185,7 +185,7 @@ class StanhChannelARCodec(ChannelARCodec):
         return self.stanh_tables[lv]
 
     @torch.no_grad()
-    @fp32_numerics()
+    @codec_pass
     def forward_codec_consistent(self, x, lv: int = 0) -> dict:
         """The eval forward through the encoder's own per-slice functions
         (``encode_symbols``'s): its symbols, x_hat and y_hat are the ones

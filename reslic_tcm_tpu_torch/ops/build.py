@@ -42,7 +42,9 @@ GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 # name -> (source relative to the package, compiler)
 SOURCES = {
     "flash_window_attn": ("csrc/flash_window_attn.cu", "nvcc"),
+    "flash_window_attn_bf16": ("csrc/flash_window_attn_bf16.cu", "nvcc"),
     "fused_conv": ("csrc/fused_conv.cu", "nvcc"),
+    "fused_conv_bf16": ("csrc/fused_conv_bf16.cu", "nvcc"),
     "qkv_attention": ("csrc/qkv_attention.cu", "nvcc"),
     "device_rans": ("csrc/device_rans.cu", "nvcc"),
     "rans": ("coding/csrc/rans.cpp", "g++"),

@@ -21,7 +21,17 @@ the same, bit for bit, for every K.
 Weights come in torch layout ([out, in] linears) straight from the modules;
 ``prepare_window_block`` gives them in the kernel's layout, which a caller
 may build once and pass as ``prepared`` (window_attention.py caches it per
-module).
+module and compute type).
+
+``compute_dtype=torch.bfloat16`` (LN+MLP flavour only) is the TPU kernel's
+bf16 mode: the operands of the six products are rounded to bf16 where the
+Pallas body casts them (LN1's output and wqkv; q and k; the softmax's
+probabilities and v; the heads' output and wproj; LN2's output and w1; the
+GELU's output and w2), the q scale folded into wqkv in fp32 first; LN,
+softmax, GELU, the biases and the residuals stay fp32. On the card it
+launches ``csrc/flash_window_attn_bf16.cu`` (tensor cores); its launches
+are counted in ``flash_window_block.launches_bf16``. The attention-only
+flavour has no bf16 instance (ROADMAP A15b): the wrapper raises.
 """
 
 from __future__ import annotations
@@ -33,6 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from . import build
+from .fused_conv import rounder
 
 NEG_INF = -1e9
 KERNEL_WINDOW = 8
@@ -127,38 +138,65 @@ def _layer_norm(x, scale, bias):
     return (x - mu) * torch.rsqrt(var + 1e-5) * scale + bias
 
 
+def _q_scaled(wqkv, bqkv, head_dim: int):
+    """wqkv [3C, C] and bqkv with head_dim^-0.5 folded into the q rows, in
+    fp32 (before any bf16 cast, as the TPU kernel folds it)."""
+    c = wqkv.shape[1]
+    colscale = torch.ones(3 * c, device=wqkv.device)
+    colscale[:c] = head_dim ** -0.5
+    return wqkv * colscale[:, None], bqkv * colscale
+
+
 def plain_window_block(x, wqkv, bqkv, wproj, bproj, ln_scale, ln_bias, rel_bias, mlp=None,
-                       *, head_dim: int, window: int, shifted: bool, with_ln: bool = True):
+                       *, head_dim: int, window: int, shifted: bool, with_ln: bool = True,
+                       compute_dtype=torch.float32):
     """Plain PyTorch version of B1: the composed counterpart of the JAX
     package's reference_window_block plus the LN2/MLP branch. x: NHWC,
     pre-rolled for the shifted flavour; rel_bias: [heads, w*w, w*w];
     mlp = (ln2_scale, ln2_bias, w1 [4C, C], b1, w2 [C, 4C], b2) or None;
-    with_ln=False feeds x straight into qkv (ln_* are then unread)."""
+    with_ln=False feeds x straight into qkv (ln_* are then unread).
+    compute_dtype=torch.bfloat16 rounds each product's operands to bf16 at
+    the Pallas body's cast points (module docstring)."""
+    rd = rounder(compute_dtype)
+    bf16 = compute_dtype == torch.bfloat16
     b, hgt, wid, c = x.shape
     w = window
     nh = c // head_dim
     ln = _layer_norm(x, ln_scale, ln_bias) if with_ln else x
     windows = window_partition(ln, w)
-    qkv = torch.einsum("bnpc,oc->bnpo", windows, wqkv) + bqkv
+    if bf16:
+        wqkv, bqkv = _q_scaled(wqkv, bqkv, head_dim)
+    qkv = torch.einsum("bnpc,oc->bnpo", rd(windows), rd(wqkv)) + bqkv
     qkv = qkv.reshape(b, -1, w * w, 3, nh, head_dim)
     q, k, v = qkv[..., 0, :, :], qkv[..., 1, :, :], qkv[..., 2, :, :]
-    sim = torch.einsum("bnphd,bnqhd->bnhpq", q, k) * head_dim ** -0.5
+    sim = torch.einsum("bnphd,bnqhd->bnhpq", rd(q), rd(k))
+    if not bf16:
+        sim = sim * head_dim ** -0.5
     sim = sim + rel_bias[None, None]
     if shifted:
         blocked = torch.from_numpy(shift_window_mask(hgt // w, wid // w, w, w // 2)).to(x.device)
         sim = torch.where(blocked[None, :, None], NEG_INF + sim, sim)
     probs = torch.softmax(sim, dim=-1)
-    out = torch.einsum("bnhpq,bnqhd->bnphd", probs, v).reshape(b, -1, w * w, c)
-    out = torch.einsum("bnpc,oc->bnpo", out, wproj) + bproj
+    out = torch.einsum("bnhpq,bnqhd->bnphd", rd(probs), rd(v)).reshape(b, -1, w * w, c)
+    out = torch.einsum("bnpc,oc->bnpo", rd(out), rd(wproj)) + bproj
     res = x + window_reverse(out, w, hgt, wid)
     if mlp is None:
         return res
     ln2_scale, ln2_bias, w1, b1, w2, b2 = mlp
-    hid = F.gelu(torch.einsum("bhwc,oc->bhwo", _layer_norm(res, ln2_scale, ln2_bias), w1) + b1)
-    return res + (torch.einsum("bhwk,ok->bhwo", hid, w2) + b2)
+    hid = F.gelu(torch.einsum("bhwc,oc->bhwo", rd(_layer_norm(res, ln2_scale, ln2_bias)),
+                              rd(w1)) + b1)
+    return res + (torch.einsum("bhwk,ok->bhwo", rd(hid), rd(w2)) + b2)
 
 
-def _lib() -> ctypes.CDLL:
+def _lib(compute_dtype=torch.float32) -> ctypes.CDLL:
+    if compute_dtype == torch.bfloat16:
+        lib = build.load("flash_window_attn_bf16")
+        if not hasattr(lib, "_argtypes_set"):
+            vp, i = ctypes.c_void_p, ctypes.c_int
+            lib.flash_window_block_bf16.argtypes = [vp] * 15 + [i] * 7 + [vp]
+            lib.flash_window_block_bf16.restype = ctypes.c_int
+            lib._argtypes_set = True
+        return lib
     lib = build.load("flash_window_attn")
     if not hasattr(lib, "_argtypes_set"):
         vp, i = ctypes.c_void_p, ctypes.c_int
@@ -171,22 +209,31 @@ def _lib() -> ctypes.CDLL:
 
 
 def prepare_window_block(wqkv, bqkv, wproj, bproj, ln_scale, ln_bias, rel_bias, mlp=None,
-                         *, head_dim: int) -> tuple:
-    """The kernel's weights from the wrapper's (torch layout, checked here):
-    [in, out] matrices, contiguous, head_dim^-0.5 folded into the q columns
-    of wqkv and bqkv; LN1 and the MLP's only when ``mlp`` is given. The
-    order is the C interface's after x and out."""
+                         *, head_dim: int, compute_dtype=torch.float32) -> tuple:
+    """The kernel's weights from the wrapper's (torch layout, checked here),
+    contiguous, head_dim^-0.5 folded into the q columns of wqkv and bqkv;
+    LN1 and the MLP's only when ``mlp`` is given. The float32 instance takes
+    [in, out] matrices; the bf16 one (``compute_dtype=torch.bfloat16``)
+    the torch layout [out, in] in bf16, each output's weights contiguous,
+    the vectors and the bias table in fp32. The order is the C interface's
+    after x and out."""
+    rounder(compute_dtype)  # raises for a type without instances
     c = wproj.shape[0]
     dev = wqkv.device
     t = rel_bias.shape[-1]
     build.check_params(
         dev, wqkv=(wqkv, (3 * c, c)), bqkv=(bqkv, (3 * c,)), wproj=(wproj, (c, c)),
         bproj=(bproj, (c,)), rel_bias=(rel_bias, (c // head_dim, t, t)))
+    bf16 = compute_dtype == torch.bfloat16
+    if bf16 and mlp is None:
+        raise ValueError("flash_window_block: the attention-only flavour has no bf16 instance "
+                         "yet (ROADMAP A15b)")
     with torch.no_grad():
-        colscale = torch.ones(3 * c, device=dev)
-        colscale[:c] = head_dim ** -0.5
-        attn = [(wqkv.t() * colscale).contiguous(), (bqkv * colscale).contiguous(),
-                wproj.detach().t().contiguous(), bproj.detach().contiguous()]
+        wq, bq = _q_scaled(wqkv, bqkv, head_dim)
+        # a matrix of the float32 instance is [in, out]; of the bf16 one [out, in] in bf16
+        mat = ((lambda m: m.detach().to(torch.bfloat16).contiguous()) if bf16
+               else (lambda m: m.detach().t().contiguous()))
+        attn = [mat(wq), bq.contiguous(), mat(wproj), bproj.detach().contiguous()]
         if mlp is None:
             return (*attn, rel_bias.detach().contiguous())
         ln2_scale, ln2_bias, w1, b1, w2, b2 = mlp
@@ -194,13 +241,15 @@ def prepare_window_block(wqkv, bqkv, wproj, bproj, ln_scale, ln_bias, rel_bias, 
             dev, ln_scale=(ln_scale, (c,)), ln_bias=(ln_bias, (c,)),
             ln2_scale=(ln2_scale, (c,)), ln2_bias=(ln2_bias, (c,)), w1=(w1, (4 * c, c)),
             b1=(b1, (4 * c,)), w2=(w2, (c, 4 * c)), b2=(b2, (c,)))
-        rest = [ln_scale, ln_bias, rel_bias, ln2_scale, ln2_bias, w1.t(), b1, w2.t(), b2]
-        return (*attn, *(a.detach().contiguous() for a in rest))
+        vec = [ln_scale, ln_bias, rel_bias, ln2_scale, ln2_bias]
+        return (*attn, *(a.detach().contiguous() for a in vec), mat(w1),
+                b1.detach().contiguous(), mat(w2), b2.detach().contiguous())
 
 
 def flash_window_block(x, wqkv, bqkv, wproj, bproj, ln_scale, ln_bias, rel_bias, mlp=None,
                        *, head_dim: int, window: int, shifted: bool, with_ln: bool = True,
-                       cluster: int | None = None, prepared: tuple | None = None):
+                       cluster: int | None = None, prepared: tuple | None = None,
+                       compute_dtype=torch.float32):
     """x: [B, H, W, C] NHWC float32 (pre-rolled for the shifted flavour);
     wqkv: [3C, C]; bqkv: [3C]; wproj: [C, C]; bproj, ln_*: [C];
     rel_bias: [C/head_dim, w*w, w*w]; mlp = (ln2_scale, ln2_bias,
@@ -211,14 +260,20 @@ def flash_window_block(x, wqkv, bqkv, wproj, bproj, ln_scale, ln_bias, rel_bias,
     ``cluster_size``; attention-only: one of ``ATTN_CLUSTERS``, default
     ``attn_cluster_size``); the result is the same for each. ``prepared``:
     ``prepare_window_block`` of these weights, built by the caller (the
-    kernel then reads it instead of preparing the weights again). Returns the
-    block's output."""
+    kernel then reads it instead of preparing the weights again), at this
+    ``compute_dtype`` (torch.float32, or torch.bfloat16 for the LN+MLP
+    flavour). Returns the block's output (float32)."""
     if x.device.type == "cpu":
         return plain_window_block(x, wqkv, bqkv, wproj, bproj, ln_scale, ln_bias, rel_bias,
                                   mlp, head_dim=head_dim, window=window, shifted=shifted,
-                                  with_ln=with_ln)
+                                  with_ln=with_ln, compute_dtype=compute_dtype)
+    rounder(compute_dtype)  # raises for a type without instances
+    bf16 = compute_dtype == torch.bfloat16
     bsz, h, wd, c = x.shape
     full = with_ln and mlp is not None
+    if bf16 and not full:
+        raise ValueError("flash_window_block: the attention-only flavour (with_ln=False, "
+                         "mlp=None) has no bf16 instance yet (ROADMAP A15b)")
     shapes = KERNEL_SHAPES_FULL if full else KERNEL_SHAPES_ATTN
     if (with_ln != (mlp is not None) or window != KERNEL_WINDOW
             or (c, head_dim) not in shapes or h % window or wd % window):
@@ -243,20 +298,28 @@ def flash_window_block(x, wqkv, bqkv, wproj, bproj, ln_scale, ln_bias, rel_bias,
     build.check_tensor("x", x, (bsz, h, wd, c), x.device, contiguous=True)
     if prepared is None:
         prepared = prepare_window_block(wqkv, bqkv, wproj, bproj, ln_scale, ln_bias, rel_bias,
-                                        mlp, head_dim=head_dim)
+                                        mlp, head_dim=head_dim, compute_dtype=compute_dtype)
     t = window * window
     if (len(prepared) != (13 if full else 5) or prepared[0].device != x.device
+            or prepared[0].dtype != compute_dtype
             or prepared[6 if full else 4].shape != (c // head_dim, t, t)):
         raise ValueError(f"prepared: expected prepare_window_block's weights for this flavour, "
-                         f"C={c}, head_dim {head_dim} and {t} tokens, on {x.device}")
+                         f"C={c}, head_dim {head_dim}, {t} tokens and {compute_dtype}, on "
+                         f"{x.device}")
     out = torch.empty_like(x)
-    fn = _lib().flash_window_block_f32 if full else _lib().window_attention_block_f32
+    lib = _lib(compute_dtype)
+    fn = (lib.flash_window_block_bf16 if bf16 else
+          lib.flash_window_block_f32 if full else lib.window_attention_block_f32)
     rc = fn(build.ptr(x), build.ptr(out), *[build.ptr(a) for a in prepared],
             bsz, h, wd, c, head_dim, cluster, int(shifted), build.stream(x))
     if rc != 0:
         raise RuntimeError(f"flash_window_block kernel launch failed: cudaError {rc}")
-    flash_window_block.launches += 1
+    if bf16:
+        flash_window_block.launches_bf16 += 1
+    else:
+        flash_window_block.launches += 1
     return out
 
 
 flash_window_block.launches = 0
+flash_window_block.launches_bf16 = 0

@@ -12,9 +12,19 @@ Both wrappers take NHWC activations and the modules' own parameters in
 torch layout (OIHW conv weights; GDN's gamma and beta already derived). On
 a CPU tensor they run the plain PyTorch version beside them; on a CUDA
 tensor they launch the kernels or raise. ``<wrapper>.launches`` counts the
-wrapper's calls that launched, one per call (each such call makes two
-kernel launches). The kernel's tile is chosen from (H, W, C) by
+wrapper's calls that launched the float32 instances, one per call (each
+such call makes two kernel launches), ``<wrapper>.launches_bf16`` those
+that launched the bf16 ones. The kernel's tile is chosen from (H, W, C) by
 ``tile_config``; ``tile=`` forces one (the bits do not depend on it).
+
+``compute_dtype=torch.bfloat16`` is the TPU kernels' bf16 mode: the
+operands of each product are rounded to bf16 where the Pallas bodies cast
+them (B2: x, w1, mid, w2; B3: x, w, y*y and gamma) and the sums, the bias,
+the activations, GDN's beta, square root and skip stay fp32. On the card it
+launches ``csrc/fused_conv_bf16.cu``, the same implicit GEMM on the tensor
+cores; the plain version rounds at the same points and computes in fp32
+between them. ``prepare_residual_block`` / ``prepare_conv_gdn`` give the
+weights in each instance's layout, which the modules build once per type.
 """
 
 from __future__ import annotations
@@ -54,33 +64,81 @@ def tile_config(h: int, w: int, c: int) -> str:
     return "large" if -(-h * w // bm) * (c // bn) >= SMS else "small"
 
 
-def plain_residual_block(x, w1, b1, w2, b2):
+COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def rounder(compute_dtype):
+    """The cast of a product's operand in the kernels' ``compute_dtype``
+    mode: identity in float32; in bf16 a round to bf16 and back to fp32
+    (the plain versions then sum the exact products in fp32)."""
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype {compute_dtype}: expected one of {COMPUTE_DTYPES}")
+    if compute_dtype == torch.float32:
+        return lambda t: t
+    return lambda t: t.to(compute_dtype).to(torch.float32)
+
+
+def plain_residual_block(x, w1, b1, w2, b2, *, compute_dtype=torch.float32):
     """Plain PyTorch version of B2 (NHWC in and out, OIHW weights)."""
+    rd = rounder(compute_dtype)
     xc = x.permute(0, 3, 1, 2)
-    mid = F.leaky_relu(F.conv2d(xc, w1, b1, padding=1), _NEG_SLOPE)
-    out = F.leaky_relu(F.conv2d(mid, w2, b2, padding=1), _NEG_SLOPE) + xc
+    mid = F.leaky_relu(F.conv2d(rd(xc), rd(w1), b1, padding=1), _NEG_SLOPE)
+    out = F.leaky_relu(F.conv2d(rd(mid), rd(w2), b2, padding=1), _NEG_SLOPE) + xc
     return out.permute(0, 2, 3, 1).contiguous()
 
 
-def plain_conv_gdn(x, w, b, gamma, beta, skip, *, inverse: bool):
+def plain_conv_gdn(x, w, b, gamma, beta, skip, *, inverse: bool, compute_dtype=torch.float32):
     """Plain PyTorch version of B3 (NHWC in and out, OIHW weights, derived
     gamma [out, in] and beta)."""
-    y = F.conv2d(x.permute(0, 3, 1, 2), w, b, padding=1)
-    norm = F.conv2d(y * y, gamma[:, :, None, None], beta)
+    rd = rounder(compute_dtype)
+    y = F.conv2d(rd(x.permute(0, 3, 1, 2)), rd(w), b, padding=1)
+    norm = F.conv2d(rd(y * y), rd(gamma)[:, :, None, None], beta)
     norm = torch.sqrt(norm) if inverse else torch.rsqrt(norm)
     return (y * norm).permute(0, 2, 3, 1) + skip
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.load("fused_conv")
+def _conv_weight(w: torch.Tensor, compute_dtype) -> torch.Tensor:
+    """A 3x3 OIHW weight in the kernel's layout: float32 HWIO [3, 3, Cin,
+    Cout] (the fp32 instance's [9C][C] matrix) or bf16 [Cout, 3, 3, Cin]
+    (the bf16 instance's [C][9C], each output channel's taps contiguous)."""
+    w = w.detach()
+    if compute_dtype == torch.float32:
+        return w.permute(2, 3, 1, 0).contiguous()
+    return w.permute(0, 2, 3, 1).contiguous().to(torch.bfloat16)
+
+
+def prepare_residual_block(w1, w2, *, compute_dtype=torch.float32) -> tuple:
+    """B2's weights in the ``compute_dtype`` instance's layout, for
+    ``fused_residual_block(prepared=...)``."""
+    rounder(compute_dtype)  # raises for a type without instances
+    return _conv_weight(w1, compute_dtype), _conv_weight(w2, compute_dtype)
+
+
+def prepare_conv_gdn(w, gamma, *, compute_dtype=torch.float32) -> tuple:
+    """B3's weights (conv weight, derived gamma) in the ``compute_dtype``
+    instance's layout, for ``fused_conv_gdn(prepared=...)``: gamma^T
+    [in][out] in float32, gamma [out][in] in bf16."""
+    rounder(compute_dtype)  # raises for a type without instances
+    gamma = gamma.detach()
+    gk = gamma.t().contiguous() if compute_dtype == torch.float32 else gamma.to(torch.bfloat16)
+    return _conv_weight(w, compute_dtype), gk.contiguous()
+
+
+def _lib(compute_dtype) -> tuple:
+    """(B2's entry, B3's entry) of the compute_dtype instances' library."""
+    bf16 = compute_dtype == torch.bfloat16
+    lib = build.load("fused_conv_bf16" if bf16 else "fused_conv")
+    suffix = "bf16" if bf16 else "f32"
+    b2, b3 = (getattr(lib, f"fused_residual_block_{suffix}"),
+              getattr(lib, f"fused_conv_gdn_{suffix}"))
     if not hasattr(lib, "_argtypes_set"):
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.fused_residual_block_f32.argtypes = [vp] * 7 + [i] * 5 + [vp]
-        lib.fused_residual_block_f32.restype = ctypes.c_int
-        lib.fused_conv_gdn_f32.argtypes = [vp] * 8 + [i] * 6 + [vp]
-        lib.fused_conv_gdn_f32.restype = ctypes.c_int
+        b2.argtypes = [vp] * 7 + [i] * 5 + [vp]
+        b2.restype = ctypes.c_int
+        b3.argtypes = [vp] * 8 + [i] * 6 + [vp]
+        b3.restype = ctypes.c_int
         lib._argtypes_set = True
-    return lib
+    return b2, b3
 
 
 def _check_channels(kernel: str, x: torch.Tensor) -> None:
@@ -104,15 +162,38 @@ def _check_aligned(**tensors) -> None:
             raise ValueError(f"{name}: the kernel needs a 16-byte aligned tensor")
 
 
-def _hwio(w: torch.Tensor) -> torch.Tensor:
-    return w.detach().permute(2, 3, 1, 0).contiguous()
+def _check_prepared(prepared, want: tuple, compute_dtype, device) -> None:
+    """``prepared`` must be this instance's weights: the shapes of
+    ``prepare_*`` for this C, in ``compute_dtype``, on ``device``."""
+    if (len(prepared) != len(want) or any(
+            p.dtype != compute_dtype or p.device != device or tuple(p.shape) != s
+            or not p.is_contiguous() for p, s in zip(prepared, want))):
+        raise ValueError(f"prepared: expected contiguous {compute_dtype} weights of shapes "
+                         f"{want} on {device}, got "
+                         f"{[(p.dtype, tuple(p.shape), str(p.device)) for p in prepared]}")
 
 
-def fused_residual_block(x, w1, b1, w2, b2, *, tile=None):
+def _weight_shape(c: int, compute_dtype) -> tuple:
+    return (3, 3, c, c) if compute_dtype == torch.float32 else (c, 3, 3, c)
+
+
+def _launched(wrapper, compute_dtype) -> None:
+    if compute_dtype == torch.float32:
+        wrapper.launches += 1
+    else:
+        wrapper.launches_bf16 += 1
+
+
+def fused_residual_block(x, w1, b1, w2, b2, *, tile=None, compute_dtype=torch.float32,
+                         prepared=None):
     """x: [B, H, W, C] NHWC float32; w1, w2: [C, C, 3, 3]; b1, b2: [C].
-    tile: None (chosen from the shape) or one of ``TILES``."""
+    tile: None (chosen from the shape) or one of ``TILES``. compute_dtype:
+    torch.float32 or torch.bfloat16 (the operands of the products; the
+    output is float32 either way). prepared: ``prepare_residual_block`` of
+    w1 and w2 at this compute_dtype (built here when None)."""
     if x.device.type == "cpu":
-        return plain_residual_block(x, w1, b1, w2, b2)
+        return plain_residual_block(x, w1, b1, w2, b2, compute_dtype=compute_dtype)
+    rounder(compute_dtype)  # raises for a type without instances
     _check_channels("fused_residual_block", x)
     bsz, h, w, c = x.shape
     build.check_inference(x, w1, b1, w2, b2)
@@ -120,29 +201,39 @@ def fused_residual_block(x, w1, b1, w2, b2, *, tile=None):
     build.check_params(x.device, w1=(w1, (c, c, 3, 3)), b1=(b1, (c,)),
                        w2=(w2, (c, c, 3, 3)), b2=(b2, (c,)))
     t = _tile_index(tile, h, w, c)
-    w1k, w2k = _hwio(w1), _hwio(w2)
+    if prepared is None:
+        prepared = prepare_residual_block(w1, w2, compute_dtype=compute_dtype)
+    _check_prepared(prepared, (_weight_shape(c, compute_dtype),) * 2, compute_dtype, x.device)
+    w1k, w2k = prepared
     b1k, b2k = b1.detach().contiguous(), b2.detach().contiguous()
     _check_aligned(x=x, b1=b1k, b2=b2k)
-    mid, out = torch.empty_like(x), torch.empty_like(x)
-    rc = _lib().fused_residual_block_f32(
+    # the bf16 instance keeps conv1's output in bf16, where the TPU kernel rounds it
+    mid, out = torch.empty_like(x, dtype=compute_dtype), torch.empty_like(x)
+    rc = _lib(compute_dtype)[0](
         build.ptr(x), build.ptr(w1k), build.ptr(b1k), build.ptr(w2k), build.ptr(b2k),
         build.ptr(mid), build.ptr(out), bsz, h, w, c, t, build.stream(x),
     )
     if rc != 0:
         raise RuntimeError(f"fused_residual_block kernel launch failed: cudaError {rc}")
-    fused_residual_block.launches += 1
+    _launched(fused_residual_block, compute_dtype)
     return out
 
 
 fused_residual_block.launches = 0
+fused_residual_block.launches_bf16 = 0
 
 
-def fused_conv_gdn(x, w, b, gamma, beta, skip, *, inverse: bool, tile=None):
+def fused_conv_gdn(x, w, b, gamma, beta, skip, *, inverse: bool, tile=None,
+                   compute_dtype=torch.float32, prepared=None):
     """x, skip: [B, H, W, C] NHWC float32; w: [C, C, 3, 3]; b, beta: [C];
     gamma: [C, C] derived, gamma[k, j] weighs channel j into output k.
-    tile: None (chosen from the shape) or one of ``TILES``."""
+    tile: None (chosen from the shape) or one of ``TILES``. compute_dtype:
+    torch.float32 or torch.bfloat16. prepared: ``prepare_conv_gdn`` of w and
+    gamma at this compute_dtype (built here when None)."""
     if x.device.type == "cpu":
-        return plain_conv_gdn(x, w, b, gamma, beta, skip, inverse=inverse)
+        return plain_conv_gdn(x, w, b, gamma, beta, skip, inverse=inverse,
+                              compute_dtype=compute_dtype)
+    rounder(compute_dtype)  # raises for a type without instances
     _check_channels("fused_conv_gdn", x)
     bsz, h, wd, c = x.shape
     build.check_inference(x, w, b, gamma, beta, skip)
@@ -151,20 +242,26 @@ def fused_conv_gdn(x, w, b, gamma, beta, skip, *, inverse: bool, tile=None):
     build.check_params(x.device, w=(w, (c, c, 3, 3)), b=(b, (c,)), gamma=(gamma, (c, c)),
                        beta=(beta, (c,)))
     t = _tile_index(tile, h, wd, c)
-    wk = _hwio(w)
+    if prepared is None:
+        prepared = prepare_conv_gdn(w, gamma, compute_dtype=compute_dtype)
+    _check_prepared(prepared, (_weight_shape(c, compute_dtype), (c, c)), compute_dtype,
+                    x.device)
+    wk, gk = prepared
     bk, betak = b.detach().contiguous(), beta.detach().contiguous()
-    gt = gamma.detach().t().contiguous()
     _check_aligned(b=bk, beta=betak, skip=skip)
+    if compute_dtype == torch.bfloat16:  # its conv reads x in 16-byte vectors
+        _check_aligned(x=x)
     y, out = torch.empty_like(x), torch.empty_like(x)
-    rc = _lib().fused_conv_gdn_f32(
-        build.ptr(x), build.ptr(wk), build.ptr(bk), build.ptr(gt), build.ptr(betak),
+    rc = _lib(compute_dtype)[1](
+        build.ptr(x), build.ptr(wk), build.ptr(bk), build.ptr(gk), build.ptr(betak),
         build.ptr(skip), build.ptr(y), build.ptr(out), bsz, h, wd, c, int(inverse), t,
         build.stream(x),
     )
     if rc != 0:
         raise RuntimeError(f"fused_conv_gdn kernel launch failed: cudaError {rc}")
-    fused_conv_gdn.launches += 1
+    _launched(fused_conv_gdn, compute_dtype)
     return out
 
 
 fused_conv_gdn.launches = 0
+fused_conv_gdn.launches_bf16 = 0

@@ -14,18 +14,29 @@ composed branch, the JAX package's unfused layers, on either device;
 otherwise it calls the kernel wrapper. The kernels have no backward, and
 their wrappers raise on tensors that want a gradient, so a routing mistake
 fails loudly.
+
+Matmul precision (the JAX package's ``jax.default_matmul_precision``, which
+its codec enters around every compiled pass): inside
+``matmul_precision("bfloat16")`` (per thread, a context variable) the
+kernel layers hand ``compute_dtype=torch.bfloat16`` to their wrappers, and
+the composed convolutions and linears (``Conv2d``, ``Linear``, which the
+``conv*`` helpers build; the state-dict names are nn.Conv2d's and
+nn.Linear's) take bf16 operands and accumulate in fp32. Activations between
+layers stay fp32.
 """
 
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import threading
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .fused_conv import fused_conv_gdn, fused_residual_block
+from .fused_conv import (fused_conv_gdn, fused_residual_block, prepare_conv_gdn,
+                         prepare_residual_block)
 from .math import lower_bound
 
 
@@ -65,6 +76,96 @@ def composed(module: nn.Module) -> bool:
     return _PLAIN_VERSIONS.get() or records_grad(module)
 
 
+PRECISIONS = (None, "bfloat16")
+_MATMUL_PRECISION = contextvars.ContextVar("matmul_precision", default=None)
+
+
+@contextlib.contextmanager
+def matmul_precision(precision: str | None):
+    """Inside this block the products and convolutions run at
+    ``precision``: None (full fp32) or "bfloat16" (bf16 operands, fp32
+    sums). Per thread (a context variable)."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"matmul precision {precision!r}: expected one of {PRECISIONS}")
+    token = _MATMUL_PRECISION.set(precision)
+    try:
+        yield
+    finally:
+        _MATMUL_PRECISION.reset(token)
+
+
+def compute_dtype() -> torch.dtype:
+    """The products' operand type here: torch.bfloat16 inside
+    ``matmul_precision("bfloat16")``, else torch.float32."""
+    return torch.bfloat16 if _MATMUL_PRECISION.get() == "bfloat16" else torch.float32
+
+
+_cache_lock = threading.Lock()
+
+
+def cached(owner: nn.Module, name: str, sources, make):
+    """``make()``, built once for ``owner`` under ``name`` and returned again
+    while every tensor of ``sources`` keeps its ``data_ptr()`` and
+    ``_version``: an in-place update (``load_snapshot_into``, an optimiser
+    step), a move to another device or a swapped tensor builds it anew. The
+    entry holds the sources, so no address it was keyed on is reused while
+    it lives. With autograd recording and a source that wants a gradient it
+    is built afresh on every call, so the plain path sees the live
+    parameters. Threads fill an entry one at a time (the pipelined codec
+    runs passes in several threads). Entries of another compute type take
+    another ``name``, so a layer never reads the other mode's weights."""
+    sources = tuple(sources)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in sources):
+        return make()
+    stamp = tuple((t.data_ptr(), t._version) for t in sources)
+    with _cache_lock:
+        store = owner.__dict__.setdefault("_prepared", {})
+        hit = store.get(name)
+        if hit is None or hit[0] != stamp:
+            with torch.no_grad():
+                hit = (stamp, sources, make())
+            store[name] = hit
+    return hit[2]
+
+
+def _bf16_weight(layer: nn.Module) -> torch.Tensor:
+    return cached(layer, "bf16_weight", (layer.weight,), lambda: layer.weight.to(torch.bfloat16))
+
+
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d (same parameters and state-dict names) that follows the
+    matmul precision: under bf16 it convolves bf16 operands, cuDNN summing
+    in fp32. cuDNN hands back bf16, so the result is rounded once more
+    before it returns to fp32 and takes the bias in fp32: that rounding is
+    where the port differs from the TPU's single-pass bf16 convolution,
+    which keeps the fp32 sum. (PyTorch's bf16 convolution on the CPU rounds
+    its result the same way.)"""
+
+    def forward(self, x):
+        if compute_dtype() is torch.float32:
+            return super().forward(x)
+        out = F.conv2d(x.to(torch.bfloat16), _bf16_weight(self), None, self.stride,
+                       self.padding, self.dilation, self.groups).float()
+        return out if self.bias is None else out + self.bias[:, None, None]
+
+
+class Linear(nn.Linear):
+    """nn.Linear (same parameters and state-dict names) that follows the
+    matmul precision: under bf16 an fp32 input is multiplied as bf16 with
+    fp32 sums, the result rounded to bf16 by cuBLAS (as ``Conv2d``) and
+    returned in fp32 plus the fp32 bias. A bf16 input (the body of the
+    composed window attention, which the JAX package runs in bf16) gives a
+    bf16 result with the bias rounded to bf16, as the JAX package's bf16
+    Dense does."""
+
+    def forward(self, x):
+        if x.dtype == torch.bfloat16:
+            return F.linear(x, _bf16_weight(self), self.bias.to(torch.bfloat16))
+        if compute_dtype() is torch.float32:
+            return super().forward(x)
+        return F.linear(x.to(torch.bfloat16), _bf16_weight(self)).float() + self.bias
+
+
 class DropPath(nn.Module):
     """Per-sample stochastic depth, as the JAX package's DropPath is called:
     its one caller, SwinTransformerBlock, sits in the transforms'
@@ -91,7 +192,7 @@ def to_nchw(x: torch.Tensor) -> torch.Tensor:
 
 def conv(in_ch: int, out_ch: int, kernel_size: int = 5, stride: int = 1) -> nn.Conv2d:
     """Conv2d with torch-style symmetric padding k//2."""
-    return nn.Conv2d(in_ch, out_ch, kernel_size, stride, padding=kernel_size // 2)
+    return Conv2d(in_ch, out_ch, kernel_size, stride, padding=kernel_size // 2)
 
 
 def conv3x3(in_ch: int, out_ch: int, stride: int = 1) -> nn.Conv2d:
@@ -167,7 +268,11 @@ class GDN(nn.Module):
 
     def forward(self, x):
         beta, gamma = self.derived()
-        norm = F.conv2d(x * x, gamma[:, :, None, None], beta)
+        if compute_dtype() is torch.float32:
+            norm = F.conv2d(x * x, gamma[:, :, None, None], beta)
+        else:  # B3's bf16 cast points: x*x and gamma
+            norm = F.conv2d((x * x).to(torch.bfloat16), gamma.to(torch.bfloat16)[:, :, None, None])
+            norm = norm.float() + beta[:, None, None]
         norm = torch.sqrt(norm) if self.inverse else torch.rsqrt(norm)
         return x * norm
 
@@ -202,11 +307,26 @@ class ResidualBlock(nn.Module):
     def forward(self, x):
         if composed(self):
             return leaky_relu(self.conv2(leaky_relu(self.conv1(x)))) + x
+        cd = compute_dtype()
+        w1, w2 = self.conv1.weight, self.conv2.weight
+        prepared = cached(self, f"fused_residual_block_{cd}", (w1, w2),
+                          lambda: prepare_residual_block(w1, w2, compute_dtype=cd))
         out = fused_residual_block(
-            to_nhwc(x), self.conv1.weight, self.conv1.bias,
-            self.conv2.weight, self.conv2.bias,
+            to_nhwc(x), w1, self.conv1.bias, w2, self.conv2.bias, compute_dtype=cd,
+            prepared=prepared,
         )
         return to_nchw(out)
+
+
+def _conv_gdn(owner: nn.Module, x, conv_layer: nn.Conv2d, gdn: GDN, skip):
+    """B3 over NHWC x: ``gdn(conv_layer(x)) + skip`` at the current compute
+    type, its weights prepared once per type (``cached``)."""
+    cd = compute_dtype()
+    beta, gamma = gdn.derived()
+    prepared = cached(owner, f"fused_conv_gdn_{cd}", (conv_layer.weight, gdn.gamma),
+                      lambda: prepare_conv_gdn(conv_layer.weight, gamma, compute_dtype=cd))
+    return fused_conv_gdn(x, conv_layer.weight, conv_layer.bias, gamma, beta, skip,
+                          inverse=gdn.inverse, compute_dtype=cd, prepared=prepared)
 
 
 class ResidualBlockWithStride(nn.Module):
@@ -225,11 +345,7 @@ class ResidualBlockWithStride(nn.Module):
         skip = self.skip(x) if self.skip is not None else x
         if composed(self):
             return self.gdn(self.conv2(out)) + skip
-        beta, gamma = self.gdn.derived()
-        res = fused_conv_gdn(
-            to_nhwc(out), self.conv2.weight, self.conv2.bias, gamma, beta,
-            to_nhwc(skip), inverse=False,
-        )
+        res = _conv_gdn(self, to_nhwc(out), self.conv2, self.gdn, to_nhwc(skip))
         return to_nchw(res)
 
 
@@ -249,9 +365,5 @@ class ResidualBlockUpsample(nn.Module):
         identity = self.upsample(x)
         if composed(self):
             return self.igdn(self.conv(out)) + identity
-        beta, gamma = self.igdn.derived()
-        res = fused_conv_gdn(
-            to_nhwc(out), self.conv.weight, self.conv.bias, gamma, beta,
-            to_nhwc(identity), inverse=True,
-        )
+        res = _conv_gdn(self, to_nhwc(out), self.conv, self.igdn, to_nhwc(identity))
         return to_nchw(res)

@@ -15,6 +15,15 @@ Routing follows the JAX package:
 * WindowAttention on a batch of windows is ``fused_qkv_attention`` (kernel
   B4).
 
+Under ``layers.matmul_precision("bfloat16")`` the linears take bf16
+operands (``layers.Linear``), B1 runs its bf16 instance, and the composed
+WMSA and the composed MLP run in bf16 as the JAX package's do under its
+``_score_dtype()`` (window_attention.py:170-176, :258-261): the windows
+cast to bf16 before qkv and the whole attention body in bf16 up to its
+output, and LN2's output cast to bf16 before the MLP, each branch back to
+fp32 before its residual. WinBasedAttention's kernel path (B1's
+attention-only flavour) has no bf16 instance yet and raises there.
+
 While autograd records, or inside ``layers.plain_versions()``
 (``layers.composed``), each module takes its composed branch instead, on
 either device, as the JAX package does in training: SwinTransformerBlock LN -> WMSA (-inf mask) -> DropPath -> LN ->
@@ -31,7 +40,6 @@ through ``cached``, and rebuilds them only when a parameter changes.
 from __future__ import annotations
 
 import functools
-import threading
 
 import numpy as np
 import torch
@@ -40,35 +48,9 @@ from torch import nn
 
 from .flash_window_attn import (KERNEL_WINDOW, flash_window_block, prepare_window_block,
                                 shift_window_mask, window_partition, window_reverse)
-from .layers import DropPath, ResidualUnit, composed, conv1x1, to_nchw, to_nhwc
+from .layers import (DropPath, Linear, ResidualUnit, cached, composed, compute_dtype, conv1x1,
+                     to_nchw, to_nhwc)
 from .qkv_attention import fused_qkv_attention, plain_qkv_attention, prepare_qkv_attention
-
-
-_cache_lock = threading.Lock()
-
-
-def cached(owner: nn.Module, name: str, sources, make):
-    """``make()``, built once for ``owner`` under ``name`` and returned again
-    while every tensor of ``sources`` keeps its ``data_ptr()`` and
-    ``_version``: an in-place update (``load_snapshot_into``, an optimiser
-    step), a move to another device or a swapped tensor builds it anew. The
-    entry holds the sources, so no address it was keyed on is reused while
-    it lives. With autograd recording and a source that wants a gradient it
-    is built afresh on every call, so the plain path sees the live
-    parameters. Threads fill an entry one at a time (the pipelined codec
-    runs passes in several threads)."""
-    sources = tuple(sources)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in sources):
-        return make()
-    stamp = tuple((t.data_ptr(), t._version) for t in sources)
-    with _cache_lock:
-        store = owner.__dict__.setdefault("_prepared", {})
-        hit = store.get(name)
-        if hit is None or hit[0] != stamp:
-            with torch.no_grad():
-                hit = (stamp, sources, make())
-            store[name] = hit
-    return hit[2]
 
 
 def relative_position_index(w: int) -> np.ndarray:
@@ -92,8 +74,8 @@ class WMSA(nn.Module):
         self.relative_position_params = nn.Parameter(
             torch.zeros(self.n_heads, 2 * w - 1, 2 * w - 1))
         nn.init.trunc_normal_(self.relative_position_params, std=0.02)
-        self.embedding_layer = nn.Linear(dim, 3 * dim)
-        self.linear = nn.Linear(dim, dim)
+        self.embedding_layer = Linear(dim, 3 * dim)
+        self.linear = Linear(dim, dim)
         self.register_buffer(
             "_rel_index", torch.from_numpy(relative_position_index(w).astype(np.int64)).reshape(-1),
             persistent=False)
@@ -110,17 +92,20 @@ class WMSA(nn.Module):
         if self.type != "W":
             x = torch.roll(x, shifts=(-(w // 2), -(w // 2)), dims=(1, 2))
         windows = window_partition(x, w)
+        if compute_dtype() is torch.bfloat16:
+            # the whole attention body in bf16 (the JAX package's _score_dtype)
+            windows = windows.to(torch.bfloat16)
         qkv = self.embedding_layer(windows).reshape(b, windows.shape[1], w * w, 3, self.n_heads,
                                                     self.head_dim)
         q, k, v = qkv[..., 0, :, :], qkv[..., 1, :, :], qkv[..., 2, :, :]
         sim = torch.einsum("bnphc,bnqhc->bnhpq", q, k) * self.head_dim ** -0.5
-        sim = sim + self.rel_bias()[None, None]
+        sim = sim + self.rel_bias()[None, None].to(sim.dtype)
         if self.type != "W":
             mask = torch.from_numpy(shift_window_mask(h // w, wd // w, w, w // 2)).to(x.device)
             sim = sim.masked_fill(mask[None, :, None], float("-inf"))
         probs = torch.softmax(sim, dim=-1)
         out = torch.einsum("bnhpq,bnqhc->bnphc", probs, v).reshape(b, -1, w * w, self.dim)
-        out = window_reverse(self.linear(out), w, h, wd)
+        out = window_reverse(self.linear(out).to(x.dtype), w, h, wd)
         if self.type != "W":
             out = torch.roll(out, shifts=(w // 2, w // 2), dims=(1, 2))
         return out
@@ -138,29 +123,31 @@ class SwinTransformerBlock(nn.Module):
         self.ln1 = nn.LayerNorm(dim)
         self.msa = WMSA(dim, head_dim, window_size, type)
         self.ln2 = nn.LayerNorm(dim)
-        self.mlp = nn.Sequential(nn.Linear(dim, 4 * dim), nn.GELU(), nn.Linear(4 * dim, dim))
+        self.mlp = nn.Sequential(Linear(dim, 4 * dim), nn.GELU(), Linear(4 * dim, dim))
         self.drop_path = DropPath(drop_path)
 
     def forward(self, x):
         msa = self.msa
         w = msa.window_size
+        cd = compute_dtype()
         if w != KERNEL_WINDOW or composed(self):
             x = x + self.drop_path(msa(self.ln1(x)))
-            return x + self.drop_path(self.mlp(self.ln2(x)))
+            # under bf16 the MLP runs in bf16 (the JAX package's _score_dtype)
+            return x + self.drop_path(self.mlp(self.ln2(x).to(cd))).to(x.dtype)
         shifted = msa.type != "W"
         if shifted:
             x = torch.roll(x, shifts=(-(w // 2), -(w // 2)), dims=(1, 2))
-        args, prepared = self.kernel_weights()
+        args, prepared = self.kernel_weights(cd)
         out = flash_window_block(x.contiguous(), *args, head_dim=msa.head_dim, window=w,
-                                 shifted=shifted, prepared=prepared)
+                                 shifted=shifted, prepared=prepared, compute_dtype=cd)
         if shifted:
             out = torch.roll(out, shifts=(w // 2, w // 2), dims=(1, 2))
         return out
 
-
-    def kernel_weights(self):
+    def kernel_weights(self, compute_dtype=torch.float32):
         """(flash_window_block's weight arguments, prepare_window_block of
-        them), built once while the parameters are unchanged."""
+        them at ``compute_dtype``), built once per type while the
+        parameters are unchanged."""
         msa = self.msa
 
         def make():
@@ -168,9 +155,10 @@ class SwinTransformerBlock(nn.Module):
                     msa.linear.bias, self.ln1.weight, self.ln1.bias, msa.rel_bias(),
                     (self.ln2.weight, self.ln2.bias, self.mlp[0].weight, self.mlp[0].bias,
                      self.mlp[2].weight, self.mlp[2].bias))
-            return args, prepare_window_block(*args, head_dim=msa.head_dim)
+            return args, prepare_window_block(*args, head_dim=msa.head_dim,
+                                              compute_dtype=compute_dtype)
 
-        return cached(self, "flash_window_block", self.parameters(), make)
+        return cached(self, f"flash_window_block_{compute_dtype}", self.parameters(), make)
 
 
 class SwinBlock(nn.Module):
@@ -206,8 +194,8 @@ class WindowAttention(nn.Module):
         self.relative_position_bias_table = nn.Parameter(
             torch.zeros((2 * w - 1) * (2 * w - 1), num_heads))
         nn.init.trunc_normal_(self.relative_position_bias_table, std=0.02)
-        self.qkv = nn.Linear(dim, 3 * dim)
-        self.proj = nn.Linear(dim, dim)
+        self.qkv = Linear(dim, 3 * dim)
+        self.proj = Linear(dim, dim)
         self.register_buffer(
             "_rel_index", torch.from_numpy(relative_position_index(w).astype(np.int64)).reshape(-1),
             persistent=False)
@@ -302,6 +290,10 @@ class WinBasedAttention(nn.Module):
         """x + attn(x) as B1's attention-only flavour (the -1e9 boundary mask
         on the rolled map; the composed path's -100 gives the same softmax
         to below 1e-40)."""
+        if compute_dtype() is torch.bfloat16:
+            raise NotImplementedError(
+                "WinBasedAttention under bf16: B1's attention-only flavour has no bf16 "
+                "instance yet (ROADMAP A15b)")
         w, s = self.window_size, self.shift_size
         if s > 0:
             x = torch.roll(x, shifts=(-s, -s), dims=(1, 2))

@@ -26,6 +26,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..models.base import fp32_numerics
+from ..ops.layers import matmul_precision
 from .multihost import data_group, gather_cat
 
 # the latents' strides: y at 1/16 of the image, z at 1/64
@@ -198,8 +199,9 @@ def tiled_forward(codec, x, tile: int = 512, overlap: int = 64, tile_batch: int 
     tiles (the last padded with zero tiles that own nothing) go through the
     module in turn, the owned-region rate is summed on the device and x_hat
     stitched there. An image no larger than one tile goes through
-    ``codec.forward``, as in the JAX package. Returns (x_hat [1, H, W, C]
-    clipped to [0, 1] on the device; bits, a float)."""
+    ``codec.forward``, as in the JAX package. The chunks run at the codec's
+    matmul precision where it has one (``ChannelARCodec``). Returns (x_hat
+    [1, H, W, C] clipped to [0, 1] on the device; bits, a float)."""
     x = torch.as_tensor(x, dtype=torch.float32).to(codec.device)
     _, h, w, c = x.shape
     if h <= tile and w <= tile:
@@ -215,7 +217,7 @@ def tiled_forward(codec, x, tile: int = 512, overlap: int = 64, tile_batch: int 
         codec.device)
     bits = torch.zeros((), dtype=torch.float32, device=codec.device)
     x_hats = []
-    with fp32_numerics():
+    with fp32_numerics(), matmul_precision(getattr(codec, "matmul_precision", None)):
         for k in range(0, padded, tile_batch):
             out = codec.module(tiles[k:k + tile_batch].contiguous())
             bits = bits + _owned_bits(out["likelihoods"], bnd[k:k + tile_batch])

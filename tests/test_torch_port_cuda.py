@@ -1062,3 +1062,101 @@ def test_mesh_sharded_forward_over_nccl_in_a_world_of_one(cuda):
     err_ok(x_hat.cpu().numpy(), want.cpu().numpy(), TOL_CARD)
     assert abs(bits - want_bits) <= 1e-4 * want_bits, (bits, want_bits)
     assert float((x_hat - torch.clamp(mono["x_hat"], 0, 1)).abs().mean()) < 0.02
+
+
+# ------------------------- bf16 instances (B1-B3) -------------------------
+# Tolerance of a bf16 instance against its plain bf16 version: both round
+# the same operands to bf16 and sum in other orders, so a value near a
+# rounding boundary can land on the neighbouring bf16 value (2^-8
+# relative) and carry that into the later products: 4e-3 * max(1, max
+# |plain|) (measured on an H100: at most 1.4e-3).
+TOL_BF16 = 4e-3
+BF16 = torch.bfloat16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,head_dim,hw,shifted", [
+    (64, 8, (48, 32), True), (64, 16, (16, 24), False), (64, 32, (24, 16), True),
+    (96, 8, (16, 24), False), (96, 16, (24, 16), True), (96, 32, (8, 16), False),
+    (128, 8, (16, 16), True), (128, 16, (48, 32), True), (128, 32, (24, 8), False),
+    (192, 8, (16, 24), False), (192, 16, (24, 16), True), (192, 32, (48, 32), True)])
+def test_b1_bf16_instance_matches_plain_on_card(cuda, c, head_dim, hw, shifted):
+    """Every (C, head_dim) of KERNEL_SHAPES_FULL, each cluster the rules use
+    (the smallest and the largest) giving the same bits, and two calls the
+    same bits."""
+    x, wts = attn_inputs(80 + head_dim, 2, *hw, c)
+    rel = np.random.default_rng(81).normal(0, 0.5, (c // head_dim, 64, 64)).astype(np.float32)
+    args = port_attn_args(wts, rel, lambda t: t.to(cuda))
+    xc = torch.from_numpy(x).to(cuda)
+    kw = dict(head_dim=head_dim, window=8, shifted=shifted, compute_dtype=BF16)
+    with torch.no_grad():
+        want = PF.plain_window_block(xc, *args, **kw)
+        before = (PF.flash_window_block.launches, PF.flash_window_block.launches_bf16)
+        got = PF.flash_window_block(xc, *args, **kw)
+        torch.cuda.synchronize()
+        assert (PF.flash_window_block.launches,
+                PF.flash_window_block.launches_bf16) == (before[0], before[1] + 1)
+        for k in {PF.min_cluster(c), PF.max_cluster(c, head_dim)}:
+            assert torch.equal(PF.flash_window_block(xc, *args, **kw, cluster=k), got), k
+        assert torch.equal(PF.flash_window_block(xc, *args, **kw), got)
+    err_ok(got.cpu().numpy(), want.cpu().numpy(), TOL_BF16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,c,hw", [
+    ("b2", 64, (96, 64)), ("b2", 96, (13, 10)), ("b2", 128, (24, 16)), ("b2", 192, (37, 45)),
+    ("b3", 64, (37, 45)), ("b3", 128, (96, 64)), ("b3", 192, (24, 16)), ("b3", 256, (13, 10)),
+    ("b3", 384, (24, 16))])
+def test_b2_b3_bf16_instances_match_plain_on_card(cuda, kernel, c, hw):
+    """Each instance against its plain bf16 version; both tiles, forced on
+    the same input, and a second call give the same bits (GDN and IGDN for
+    B3)."""
+    x, w1, b1, w2, b2, gamma, beta, skip = conv_inputs(90 + c, 2, *hw, c)
+    t = lambda a: torch.from_numpy(a).to(cuda)  # noqa: E731
+    with torch.no_grad():
+        if kernel == "b2":
+            args = (t(x), oihw(w1).to(cuda), t(b1), oihw(w2).to(cuda), t(b2))
+            calls = [(PC.fused_residual_block, PC.plain_residual_block, {})]
+        else:
+            args = (t(x), oihw(w1).to(cuda), t(b1), t(gamma), t(beta), t(skip))
+            calls = [(PC.fused_conv_gdn, PC.plain_conv_gdn, {"inverse": inv})
+                     for inv in (False, True)]
+        for kern, plain, kw in calls:
+            want = plain(*args, **kw, compute_dtype=BF16)
+            before = (kern.launches, kern.launches_bf16)
+            got = kern(*args, **kw, compute_dtype=BF16)
+            torch.cuda.synchronize()
+            assert (kern.launches, kern.launches_bf16) == (before[0], before[1] + 1)
+            for tile in PC.TILES:
+                assert torch.equal(kern(*args, **kw, compute_dtype=BF16, tile=tile), got), tile
+            assert torch.equal(kern(*args, **kw, compute_dtype=BF16), got)
+            err_ok(got.cpu().numpy(), want.cpu().numpy(), TOL_BF16)
+
+
+@pytest.mark.cuda
+def test_codec_switched_from_bf16_gives_the_fp32_bits_back(cuda):
+    """A TCM codec (the three kernels on its path) run in bf16 mode and then
+    switched back gives the fp32 mode's outputs bit for bit, and never
+    launches an instance of the other mode: the prepared weights are kept
+    per type."""
+    from reslic_tcm_tpu_torch.models.tcm import make_tcm
+    from reslic_tcm_tpu_torch.ops.launches import launch_counts, launches_since
+
+    codec = make_tcm(N=64, M=320, device=cuda, seed=7)
+    x = np.random.default_rng(7).uniform(0, 1, (1, 256, 256, 3)).astype(np.float32)
+    fp32 = codec.forward(x)
+    codec.set_matmul_precision("bfloat16")
+    before = (launch_counts(), launch_counts(BF16))
+    bf16 = codec.forward(x)
+    assert not any(launches_since(before[0]).values())
+    assert all(launches_since(before[1], BF16).values())
+    codec.update()
+    enc = codec.compress(x)
+    dec = codec.decompress(enc["strings"], enc["shape"])
+    assert torch.equal(dec["y_hat"], enc["y_hat"])
+    codec.set_matmul_precision(None)
+    before = (launch_counts(), launch_counts(BF16))
+    again = codec.forward(x)
+    assert not any(launches_since(before[1], BF16).values())
+    assert torch.equal(again["x_hat"], fp32["x_hat"])
+    assert not torch.equal(bf16["x_hat"], fp32["x_hat"])

@@ -208,22 +208,22 @@ def test_load_checkpoint_reads_npz_snapshots(pair, tmp_path):
                                   ["--shard-spatial", "2"],
                                   ["--model", "wacnn_gain", "--device-coder"]])
 def test_eval_cli_refuses_unported_options(flag, tmp_path, capsys):
-    """The JAX CLI's options that the port refused: those still unported
-    raise, naming their ROADMAP item. ``--device-coder`` is ported (ROADMAP
-    A12): with TCM it codes a tiny image folder on the CPU through the
-    analytic device coder and prints bpp and PSNR; with another model it
+    """The JAX CLI's options that the port refused, each ported since.
+    ``--bf16`` (ROADMAP A15): TCM codes a tiny image folder on the CPU in the
+    bf16 mode and prints bpp and PSNR. ``--device-coder`` (A12): the same
+    folder through the analytic device coder; with another model it
     raises, since the JAX CLI reads it only on its TCM branch. ``--tile``
-    is ported (A13): the forward estimate of the same folder through
-    128x128 tiles. ``--shard-spatial 2`` is ported too, and raises here
-    because no process group of two ranks runs it."""
-    if flag[0] in ("--device-coder", "--tile"):
+    (A13): the forward estimate of the same folder through 128x128 tiles.
+    ``--shard-spatial 2`` raises here because no process group of two ranks
+    runs it."""
+    if flag[0] in ("--bf16", "--device-coder", "--tile"):
         from PIL import Image
 
         from reslic_tcm_tpu_torch.data.synthetic import synth_image
 
         img = synth_image(np.random.default_rng(6), 176, 192)
         Image.fromarray((img * 255).round().astype(np.uint8)).save(tmp_path / "a.png")
-        real = ["--real"] if flag == ["--device-coder"] else []
+        real = ["--real"] if flag in (["--device-coder"], ["--bf16"]) else []
         assert peval.main(["--data", str(tmp_path), "--platform", "cpu", "--N", "32",
                            "--M", "80", *real, *flag]) == 0
         out = capsys.readouterr().out
@@ -235,6 +235,5 @@ def test_eval_cli_refuses_unported_options(flag, tmp_path, capsys):
         with pytest.raises(ValueError, match="process group"):
             peval.main(["--data", ".", "--platform", "cpu", *flag])
         return
-    match = "TCM only" if "--model" in flag else "ROADMAP"
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(NotImplementedError, match="TCM only"):
         peval.main(["--data", ".", "--platform", "cpu", *flag])

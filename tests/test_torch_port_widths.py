@@ -99,7 +99,7 @@ def _record_calls(monkeypatch):
         "flash_window_block", "ln_mlp" if with_ln else "attention", x.shape[-1], head_dim))
     wrap(PW, "fused_qkv_attention", lambda w, *a, **k: (
         "fused_qkv_attention", w.shape[1], w.shape[2], w.shape[2] // a[2].shape[0]))
-    wrap(PL, "fused_residual_block", lambda x, *a: (
+    wrap(PL, "fused_residual_block", lambda x, *a, **k: (
         "fused_residual_block", None, x.shape[-1], None))
     wrap(PL, "fused_conv_gdn", lambda x, *a, **k: ("fused_conv_gdn", None, x.shape[-1], None))
     return calls
