@@ -38,7 +38,9 @@ Drives reslic_tcm_tpu_torch only (no JAX, no PIL), in these phases:
    is printed as not measured (NaN or null) beside the CUDA-event time.
    Then the bf16 instances (csrc/fused_conv_bf16.cu, csrc/flash_window_attn_bf16.cu)
    at the TCM-S, N=128 and N=192 main-path shapes of B1 (LN+MLP), B2 and
-   B3: each against its plain bf16 version on the card (max abs error
+   B3, and at WACNN N=192's and N=128's of B1's attention-only flavour (a
+   row of its own, flash_window_block_attn_bf16; every cluster of
+   ATTN_CLUSTERS): each against its plain bf16 version on the card (max abs error
    against 4e-3 * max(1, max |plain|): the two round the same operands to
    bf16 and sum in other orders, so a value can round to the neighbouring
    bf16 value), its device time beside the fp32 instance's on the same
@@ -168,14 +170,26 @@ Drives reslic_tcm_tpu_torch only (no JAX, no PIL), in these phases:
    and shard_train_step on TCM-S at 16 x 256x256 against train_step from
    the same weights and seed (loss within 1e-6 relative over two steps, ms
    per step of each). The phase's wall time is printed and held to 90 s.
-5g. (run before 5b) bf16 mode (ChannelARCodec.set_matmul_precision("bfloat16"),
-   the eval CLI's --bf16): TCM-S with the committed weights and TCM N=192
+5g. (run before 5b) bf16 mode (set_matmul_precision("bfloat16"), the eval
+   CLI's --bf16 for TCM): TCM-S with the committed weights and TCM N=192
    with seeded weights (phase 4's codecs) on phase 4's two 768x512 images:
    the forward estimate, compress and decompress (exact y_hat, the
    documented launches per pass, every one a bf16 instance), and on TCM-S
-   the table device coder's pair (exact y_hat); bpp and PSNR beside the
-   same codec's fp32 forward; the device's busy time and idle share of one
-   profiled forward in each mode; the phase's wall time.
+   the table device coder's pair (exact y_hat); then phase 5's WACNN
+   (seeded), mean-scale hyperprior (seeded), trained gained scale
+   hyperprior at level 1 and trained WACNN-STanH at level 1: the forward
+   estimate, compress and decompress (exact y_hat, the decoded x_hat equal
+   to the bf16 forward's clipped x_hat within 1e-5, WACNN-STanH's to
+   forward_codec_consistent's), bf16 launches per pass (WACNN and
+   WACNN-STanH: B1's attention-only bf16 instance 2 / 1 / 1; B4 and every
+   fp32 instance 0); bpp and PSNR beside the same codec's fp32 forward; the
+   device's busy time and idle share of one profiled forward in each mode;
+   the phase's wall time.
+5h. (after 5b) bf16 training: TCM N=192 at batch 2 of 256x256 (5b's
+   tcm192 slice) with the train CLI's --bf16 precision, 1 warm-up and 3
+   timed steps: ms per step and images/s beside 5b's fp32 step, peak
+   memory, finite metrics, no kernel launched, parameters and Adam states
+   fp32, and a profile of one more step.
 6. Profile: torch.profiler over one warm forward, compress and decompress
    of each slice at 768x512 (scale_gain_sc aside), over one step of each
    train slice and over one run of the serial and each pipelined variant
@@ -302,14 +316,30 @@ KERNEL_CASES = _tcm_cases(64, _B1) + [
 CONV_KERNELS = ("fused_residual_block", "fused_conv_gdn")  # B2, B3: one conv kernel, two tiles
 LIBRARY_KERNELS = ("fused_qkv_attention",)  # one PyTorch call computes the whole function
 
-# phase 3's bf16 rows: B1's LN+MLP flavour, B2 and B3 at the TCM slices' shapes
+# phase 3's bf16 rows: B1's LN+MLP flavour, B2 and B3 at the TCM slices'
+# shapes, and B1's attention-only flavour at WACNN N=192's and N=128's (the
+# fp32 rows' shapes)
 BF16_KERNELS = (_B1, _B2, _B3)
 BF16_CASES = [c for c in KERNEL_CASES if c[0] in BF16_KERNELS
-              and (c[0] != _B1 or c[2][2]) and set(c[3]) & set(_TCM_SLICES.values())]
-BF16_SOURCES = {
-    _B1: "reslic_tcm_tpu_torch/csrc/flash_window_attn_bf16.cu",
-    _B2: "reslic_tcm_tpu_torch/csrc/fused_conv_bf16.cu",
-    _B3: "reslic_tcm_tpu_torch/csrc/fused_conv_bf16.cu",
+              and ((c[0] == _B1 and not c[2][2]) or set(c[3]) & set(_TCM_SLICES.values()))]
+_B1_ATTN_BF16 = "flash_window_block_attn_bf16"
+
+
+def _bf16_row(kernel, option) -> str:
+    """The kernels line's row of a bf16 case: B1's attention-only flavour
+    has a row of its own (another kernel, attn_block_bf16_kernel)."""
+    return _B1_ATTN_BF16 if kernel == _B1 and not option[2] else f"{kernel}_bf16"
+
+
+# bf16 row -> (wrapper, source, the phase 5g slices whose launches it counts:
+# both B1 rows share the wrapper's launches_bf16, each flavour on its own slices)
+BF16_ROWS = {
+    f"{_B1}_bf16": (_B1, "reslic_tcm_tpu_torch/csrc/flash_window_attn_bf16.cu",
+                    ("bf16-tcm", "bf16-tcm192")),
+    _B1_ATTN_BF16: (_B1, "reslic_tcm_tpu_torch/csrc/flash_window_attn_bf16.cu",
+                    ("bf16-wacnn", "bf16-wacnn-stanh")),
+    f"{_B2}_bf16": (_B2, "reslic_tcm_tpu_torch/csrc/fused_conv_bf16.cu", None),
+    f"{_B3}_bf16": (_B3, "reslic_tcm_tpu_torch/csrc/fused_conv_bf16.cu", None),
 }
 
 KERNEL_SOURCES = {
@@ -662,8 +692,9 @@ def _prepared(kernel, args, kw, compute_dtype):
 
 
 def phase_kernels_bf16(torch):
-    """Phase 3's bf16 rows (module docstring). Returns, per kernel, the sums
-    over one forward pass of TCM-S, TCM N=128 and TCM N=192."""
+    """Phase 3's bf16 rows (module docstring). Returns, per row, the sums
+    over one forward pass of TCM-S, TCM N=128 and TCM N=192 (B1 LN+MLP, B2,
+    B3) or of WACNN N=192 (B1 attention-only)."""
     from reslic_tcm_tpu_torch.ops import flash_window_attn as F
     from reslic_tcm_tpu_torch.ops import fused_conv as C
 
@@ -697,13 +728,16 @@ def phase_kernels_bf16(torch):
             plain_ms = _time_ms(torch, lambda: plain(*args, **kw, compute_dtype=bf16), reps)
             flops, nbytes = _cost(kernel, shape, option, weight_bytes=2)
             t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-            if kernel == _B1:
+            if kernel == _B1 and not option[2]:
+                forces = {k: {"cluster": k} for k in F.ATTN_CLUSTERS}
+            elif kernel == _B1:
                 forces = {k: {"cluster": k} for k in dict.fromkeys(
                     (F.min_cluster(shape[3]), F.max_cluster(shape[3], option[0])))}
             else:
                 forces = {t: {"tile": t} for t in C.TILES}
             equal = all(bool(torch.equal(got, run[bf16](**f))) for f in forces.values())
-            case = {"kernel": f"{kernel}_bf16", "shape": list(shape), "option": option,
+            row = _bf16_row(kernel, option)
+            case = {"kernel": row, "shape": list(shape), "option": option,
                     "per_forward": per_slice, "max_abs_err": err, "tol": bound,
                     "share_beyond_1e-5": float((diff > 1e-5).float().mean()), "ms": ms,
                     "device_ms": device_ms, "fp32_device_ms": fp32_device_ms,
@@ -720,7 +754,7 @@ def phase_kernels_bf16(torch):
             if not equal:
                 raise AssertionError(f"{kernel} bf16 {shape} {option}: the splits {list(forces)} "
                                      f"give different bits")
-            k = per_kernel.setdefault(f"{kernel}_bf16", dict.fromkeys(
+            k = per_kernel.setdefault(row, dict.fromkeys(
                 ("max_abs_err", "ms", "device_ms", "fp32_device_ms", "plain_ms", "t_ops",
                  "t_bytes"), 0.0))
             k["max_abs_err"] = max(k["max_abs_err"], err)
@@ -728,7 +762,7 @@ def phase_kernels_bf16(torch):
                            ("plain_ms", plain_ms), ("t_ops", t_ops), ("t_bytes", t_bytes)):
                 k[key] += v * per_pass
             for slice_name, n in per_slice.items():
-                sk = per_slice_kernel.setdefault((slice_name, f"{kernel}_bf16"), dict.fromkeys(
+                sk = per_slice_kernel.setdefault((slice_name, row), dict.fromkeys(
                     ("launches", "ms", "device_ms", "fp32_device_ms", "plain_ms", "bound_ms"), 0.0))
                 sk["launches"] += n
                 for key, v in (("ms", ms), ("device_ms", device_ms),
@@ -1067,16 +1101,18 @@ def _stanh_symbols(module, out, lv):
     return module.gaussian_conditional.symbols(out["para"]["y"], out["para"]["means"], lv)
 
 
-def _timed(torch, device, fn):
-    """(fn(), ms on the host clock ending in a synchronise, launches)."""
+def _timed(torch, device, fn, compute_dtype=None):
+    """(fn(), ms on the host clock ending in a synchronise, launches of the
+    instances of ``compute_dtype``: float32 by default)."""
     from reslic_tcm_tpu_torch.ops.launches import launch_counts, launches_since
 
+    cd = compute_dtype or torch.float32
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
     sync()
-    before, t0 = launch_counts(), time.perf_counter()
+    before, t0 = launch_counts(cd), time.perf_counter()
     out = fn()
     sync()
-    return out, (time.perf_counter() - t0) * 1e3, launches_since(before)
+    return out, (time.perf_counter() - t0) * 1e3, launches_since(before, cd)
 
 
 def phase_stanh_wacnn(torch, device, hw):
@@ -2361,6 +2397,9 @@ TRAIN_SLICES = {
                    f"{GAIN_SNAPSHOT}, a random level per step (random.Random({SEED})) and its "
                    f"lambda", False, _NO_LAUNCHES["forward"]),
 }
+# each train slice's median ms per fp32 step (phase 5b), beside which phase
+# 5h prints its bf16 step
+TRAIN_MS = {}
 # the train slices whose step takes a rate level: their lambdas, one per level
 LEVEL_TRAIN = {"wacnn-stanh": STANH_LAMBDAS, "scale-gain": GAIN_LAMBDAS}
 # those whose step also takes a STanH temperature
@@ -2387,15 +2426,17 @@ def _set_remat(module, on: bool) -> None:
             m.remat = on
 
 
-def _timed_step(torch, state, batch, seed, device, lmbda=TRAIN_LAMBDA, lv=None, beta=None):
-    """One train step through training/step.py; (metrics as floats, host ms
-    ending in a synchronise)."""
+def _timed_step(torch, state, batch, seed, device, lmbda=TRAIN_LAMBDA, lv=None, beta=None,
+                precision=None):
+    """One train step through training/step.py at matmul ``precision``;
+    (metrics as floats, host ms ending in a synchronise)."""
     from reslic_tcm_tpu_torch.training.step import step_noise, train_step
 
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
     sync()
     t0 = time.perf_counter()
-    m = train_step(state, batch, lmbda, step_noise(seed, state.step, device), lv=lv, beta=beta)
+    m = train_step(state, batch, lmbda, step_noise(seed, state.step, device), lv=lv, beta=beta,
+                   matmul_precision=precision)
     sync()
     ms = (time.perf_counter() - t0) * 1e3
     m = {k: float(v) for k, v in m.items()}
@@ -2467,6 +2508,7 @@ def phase_train(torch, device, slice_name, batch_size, hw, warmup, steps):
             f"aux {m['aux_loss']:.3f}, grad norm {m['grad_norm']:.3f}, {ms:.1f} ms")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else float("nan")
     med = float(np.median(times))
+    TRAIN_MS[slice_name] = med
     log(f"train {slice_name} remat {'on' if has_remat else 'n/a'}: median {med:.1f} ms per step "
         f"(min {min(times):.1f}, max {max(times):.1f}, {len(times)} steps), "
         f"{batch_size * 1e3 / med:.2f} images/s, peak memory {peak:.2f} GiB")
@@ -2635,6 +2677,168 @@ def phase_bf16(torch, codecs: dict, device, hw):
     return paths
 
 
+def _bf16_launches(b1):
+    return {_B1: b1, _B2: 0, _B3: 0}
+
+
+# bf16 phase (5g), the other codecs: slice -> (phase 5's codec of that name,
+# the rate level), driven through their own passes at that level
+BF16_CODEC_SLICES = {"bf16-wacnn": ("wacnn", 0), "bf16-balle-mean-scale": ("balle-mean-scale", 0),
+                     "bf16-scale-gain": ("scale-gain", 1), "bf16-wacnn-stanh": ("wacnn-stanh", 1)}
+# their bf16 launches per pass: B1's attention-only bf16 instance on WACNN's
+# path (B4 is not launched: the window-4 attention composes in bf16, as in
+# the JAX package), nothing on the hyperpriors'
+_WACNN_BF16 = {"forward": _bf16_launches(2), "compress": _bf16_launches(1),
+               "decompress": _bf16_launches(1)}
+BF16_CODEC_LAUNCHES = {
+    "bf16-wacnn": _WACNN_BF16,
+    "bf16-wacnn-stanh": {**_WACNN_BF16, "forward_codec_consistent": _bf16_launches(2)},
+    "bf16-balle-mean-scale": {p: _bf16_launches(0) for p in _WACNN_BF16},
+    "bf16-scale-gain": {p: _bf16_launches(0) for p in _WACNN_BF16},
+}
+
+
+def phase_bf16_codecs(torch, codecs: dict, device, hw):
+    """Phase 5g's other codecs (module docstring): WACNN, the mean-scale
+    hyperprior, the trained gained scale hyperprior and WACNN-STanH, each at
+    its BF16_CODEC_SLICES level on phase 4's two images, in bf16 mode: the
+    forward estimate, compress and decompress; exact y_hat, the decoded
+    x_hat equal to the bf16 forward's clipped x_hat within 1e-5 (WACNN-STanH:
+    forward_codec_consistent's, its codec's own forward), the bf16 launches
+    per pass and no fp32 instance; bpp and PSNR beside the fp32 mode's.
+    Returns {slice: the bf16 instances' launches on its path}."""
+    from reslic_tcm_tpu_torch.data.synthetic import synth_image
+    from reslic_tcm_tpu_torch.ops.launches import launch_counts, reset_launch_counts
+    from reslic_tcm_tpu_torch.training.codec_eval import rate_kwargs
+    from reslic_tcm_tpu_torch.utils.metrics import compute_psnr
+
+    t0 = time.perf_counter()
+    bf16, on_card = torch.bfloat16, device == "cuda"
+    images = [synth_image(np.random.default_rng(SEED + i), *hw) for i in range(2)]
+    px = hw[0] * hw[1]
+    paths = {}
+    for name, (base, lv) in BF16_CODEC_SLICES.items():
+        codec = codecs[base]
+        rate = rate_kwargs(codec, lv)
+        consistent = getattr(codec, "forward_codec_consistent", None)
+        want = BF16_CODEC_LAUNCHES[name]
+        fp32 = []
+        for img in images:
+            out = codec.forward(img[None], lv)
+            x = torch.as_tensor(img[None], device=out["x_hat"].device)
+            fp32.append((_bits(torch, out["likelihoods"]) / px,
+                         compute_psnr(x, torch.clamp(out["x_hat"], 0, 1))))
+        codec.set_matmul_precision("bfloat16")
+        try:
+            reset_launch_counts()
+            for j, img in enumerate(images):
+                x = img[None]
+                launches = {}
+                fwd, fwd_ms, launches["forward"] = _timed(
+                    torch, device, lambda: codec.forward(x, lv), bf16)
+                ref = fwd
+                if consistent is not None:
+                    ref, _, launches["forward_codec_consistent"] = _timed(
+                        torch, device, lambda: consistent(x, lv=lv), bf16)
+                enc, enc_ms, launches["compress"] = _timed(
+                    torch, device, lambda: codec.compress(x, **rate), bf16)
+                dec, dec_ms, launches["decompress"] = _timed(
+                    torch, device, lambda: codec.decompress(enc["strings"], enc["shape"], **rate),
+                    bf16)
+                for pass_name, got in launches.items():
+                    _check_launches(j, f"{name} {pass_name}", got, want[pass_name], on_card)
+                if not torch.equal(enc["y_hat"], dec["y_hat"]):
+                    raise AssertionError(f"{name} image {j}: decode did not reproduce the "
+                                         f"encoder's y_hat")
+                err = float((dec["x_hat"] - torch.clamp(ref["x_hat"], 0, 1)).abs().max())
+                xt = torch.as_tensor(x, device=dec["x_hat"].device)
+                est = _bits(torch, fwd["likelihoods"]) / px
+                est_psnr = compute_psnr(xt, torch.clamp(fwd["x_hat"], 0, 1))
+                real, real_psnr = _nbytes(enc) * 8.0 / px, compute_psnr(xt, dec["x_hat"])
+                log(f"{name} level {lv} image {j}: bf16 estimate {est:.4f} bpp, PSNR "
+                    f"{est_psnr:.3f} dB, real {real:.4f} bpp, PSNR {real_psnr:.3f} dB; fp32 "
+                    f"estimate {fp32[j][0]:.4f} bpp, PSNR {fp32[j][1]:.3f} dB; decoded x_hat vs "
+                    f"the bf16 {'codec-consistent ' if consistent else ''}forward's max abs err "
+                    f"{err:.3e}; forward {fwd_ms:.1f} ms, encode {enc_ms:.1f} ms, decode "
+                    f"{dec_ms:.1f} ms, y_hat exact")
+                if not err <= 1e-5:
+                    raise AssertionError(f"{name} image {j}: decoded x_hat differs from the "
+                                         f"bf16 forward's by {err:.3e}")
+            paths[name] = launch_counts(bf16)
+            fp32_launches = launch_counts()
+            if any(fp32_launches.values()):
+                raise AssertionError(f"{name}: fp32 instances launched in bf16 mode: "
+                                     f"{fp32_launches}")
+            for kernel, n in want["forward"].items():
+                if on_card and n and paths[name][kernel] == 0:
+                    raise AssertionError(f"{kernel}'s bf16 instance was never launched on the "
+                                         f"{name} path")
+            log(f"main path {name}: bf16 launches {json.dumps(paths[name])}, fp32 launches "
+                f"{json.dumps(fp32_launches)}")
+            if on_card:
+                for mode in ("bfloat16", None):
+                    codec.set_matmul_precision(mode)
+                    codec.forward(images[0][None], lv)
+                    _profile_window(torch, f"{name} forward, matmul precision {mode}",
+                                    lambda: codec.forward(images[0][None], lv))
+        finally:
+            codec.set_matmul_precision(None)
+    log(f"phase bf16 codecs: {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
+def phase_train_bf16(torch, device, slice_name, batch_size, hw, warmup, steps):
+    """Phase 5h (module docstring): TRAIN_SLICES' ``slice_name`` trained with
+    the trainer's --bf16 precision through training/step.py: warm-up and
+    timed steps (remat on where the model has it), ms per step and images/s
+    beside phase 5b's fp32 step, peak memory, finite metrics, no kernel
+    launched, parameters and Adam states fp32; on the card a profile of one
+    more step."""
+    from reslic_tcm_tpu_torch.cli.train import to_device
+    from reslic_tcm_tpu_torch.ops.launches import launch_counts, reset_launch_counts
+    from reslic_tcm_tpu_torch.training.step import create_train_state
+
+    make, what, _, _ = TRAIN_SLICES[slice_name]
+    on_card = device == "cuda"
+    t0 = time.perf_counter()
+    state = create_train_state(make(device))
+    batch = to_device(_crops(batch_size, hw, SEED), device)
+    log(f"train bf16 {slice_name}: {what} on {device}, matmul precision bfloat16, batch "
+        f"{batch_size} x {hw[0]}x{hw[1]}; cuDNN deterministic "
+        f"{torch.backends.cudnn.deterministic}; set-up {time.perf_counter() - t0:.1f} s")
+    reset_launch_counts()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    times = []
+    for k in range(warmup + steps):
+        m, ms = _timed_step(torch, state, batch, SEED, device, precision="bfloat16")
+        if k >= warmup:
+            times.append(ms)
+        log(f"train bf16 {slice_name} step {state.step} ({'timed' if k >= warmup else 'warm-up'}"
+            f"): loss {m['loss']:.4f}, bpp {m['bpp_loss']:.4f}, mse {m['mse_loss']:.6f}, aux "
+            f"{m['aux_loss']:.3f}, grad norm {m['grad_norm']:.3f}, {ms:.1f} ms")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else float("nan")
+    med = float(np.median(times))
+    fp32 = TRAIN_MS.get(slice_name, float("nan"))
+    log(f"train bf16 {slice_name}: median {med:.1f} ms per step (min {min(times):.1f}, max "
+        f"{max(times):.1f}, {len(times)} steps), {batch_size * 1e3 / med:.2f} images/s, peak "
+        f"memory {peak:.2f} GiB; fp32 (phase 5b) {fp32:.1f} ms per step, "
+        f"{batch_size * 1e3 / fp32:.2f} images/s: {fp32 / med:.2f}x")
+    launches = (launch_counts(), launch_counts(torch.bfloat16))
+    if any(launches[0].values()) or any(launches[1].values()):
+        raise AssertionError(f"the bf16 train steps launched kernels: {launches}")
+    tensors = [*state.module.parameters(), *(v for opt in (state.optimizer, state.aux_optimizer)
+                                             if opt is not None for st in opt.state.values()
+                                             for key, v in st.items() if key != "step")]
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise AssertionError("bf16 training left a parameter or an Adam state off fp32")
+    if on_card:
+        _profile_window(torch, f"train step bf16 ({slice_name}, {batch_size}x{hw[0]}x{hw[1]})",
+                        lambda: _timed_step(torch, state, batch, SEED, device,
+                                            precision="bfloat16"))
+    log(f"phase train bf16: {time.perf_counter() - t0:.1f} s")
+
+
 def phase_profile(torch, codecs: dict):
     """torch.profiler over one warm 768x512 forward, compress and decompress
     of each slice's codec: the device's busy time and idle share of the
@@ -2703,11 +2907,13 @@ def main() -> int:
             codecs[slice_name], launches[slice_name] = phase_slice(torch, "cpu", (256, 256),
                                                                    slice_name)
         launches.update(phase_bf16(torch, codecs, "cpu", (256, 256)))
-        del codecs
         for slice_name in AC_SLICES:
-            _, launches[slice_name] = phase_ac_slice(torch, "cpu", (256, 256), slice_name)
+            codecs[slice_name], launches[slice_name] = phase_ac_slice(torch, "cpu", (256, 256),
+                                                                      slice_name)
         for slice_name, (phase, _) in {**STANH_SLICES, **GAIN_SLICES}.items():
-            _, launches[slice_name] = phase(torch, "cpu", (256, 256))
+            codecs[slice_name], launches[slice_name] = phase(torch, "cpu", (256, 256))
+        launches.update(phase_bf16_codecs(torch, codecs, "cpu", (256, 256)))
+        del codecs
         _, pipe_batches, launches["pipelined"] = phase_pipelined(torch, "cpu", (256, 256), 2, 2,
                                                                  1)
         _, launches["device-coder"], coder_launches, _ = phase_device_coder(
@@ -2716,6 +2922,7 @@ def main() -> int:
                                            train_batch=2, train_hw=(128, 128))
         for slice_name in TRAIN_SLICES:
             phase_train(torch, "cpu", slice_name, 2, (128, 128), 1, 2)
+        phase_train_bf16(torch, "cpu", "tcm192", 2, (128, 128), 1, 2)
         log("kernels " + json.dumps({"launches": launches}))
         log("coder_kernels " + json.dumps({"launches": coder_launches}))
         log(f"rehearsal done in {time.perf_counter() - t0:.1f} s (no ok line: no card)")
@@ -2763,6 +2970,7 @@ def main() -> int:
     paths["tiled"] = phase_parallel(torch, "cuda", pipe_batches[0])
     lap("phase 5f parallel")
     bf16_paths = phase_bf16(torch, codecs, "cuda", IMAGE_HW)
+    bf16_paths.update(phase_bf16_codecs(torch, codecs, "cuda", IMAGE_HW))
     lap("phase 5g bf16")
     torch.cuda.synchronize()
     for path, launches in paths.items():
@@ -2778,6 +2986,8 @@ def main() -> int:
         "scale-gain": phase_train(torch, "cuda", "scale-gain", 16, (256, 256), 3, 10),
     }
     lap("phase 5b train")
+    phase_train_bf16(torch, "cuda", "tcm192", 2, (256, 256), 1, 3)
+    lap("phase 5h train bf16")
     phase_profile(torch, codecs)
     def serial_roundtrip():
         for x in pipe_batches:
@@ -2811,10 +3021,11 @@ def main() -> int:
             f"{k['max_abs_err']:.2e}, {k['ms'] * 1e3:.0f} us per forward pass "
             f"(plain {k['plain_ms'] * 1e3:.0f} us, bound {max(k['t_ops'], k['t_bytes']) * 1e3:.0f} us)")
     for kernel, k in per_kernel_bf16.items():
-        base = kernel[:-len("_bf16")]
-        n = sum(launches[base] for launches in bf16_paths.values())
+        base, src, counted = BF16_ROWS[kernel]
+        n = sum(launches[base] for name, launches in bf16_paths.items()
+                if counted is None or name in counted)
         kernels.append({
-            "name": kernel, "route": "cuda", "source": BF16_SOURCES[base],
+            "name": kernel, "route": "cuda", "source": src,
             "replaces": KERNEL_SOURCES[base][1], "launches": n, "max_abs_err": k["max_abs_err"],
             "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": max(k["t_ops"], k["t_bytes"]),
             "bound_by": "operations" if k["t_ops"] >= k["t_bytes"] else "bytes",
@@ -2827,12 +3038,14 @@ def main() -> int:
             f"{k['max_abs_err']:.2e}, device {k['device_ms'] * 1e3:.0f} us per forward pass "
             f"(fp32 instance {k['fp32_device_ms'] * 1e3:.0f} us, plain {k['plain_ms'] * 1e3:.0f} "
             f"us, bound {max(k['t_ops'], k['t_bytes']) * 1e3:.0f} us)")
-    log("bf16 rows (*_bf16): launches: the bf16 phase's runs (TCM-S and TCM N=192, two images, "
-        "all three passes, and TCM-S's device-coder pair); ms, plain_ms, device_ms, "
-        "fp32_device_ms and bound_ms: the launches of one 768x512 forward pass of TCM-S, "
-        "TCM N=128 and TCM N=192 at their main-path shapes, with prepared weights; bound_ms "
-        "against the bf16 tensor-core peak, weights counted in bf16; library_ms null: no "
-        "single PyTorch call computes them")
+    log("bf16 rows (*_bf16): launches: the bf16 phase's runs (two images, all passes: B1 "
+        "LN+MLP, B2, B3 on TCM-S, with its device-coder pair, and TCM N=192; B1 "
+        "attention-only on WACNN and WACNN-STanH at level 1, with forward_codec_consistent); "
+        "ms, plain_ms, device_ms, fp32_device_ms and bound_ms: the launches of one 768x512 "
+        "forward pass of TCM-S, TCM N=128 and TCM N=192 (B1 LN+MLP, B2, B3) or of WACNN "
+        "N=192 (B1 attention-only) at their main-path shapes, with prepared weights; "
+        "bound_ms against the bf16 tensor-core peak, weights counted in bf16; library_ms "
+        "null: no single PyTorch call computes them")
     log("launches: the slices' main-path runs (two images each, all three passes, every "
         "level or point of the variable-rate slices), the pipelined phase's serial run, the "
         "device-coder path's runs and the parallel phase's tiled pass (B1-B3); "

@@ -282,7 +282,8 @@ def main(argv=None):
     if args.bf16 and args.model != "tcm":
         raise NotImplementedError(
             f"--bf16 runs TCM only, as the JAX CLI reads it only on its TCM branch; the other "
-            f"codecs' bf16 mode is ROADMAP A15b: drop it for --model {args.model}")
+            f"codecs take the bf16 mode through their set_matmul_precision(\"bfloat16\"): drop "
+            f"it for --model {args.model}")
     device = _device(args)
     if not args.shard_spatial:
         return _main(args, device, print)

@@ -15,7 +15,9 @@ quality map, which no train step feeds).
 ``--tester`` validates and stops; ``--checkpoint`` takes a ``.npz``
 snapshot of JAX parameters (a warm start) or the port's own checkpoint,
 whose optimisers, scheduler, step and epoch ``--continue_train`` resumes.
-Runs on the CUDA device unless ``--platform cpu``. wandb is not ported.
+Runs on the CUDA device unless ``--platform cpu``. ``--bf16`` trains with
+the JAX trainer's bf16 matmul precision (``training/step.py``; parameters
+and optimiser states fp32, validation fp32). wandb is not ported.
 
 ``--coordinator host:port --num_processes n --process_id i`` makes the run
 one rank of n (NCCL on the card, gloo with ``--platform cpu``; rank 0
@@ -31,6 +33,7 @@ rank 0 saves.
 
 from __future__ import annotations
 
+import functools
 import os
 import random
 import sys
@@ -41,12 +44,6 @@ import torch
 
 from .eval import _device  # the card (TF32 off, cuDNN deterministic) or the CPU
 from .eval import load_checkpoint as load_snapshot
-
-# options the port does not run yet, with the ROADMAP item that brings each
-_NOT_YET = {
-    "bf16": "ROADMAP queue A item 15 (bf16 throughput mode)",
-}
-
 
 def to_device(batch: np.ndarray, device) -> torch.Tensor:
     """An NHWC numpy batch -> an NCHW float32 tensor on ``device``."""
@@ -60,9 +57,6 @@ def main(argv=None):
     if args.model == "scale_gain_sc":
         raise ValueError("-m scale_gain_sc needs a quality map input, which the train step "
                          "does not feed (nor does the JAX trainer's)")
-    for flag, item in _NOT_YET.items():
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag} is not ported yet: {item}")
     device = _device(args)
     if args.coordinator:
         from ..parallel.multihost import initialize_distributed
@@ -114,10 +108,13 @@ def _train(args, device) -> int:
             restored = load_checkpoint(args.checkpoint)
             module.load_state_dict(restored["state_dict"])
 
-    step_fn = train_step
+    # --bf16: the JAX trainer's make_train_step(matmul_precision="bfloat16")
+    # for every model; validation stays fp32
+    precision = "bfloat16" if args.bf16 else None
+    step_fn = functools.partial(train_step, matmul_precision=precision)
     if mesh is not None:
         shard_params(mesh, module)
-        step_fn = shard_train_step(mesh)
+        step_fn = shard_train_step(mesh, precision)
     is_stanh = is_stanh_name(args.model)
     _warn_frozen_uniform_levels(args)
     if args.freeze and is_stanh:

@@ -1,6 +1,7 @@
 // Flash window attention for Hopper (sm_90a) on the bf16 tensor cores: the
-// bf16 instance of csrc/flash_window_attn.cu's LN+MLP flavour, one whole
-// Swin sub-block per 8x8 window.
+// bf16 instances of csrc/flash_window_attn.cu's two flavours, one whole
+// Swin sub-block (LN+MLP) or one attention block (attention-only) per 8x8
+// window.
 //
 // Replaces the Pallas TPU kernel reslic_tcm_tpu/ops/flash_window_attn.py:239
 // (flash_window_block / _kernel) in its bf16 mode (compute_dtype=bfloat16,
@@ -18,6 +19,18 @@
 // LN, the softmax, the exact erf GELU, the biases and the residuals stay
 // fp32. The shifted (SW) flavour takes the rolled map and adds -1e9 to the
 // scores of token pairs the roll brought together, as the fp32 instance.
+//
+// The attention-only flavour (with_ln=False, mlp=None: WACNN's
+// WinBasedAttention at (C, head_dim) = (128, 16) and (192, 24)) is
+// attn_block_bf16_kernel<C, HD, K>: x + bf16(o) . bf16(Wproj) + bproj with
+// qkv = bf16(x) . bf16(Wqkv) + bqkv, the same cast points (the Pallas body's
+// flash_window_attn.py:93, :173, :183, :195) and the same attention code.
+// Its residual x is read again from global memory in proj's epilogue, so
+// shared memory holds only bf16(x) (later the heads' output), q | k, v^T and
+// the staged W: 119 KB at C = 192, K = 1. head_dim 24 is not a multiple of
+// m16n8k16's k: q.k^T takes a second step over dims 16..31 whose upper half
+// (24..31, past the head) is zeroed in registers, as head_dim 8 zeroes 8..15;
+// P.v takes three n8 tiles.
 //
 // What bounds it on this card: per window about 2*T*(12*C^2 + 2*T*C) FLOP
 // (7.3 MFLOP at C = 64, 27 at C = 128, 60 at C = 192) against 2*T*C*4 bytes
@@ -195,6 +208,7 @@ __device__ __forceinline__ void head_attention(const bf16* qk, int ldqk, int kof
                                                bf16* o, int ldo, int mt, bool last_row,
                                                bool last_col) {
   constexpr int KSTEPS = (HD + 15) / 16;
+  constexpr bool HALF = HD % 16 == 8;  // the last k step's upper 8 dims lie past the head
   constexpr int DT = HD / 8;  // n8 tiles of the output
   constexpr int LV = kT + 8;
   const int lane = threadIdx.x % 32;
@@ -208,12 +222,13 @@ __device__ __forceinline__ void head_attention(const bf16* qk, int ldqk, int kof
   for (int ks = 0; ks < KSTEPS; ++ks) {
     uint32_t a[4];
     frag_a(a, qk, ldqk, mt * 16, hofs + ks * 16);
-    if (HD == 8) a[2] = a[3] = 0u;  // k 8..15 lie past the head: zero products
+    const bool half = HALF && ks == KSTEPS - 1;
+    if (half) a[2] = a[3] = 0u;  // k 8..15 of the step lie past the head: zero products
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       uint32_t b[2];
       frag_b(b, qk + kofs, ldqk, j * 8, hofs + ks * 16);
-      if (HD == 8) b[1] = 0u;
+      if (half) b[1] = 0u;
       mma_bf16(s[j], a, b);
     }
   }
@@ -520,6 +535,170 @@ cudaError_t launch_swin(const SwinArgs& a, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// Shared-memory geometry of one CTA of the attention-only flavour (strides
+// in elements, offsets in bytes).
+template <int C, int HD, int K>
+struct Attn {
+  static constexpr int NH = C / HD;
+  static constexpr int HK = NH / K;  // heads per rank
+  static constexpr int CK = C / K;   // output columns per rank
+  static constexpr int QW = 3 * CK;  // qkv columns per rank
+  static constexpr int NBQ = block_cols(QW);
+  static constexpr int NBP = block_cols(CK);  // proj's column blocks
+  static constexpr int LA = C + 8;   // as (bf16)
+  static constexpr int LQK = 2 * CK + 8;
+  static constexpr int LV = kT + 8;
+  static constexpr int NBMAX = cmax(NBQ, NBP);
+  static constexpr int AS = 0;
+  static constexpr int QK = AS + align16(2 * kT * LA);
+  static constexpr int VT = QK + align16(2 * kT * LQK);
+  static constexpr int STAGE = VT + align16(2 * CK * LV);
+  static constexpr int BYTES = STAGE + 2 * 2 * NBMAX * kLW;
+  static constexpr int MIN_BLOCKS = blocks_per_sm(BYTES);
+  static_assert(C % 32 == 0 && NH * HD == C && NH % K == 0, "heads split evenly over the cluster");
+  static_assert(HD % 8 == 0 && CK % 8 == 0, "n8 tiles");
+  static_assert(Split<NBQ>::NTW <= 8 && Split<NBP>::NTW <= 8, "accumulators");
+  static_assert(BYTES <= kSmemPerBlock, "shared memory of a block");
+};
+
+// out = x + bf16(attn(x)) . bf16(Wproj) + bproj over one 8x8 window per
+// cluster of K CTAs: rank r computes the heads [r*NH/K, (r+1)*NH/K) and the
+// output columns [r*C/K, (r+1)*C/K), the heads' output gathered through
+// distributed shared memory, as swin_block_bf16_kernel without LN and MLP.
+template <int C, int HD, int K>
+__global__ void __launch_bounds__(kThreads, (Attn<C, HD, K>::MIN_BLOCKS))
+    attn_block_bf16_kernel(const SwinArgs p) {
+  using G = Attn<C, HD, K>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* as = reinterpret_cast<bf16*>(smem + G::AS);  // [T][LA] bf16(x), then the heads' out
+  bf16* qk = reinterpret_cast<bf16*>(smem + G::QK);  // [T][LQK] this rank's q | k
+  bf16* vt = reinterpret_cast<bf16*>(smem + G::VT);  // [CK][LV] this rank's v, transposed
+  bf16* stage = reinterpret_cast<bf16*>(smem + G::STAGE);
+
+  const int rank = K == 1 ? 0 : static_cast<int>(cg::this_cluster().block_rank());
+  const int win = blockIdx.x / K;
+  const int nww = p.W / kWin;
+  const int nwh = p.H / kWin;
+  const int wy = win / nww;
+  const int wx = win % nww;
+  const size_t img = static_cast<size_t>(blockIdx.y) * p.H * p.W * C;
+  auto gofs = [&](int t, int c) {
+    return img + (static_cast<size_t>(wy * kWin + t / kWin) * p.W + wx * kWin + t % kWin) * C + c;
+  };
+  const int cbase = rank * G::CK;  // this rank's first output column
+
+  for (int i = threadIdx.x; i < kT * C / 4; i += kThreads) {
+    const int t = i / (C / 4);
+    const int c = i % (C / 4) * 4;
+    const float4 v = __ldg(reinterpret_cast<const float4*>(p.x + gofs(t, c)));
+    uint2 packed;
+    packed.x = pack_bf16(v.x, v.y);
+    packed.y = pack_bf16(v.z, v.w);
+    *reinterpret_cast<uint2*>(as + t * G::LA + c) = packed;
+  }
+  __syncthreads();
+
+  // qkv of this rank's heads: local column m lies in segment m / CK (q, k or
+  // v) and is global column (m / CK) * C + cbase + m % CK.
+  for (int nb0 = 0; nb0 < G::QW; nb0 += G::NBQ) {
+    auto col = [&](int n) { return (nb0 + n) / G::CK * C + cbase + (nb0 + n) % G::CK; };
+    float acc[Split<G::NBQ>::NTW][4] = {};
+    mma_product<G::NBQ, C, G::LA>(
+        acc, as, [&](int n, int k) { return p.wqkv + static_cast<size_t>(col(n)) * C + k; },
+        stage);
+    mma_epilogue<G::NBQ>(acc, [&](int t, int n, float v0, float v1) {
+      const int m = nb0 + n;  // m and m + 1 lie in one segment (CK is even)
+      const int gc = col(n);
+      v0 += __ldg(p.bqkv + gc);
+      v1 += __ldg(p.bqkv + gc + 1);
+      if (m < 2 * G::CK) {
+        *reinterpret_cast<uint32_t*>(qk + t * G::LQK + m) = pack_bf16(v0, v1);
+      } else {
+        vt[(m - 2 * G::CK) * G::LV + t] = __float2bfloat16_rn(v0);
+        vt[(m - 2 * G::CK + 1) * G::LV + t] = __float2bfloat16_rn(v1);
+      }
+    });
+  }
+  __syncthreads();
+
+  // attention, one warp per (head, 16 query rows); each head's output lands
+  // in `as` (bf16(x) is no longer read) at its global columns
+  const bool last_row = p.shifted && wy == nwh - 1;
+  const bool last_col = p.shifted && wx == nww - 1;
+  for (int task = threadIdx.x / 32; task < 4 * G::HK; task += kWarps) {
+    const int hl = task / 4;
+    const int h = rank * G::HK + hl;
+    head_attention<HD>(qk, G::LQK, G::CK, hl * HD, vt, p.relb + static_cast<size_t>(h) * kT * kT,
+                       as + cbase, G::LA, task % 4, last_row, last_col);
+  }
+  if constexpr (K > 1) {
+    // every rank's heads are in: gather the other ranks' column blocks, then
+    // wait until every rank has read this one's
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();
+    constexpr int PER = kT * G::CK / 8;  // 16-byte chunks per rank
+    for (int i = threadIdx.x; i < K * PER; i += kThreads) {
+      const int r = i / PER;
+      if (r == rank) continue;
+      const int t = i % PER / (G::CK / 8);
+      const int c = r * G::CK + i % (G::CK / 8) * 8;
+      const bf16* src = cluster.map_shared_rank(as, r);
+      *reinterpret_cast<uint4*>(as + t * G::LA + c) =
+          *reinterpret_cast<const uint4*>(src + t * G::LA + c);
+    }
+    cluster.sync();
+  } else {
+    __syncthreads();
+  }
+
+  // out[:, own columns] = x + (o . Wproj + bproj), x read again from memory
+  for (int nb0 = 0; nb0 < G::CK; nb0 += G::NBP) {
+    float acc[Split<G::NBP>::NTW][4] = {};
+    mma_product<G::NBP, C, G::LA>(
+        acc, as,
+        [&](int n, int k) { return p.wproj + static_cast<size_t>(cbase + nb0 + n) * C + k; },
+        stage);
+    mma_epilogue<G::NBP>(acc, [&](int t, int n, float v0, float v1) {
+      const int c = cbase + nb0 + n;
+      const size_t o = gofs(t, c);
+      const float2 xv = __ldg(reinterpret_cast<const float2*>(p.x + o));
+      float2 v;
+      v.x = xv.x + (v0 + __ldg(p.bproj + c));
+      v.y = xv.y + (v1 + __ldg(p.bproj + c + 1));
+      *reinterpret_cast<float2*>(p.out + o) = v;
+    });
+  }
+}
+
+template <int C, int HD, int K>
+cudaError_t launch_attn(const SwinArgs& a, int B, cudaStream_t stream) {
+  using G = Attn<C, HD, K>;
+  cudaError_t e = cudaFuncSetAttribute(attn_block_bf16_kernel<C, HD, K>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, G::BYTES);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((a.H / kWin) * (a.W / kWin) * K, B, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = G::BYTES;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = K;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, attn_block_bf16_kernel<C, HD, K>, a);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+// Instances (C, head_dim, K) of the attention-only flavour: every cluster of
+// ops/flash_window_attn.py::ATTN_CLUSTERS for each (C, head_dim) of
+// KERNEL_SHAPES_ATTN, as the fp32 instance's ATTN_INSTANCES.
+#define ATTN_BF16_INSTANCES(X) \
+  X(128, 16, 1) X(128, 16, 2) X(128, 16, 4) X(192, 24, 1) X(192, 24, 2) X(192, 24, 4)
+
 // Instances (C, head_dim, K): the fp32 instance's (flash_window_attn.cu
 // SWIN_INSTANCES), the smallest cluster (ops/flash_window_attn.py::
 // min_cluster) and the largest (max_cluster) for each (C, head_dim).
@@ -553,6 +732,28 @@ int flash_window_block_bf16(const float* x, float* out, const bf16* wqkv, const 
   if (C == c && head_dim == hd && cluster == k) return launch_swin<c, hd, k>(a, B, s);
   SWIN_BF16_INSTANCES(SWIN_CASE)
 #undef SWIN_CASE
+  return cudaErrorInvalidValue;
+}
+
+// The attention-only flavour (no LN1, no MLP): out = x + bf16(attn(x)) .
+// bf16(Wproj) + bproj. x, out: [B][H][W][C] float32 (H, W multiples of 8;
+// C 128 with head_dim 16 or C 192 with head_dim 24), 16-byte aligned.
+// wqkv: [3C][C] bf16 with the q rows pre-scaled; wproj: [C][C] bf16 (both
+// [out][in]); bqkv: [3C] with the q entries pre-scaled; bproj: [C]; relb:
+// [C/head_dim][64][64] (float32). cluster: CTAs per window, one of
+// ATTN_BF16_INSTANCES' K for (C, head_dim); the result does not depend on it.
+int window_attention_block_bf16(const float* x, float* out, const bf16* wqkv,
+                                const float* bqkv, const bf16* wproj, const float* bproj,
+                                const float* relb, int B, int H, int W, int C, int head_dim,
+                                int cluster, int shifted, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (H % kWin != 0 || W % kWin != 0 || B <= 0) return cudaErrorInvalidValue;
+  const SwinArgs a{x,       out,     wqkv,    bqkv,    wproj,   bproj,   nullptr, nullptr, relb,
+                   nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, H,       W,       shifted};
+#define ATTN_CASE(c, hd, k) \
+  if (C == c && head_dim == hd && cluster == k) return launch_attn<c, hd, k>(a, B, s);
+  ATTN_BF16_INSTANCES(ATTN_CASE)
+#undef ATTN_CASE
   return cudaErrorInvalidValue;
 }
 

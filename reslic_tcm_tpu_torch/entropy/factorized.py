@@ -71,6 +71,8 @@ class EntropyBottleneck(nn.Module):
             matrix, bias = getattr(self, f"_matrix{i}"), getattr(self, f"_bias{i}")
             if detach:
                 matrix, bias = matrix.detach(), bias.detach()
+            # fp32 in the bf16 mode too, where the TPU rounds it: it moves only
+            # the forward's z likelihood (ROADMAP A15b)
             logits = torch.matmul(F.softplus(matrix), logits) + bias
             if i < len(self.filters):
                 factor = getattr(self, f"_factor{i}")

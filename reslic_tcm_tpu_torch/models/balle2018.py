@@ -31,7 +31,7 @@ from ..entropy.factorized import EntropyBottleneck
 from ..entropy.gaussian import GaussianConditional
 from ..ops.layers import GDN, Deconv, conv, to_nchw, to_nhwc
 from ..ops.math import gaussian_likelihood
-from .base import fp32_numerics
+from .base import MatmulPrecision, codec_pass
 from .wacnn import draw_weights
 
 
@@ -142,11 +142,14 @@ class MeanScaleHyperprior(ScaleHyperprior):
         return scales, means
 
 
-class HyperpriorCodec:
+class HyperpriorCodec(MatmulPrecision):
     """A Balle-2018 module on a device plus the host rANS coder (the
     reference's update() / compress() / decompress() / forward API). Its
     tensors are NHWC; each pass runs under ``fp32_numerics``, whatever the
-    caller's TF32 flags."""
+    caller's TF32 flags, and at the codec's matmul precision
+    (``codec_pass``; ``set_matmul_precision("bfloat16")`` is the JAX codec's
+    bf16 mode, ``_jit`` balle2018.py:177-191). ``update()``'s tables stay
+    fp32."""
 
     def __init__(self, module: FactorizedPrior | ScaleHyperprior, device):
         self.device = torch.device(device)
@@ -176,7 +179,7 @@ class HyperpriorCodec:
             raise RuntimeError("call update() before compress() or decompress()")
 
     @torch.no_grad()
-    @fp32_numerics()
+    @codec_pass
     def forward(self, x, lv: int = 0) -> dict:
         """Eval forward (bpp estimate) of NHWC images; outputs NHWC. ``lv``
         (here and in compress/decompress): the rate level of the
@@ -196,7 +199,7 @@ class HyperpriorCodec:
         return indexes, None if means is None else to_nhwc(means).cpu().numpy()
 
     @torch.no_grad()
-    @fp32_numerics()
+    @codec_pass
     def compress(self, x, lv: int = 0) -> dict:
         """x: NHWC in [0, 1]. Returns {"strings": [y strings] for
         FactorizedPrior, else [y strings, z strings], one per image;
@@ -228,7 +231,7 @@ class HyperpriorCodec:
                 "y_hat": torch.from_numpy(y_hat).to(self.device)}
 
     @torch.no_grad()
-    @fp32_numerics()
+    @codec_pass
     def decompress(self, strings, shape, lv: int = 0) -> dict:
         """Decode ``compress``'s strings. Returns {"x_hat": NHWC in [0, 1],
         "y_hat": NHWC}."""

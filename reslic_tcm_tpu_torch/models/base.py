@@ -324,14 +324,32 @@ class ChannelARModule(nn.Module):
         return to_nhwc(torch.round(torch.clamp(h, 0.0, 1.0) * 255.0).to(torch.uint8))
 
 
-class ChannelARCodec:
+class MatmulPrecision:
+    """A codec's matmul precision (the JAX codecs' ``set_matmul_precision``),
+    which ``codec_pass`` enters around each pass: None (full fp32) or
+    "bfloat16" (bf16 operands, fp32 sums; module docstring). Encoder and
+    decoder share it; a stream decodes only in the mode that encoded it."""
+
+    matmul_precision: str | None = None
+
+    def set_matmul_precision(self, precision: str | None) -> None:
+        if precision not in PRECISIONS:
+            raise ValueError(f"matmul precision {precision!r}: expected one of {PRECISIONS}")
+        self.matmul_precision = precision
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        """The kernels' operand type at this codec's precision."""
+        return torch.bfloat16 if self.matmul_precision == "bfloat16" else torch.float32
+
+
+class ChannelARCodec(MatmulPrecision):
     """A ChannelARModule on a device plus the host rANS coder (the
     reference's update() / compress() / decompress() / forward API). Each
     pass runs under ``fp32_numerics``, whatever the caller's TF32 flags, and
     at the codec's ``matmul_precision`` (``codec_pass``)."""
 
     def __init__(self, module: ChannelARModule, device):
-        self.matmul_precision = None  # set_matmul_precision
         self.device = torch.device(device)
         self.module = module.to(self.device).eval()
         self.gaussian_conditional = GaussianConditional()
@@ -341,19 +359,6 @@ class ChannelARCodec:
         self._lane_tables: dict = {}
         self._sharded = False  # shard_for_inference
         self._inference_mesh = None
-
-    def set_matmul_precision(self, precision: str | None) -> None:
-        """The products' precision for every pass: None (full fp32) or
-        "bfloat16" (bf16 operands, fp32 sums; module docstring). Encoder and
-        decoder share it; a stream decodes only in the mode that encoded it."""
-        if precision not in PRECISIONS:
-            raise ValueError(f"matmul precision {precision!r}: expected one of {PRECISIONS}")
-        self.matmul_precision = precision
-
-    @property
-    def compute_dtype(self) -> torch.dtype:
-        """The kernels' operand type at this codec's precision."""
-        return torch.bfloat16 if self.matmul_precision == "bfloat16" else torch.float32
 
     def _upload(self, x) -> torch.Tensor:
         """NHWC image(s) in [0, 1] as float32 NHWC on the codec's device. A

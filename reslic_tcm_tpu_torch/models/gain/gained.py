@@ -35,7 +35,7 @@ from ...entropy import factorized as fz
 from ...ops.layers import to_nchw, to_nhwc
 from ...ops.math import gaussian_likelihood
 from ..balle2018 import HyperpriorCodec, MeanScaleHyperprior, ScaleHyperprior
-from ..base import ChannelARCodec, fp32_numerics
+from ..base import ChannelARCodec, codec_pass
 from ..wacnn import WACNN, draw_weights
 
 
@@ -180,7 +180,7 @@ class GainedHyperpriorCodec(HyperpriorCodec):
         return interpolate_gain(g[s], g[min(s + 1, last)], l, self.interp)
 
     @torch.no_grad()
-    @fp32_numerics()
+    @codec_pass
     def forward(self, x, lv: int = 0, l: float = 0.0) -> dict:
         """Eval forward (bpp estimate) of NHWC images at level ``lv``, or
         with ``l`` > 0 at ``compress``'s gains for (s=lv, l)."""
@@ -216,7 +216,7 @@ class GainedHyperpriorCodec(HyperpriorCodec):
         return to_nchw(torch.from_numpy(y_hat).to(self.device)), z_scaled
 
     @torch.no_grad()
-    @fp32_numerics()
+    @codec_pass
     def compress(self, x, s: int = 0, l: float = 0.0) -> dict:
         """x: NHWC in [0, 1]. Returns {"strings": [y strings, z strings],
         "shape": z's (h, w), "y_hat": the coded latent (NHWC)}."""
@@ -226,7 +226,7 @@ class GainedHyperpriorCodec(HyperpriorCodec):
         return self._code(y, z, self._gains("InverseHyperGain", s, l))
 
     @torch.no_grad()
-    @fp32_numerics()
+    @codec_pass
     def decompress(self, strings, shape, s: int = 0, l: float = 0.0) -> dict:
         """Returns {"x_hat": NHWC in [0, 1], "y_hat": NHWC}."""
         self._require_tables()

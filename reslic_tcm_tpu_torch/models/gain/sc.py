@@ -20,7 +20,7 @@ from torch import nn
 from ...entropy.factorized import EntropyBottleneck
 from ...ops.layers import GDN, Deconv, conv, to_nhwc
 from ...ops.math import gaussian_likelihood
-from ..base import fp32_numerics
+from ..base import codec_pass
 from .gained import GainedHyperpriorCodec, _check_device, _Gains, _seeded, scaled
 
 
@@ -56,6 +56,8 @@ def adaptive_avg_pool(x, out_hw):
     if h % oh == 0 and w % ow == 0:
         return F.avg_pool2d(x, (h // oh, w // ow))
     out = x
+    # fp32 in the bf16 mode too: jax.image.resize contracts at
+    # Precision.HIGHEST, which the codec's default precision does not lower
     if h != oh:
         out = torch.einsum("bchw,hH->bcHw", out,
                            torch.from_numpy(_resize_weights(h, oh)).to(x.device))
@@ -188,14 +190,14 @@ class SCGainedCodec(GainedHyperpriorCodec):
     NHWC [B, H, W, 1] array, x NHWC."""
 
     @torch.no_grad()
-    @fp32_numerics()
+    @codec_pass
     def forward(self, x, qmap, lv: int = 0) -> dict:
         out = self.module(self._input(x), self._input(qmap), lv=lv)
         return {"x_hat": to_nhwc(out["x_hat"]),
                 "likelihoods": {k: to_nhwc(v) for k, v in out["likelihoods"].items()}}
 
     @torch.no_grad()
-    @fp32_numerics()
+    @codec_pass
     def compress(self, x, qmap, s: int = 0, l: float = 0.0) -> dict:
         self._require_tables()
         y, z = self.module.analyze_gained(self._input(x), self._input(qmap),
@@ -204,7 +206,7 @@ class SCGainedCodec(GainedHyperpriorCodec):
         return self._code(y, z, self._gains("InverseHyperGain", s, l))
 
     @torch.no_grad()
-    @fp32_numerics()
+    @codec_pass
     def decompress(self, strings, shape, s: int = 0, l: float = 0.0) -> dict:
         self._require_tables()
         y_hat, z_scaled = self._decode(strings, shape, self._gains("InverseHyperGain", s, l))

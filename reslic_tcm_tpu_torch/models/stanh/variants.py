@@ -253,7 +253,7 @@ class StanhHyperpriorCodec(HyperpriorCodec):
         return True
 
     @torch.no_grad()
-    @fp32_numerics()
+    @codec_pass
     def forward(self, x, lv: int = 0) -> dict:
         """Eval forward (bpp estimate) at rate level ``lv``; outputs NHWC."""
         out = self.module(self._input(x), lv=lv)
@@ -299,7 +299,7 @@ class StanhHyperpriorCodec(HyperpriorCodec):
         return sq.from_symbols(ks, self._z_state())
 
     @torch.no_grad()
-    @fp32_numerics()
+    @codec_pass
     def compress(self, x, lv: int = 0) -> dict:
         """x: NHWC in [0, 1]. Returns {"strings": [y strings, z strings], one
         per image; "shape": z's (h, w); "y_hat": the NHWC latent the decoder
@@ -320,7 +320,7 @@ class StanhHyperpriorCodec(HyperpriorCodec):
                 "shape": (zh, zw), "y_hat": to_nhwc(gc.dequantize(ys, None, lv))}
 
     @torch.no_grad()
-    @fp32_numerics()
+    @codec_pass
     def decompress(self, strings, shape, lv: int = 0) -> dict:
         """Decode ``compress``'s strings. Returns {"x_hat": NHWC in [0, 1],
         "y_hat": NHWC}."""

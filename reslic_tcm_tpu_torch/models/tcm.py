@@ -12,7 +12,8 @@ parameters and a released ``.pth.tar`` loads with ``load_state_dict``.
 
 Training: with ``remat`` each ConvTransBlock runs under
 ``torch.utils.checkpoint`` while autograd records (its activations are
-recomputed in the backward pass), the JAX module's ``nn.remat``.
+recomputed in the backward pass, at the forward's matmul precision), the
+JAX module's ``nn.remat``.
 Drop-path is the identity (``ops/layers.py::DropPath``), as in the JAX
 module, whose Sequentials leave ``deterministic`` at its default.
 """
@@ -28,8 +29,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..entropy.factorized import EntropyBottleneck
 from ..ops.layers import (ResidualBlock, ResidualBlockUpsample, ResidualBlockWithStride,
-                          ResidualUnit, conv, conv1x1, records_grad, subpel_conv3x3, to_nchw,
-                          to_nhwc)
+                          ResidualUnit, conv, conv1x1, matmul_precision, matmul_precision_in_use,
+                          records_grad, subpel_conv3x3, to_nchw, to_nhwc)
 from ..ops.window_attention import SwinBlock, SwinTransformerBlock
 from .base import ChannelARCodec, ChannelARModule
 
@@ -53,8 +54,15 @@ class ConvTransBlock(nn.Module):
 
     def forward(self, x):
         if self.remat and records_grad(self):
-            return checkpoint(self._forward, x, use_reentrant=False)
+            # the recompute runs in the backward, on the card in autograd's own
+            # thread, which does not see this thread's matmul precision
+            return checkpoint(self._forward_at, x, matmul_precision_in_use(),
+                              use_reentrant=False)
         return self._forward(x)
+
+    def _forward_at(self, x, precision):
+        with matmul_precision(precision):
+            return self._forward(x)
 
     def _forward(self, x):
         h = self.conv1_1(x)

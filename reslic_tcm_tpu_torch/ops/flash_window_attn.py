@@ -23,15 +23,17 @@ Weights come in torch layout ([out, in] linears) straight from the modules;
 may build once and pass as ``prepared`` (window_attention.py caches it per
 module and compute type).
 
-``compute_dtype=torch.bfloat16`` (LN+MLP flavour only) is the TPU kernel's
-bf16 mode: the operands of the six products are rounded to bf16 where the
-Pallas body casts them (LN1's output and wqkv; q and k; the softmax's
-probabilities and v; the heads' output and wproj; LN2's output and w1; the
-GELU's output and w2), the q scale folded into wqkv in fp32 first; LN,
-softmax, GELU, the biases and the residuals stay fp32. On the card it
-launches ``csrc/flash_window_attn_bf16.cu`` (tensor cores); its launches
-are counted in ``flash_window_block.launches_bf16``. The attention-only
-flavour has no bf16 instance (ROADMAP A15b): the wrapper raises.
+``compute_dtype=torch.bfloat16`` is the TPU kernel's bf16 mode, in both
+flavours: the operands of the products are rounded to bf16 where the
+Pallas body casts them (LN1's output, or x without LN, and wqkv; q and k;
+the softmax's probabilities and v; the heads' output and wproj; LN2's
+output and w1; the GELU's output and w2), the q scale folded into wqkv in
+fp32 first; LN, the bias and the -1e9 mask, softmax, GELU, the biases and
+the residuals stay fp32. On the card it launches
+``csrc/flash_window_attn_bf16.cu`` (tensor cores: ``swin_block_bf16_kernel``
+for LN+MLP, ``attn_block_bf16_kernel`` for attention-only, at the fp32
+flavours' clusters); its launches are counted in
+``flash_window_block.launches_bf16``.
 """
 
 from __future__ import annotations
@@ -195,6 +197,8 @@ def _lib(compute_dtype=torch.float32) -> ctypes.CDLL:
             vp, i = ctypes.c_void_p, ctypes.c_int
             lib.flash_window_block_bf16.argtypes = [vp] * 15 + [i] * 7 + [vp]
             lib.flash_window_block_bf16.restype = ctypes.c_int
+            lib.window_attention_block_bf16.argtypes = [vp] * 7 + [i] * 7 + [vp]
+            lib.window_attention_block_bf16.restype = ctypes.c_int
             lib._argtypes_set = True
         return lib
     lib = build.load("flash_window_attn")
@@ -225,9 +229,6 @@ def prepare_window_block(wqkv, bqkv, wproj, bproj, ln_scale, ln_bias, rel_bias, 
         dev, wqkv=(wqkv, (3 * c, c)), bqkv=(bqkv, (3 * c,)), wproj=(wproj, (c, c)),
         bproj=(bproj, (c,)), rel_bias=(rel_bias, (c // head_dim, t, t)))
     bf16 = compute_dtype == torch.bfloat16
-    if bf16 and mlp is None:
-        raise ValueError("flash_window_block: the attention-only flavour has no bf16 instance "
-                         "yet (ROADMAP A15b)")
     with torch.no_grad():
         wq, bq = _q_scaled(wqkv, bqkv, head_dim)
         # a matrix of the float32 instance is [in, out]; of the bf16 one [out, in] in bf16
@@ -261,8 +262,8 @@ def flash_window_block(x, wqkv, bqkv, wproj, bproj, ln_scale, ln_bias, rel_bias,
     ``attn_cluster_size``); the result is the same for each. ``prepared``:
     ``prepare_window_block`` of these weights, built by the caller (the
     kernel then reads it instead of preparing the weights again), at this
-    ``compute_dtype`` (torch.float32, or torch.bfloat16 for the LN+MLP
-    flavour). Returns the block's output (float32)."""
+    ``compute_dtype`` (torch.float32 or torch.bfloat16, either flavour).
+    Returns the block's output (float32)."""
     if x.device.type == "cpu":
         return plain_window_block(x, wqkv, bqkv, wproj, bproj, ln_scale, ln_bias, rel_bias,
                                   mlp, head_dim=head_dim, window=window, shifted=shifted,
@@ -271,9 +272,6 @@ def flash_window_block(x, wqkv, bqkv, wproj, bproj, ln_scale, ln_bias, rel_bias,
     bf16 = compute_dtype == torch.bfloat16
     bsz, h, wd, c = x.shape
     full = with_ln and mlp is not None
-    if bf16 and not full:
-        raise ValueError("flash_window_block: the attention-only flavour (with_ln=False, "
-                         "mlp=None) has no bf16 instance yet (ROADMAP A15b)")
     shapes = KERNEL_SHAPES_FULL if full else KERNEL_SHAPES_ATTN
     if (with_ln != (mlp is not None) or window != KERNEL_WINDOW
             or (c, head_dim) not in shapes or h % window or wd % window):
@@ -308,8 +306,8 @@ def flash_window_block(x, wqkv, bqkv, wproj, bproj, ln_scale, ln_bias, rel_bias,
                          f"{x.device}")
     out = torch.empty_like(x)
     lib = _lib(compute_dtype)
-    fn = (lib.flash_window_block_bf16 if bf16 else
-          lib.flash_window_block_f32 if full else lib.window_attention_block_f32)
+    fn = ((lib.flash_window_block_bf16 if full else lib.window_attention_block_bf16) if bf16
+          else lib.flash_window_block_f32 if full else lib.window_attention_block_f32)
     rc = fn(build.ptr(x), build.ptr(out), *[build.ptr(a) for a in prepared],
             bsz, h, wd, c, head_dim, cluster, int(shifted), build.stream(x))
     if rc != 0:

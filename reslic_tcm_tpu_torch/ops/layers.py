@@ -20,9 +20,9 @@ its codec enters around every compiled pass): inside
 ``matmul_precision("bfloat16")`` (per thread, a context variable) the
 kernel layers hand ``compute_dtype=torch.bfloat16`` to their wrappers, and
 the composed convolutions and linears (``Conv2d``, ``Linear``, which the
-``conv*`` helpers build; the state-dict names are nn.Conv2d's and
-nn.Linear's) take bf16 operands and accumulate in fp32. Activations between
-layers stay fp32.
+``conv*`` helpers build, ``Deconv`` and ``StackedConv1x1``; the state-dict
+names are nn.Conv2d's, nn.Linear's and nn.ConvTranspose2d's) take bf16
+operands and accumulate in fp32. Activations between layers stay fp32.
 """
 
 from __future__ import annotations
@@ -92,6 +92,13 @@ def matmul_precision(precision: str | None):
         yield
     finally:
         _MATMUL_PRECISION.reset(token)
+
+
+def matmul_precision_in_use() -> str | None:
+    """The precision ``matmul_precision`` set in this thread's context (None:
+    fp32). A recompute that autograd runs in its own thread re-enters it
+    (models/tcm.py's remat)."""
+    return _MATMUL_PRECISION.get()
 
 
 def compute_dtype() -> torch.dtype:
@@ -211,18 +218,32 @@ def subpel_conv3x3(in_ch: int, out_ch: int, r: int = 1) -> nn.Sequential:
 class Deconv(nn.ConvTranspose2d):
     """ConvTranspose2d(k, stride s, padding k//2, output_padding s-1): H and W
     grow by exactly s. IOHW weight; the bridge turns the JAX package's
-    input-dilated HWIO kernel into it."""
+    input-dilated HWIO kernel into it. Follows the matmul precision as
+    ``Conv2d`` does: under bf16 bf16 operands with cuDNN's fp32 sums, the
+    result rounded once to bf16 by cuDNN (where the TPU's single pass keeps
+    the fp32 sum), back in fp32 before the fp32 bias."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 5, stride: int = 2):
         super().__init__(in_ch, out_ch, kernel_size, stride, padding=kernel_size // 2,
                          output_padding=stride - 1)
+
+    def forward(self, x):
+        if compute_dtype() is torch.float32:
+            return super().forward(x)
+        out = F.conv_transpose2d(x.to(torch.bfloat16), _bf16_weight(self), None, self.stride,
+                                 self.padding, self.output_padding, self.groups,
+                                 self.dilation).float()
+        return out + self.bias[:, None, None]
 
 
 class StackedConv1x1(nn.Module):
     """One 1x1 convolution per rate level, stacked: ``weight`` [n_rates,
     cin, cout] and ``bias`` [n_rates, cout], the JAX package's layout, so
     the bridge copies them as they are; ``forward(x, lv)`` applies level
-    ``lv``'s (WACNN-STanH's "convolution" refinement)."""
+    ``lv``'s (WACNN-STanH's "convolution" refinement). Under bf16 the
+    product takes bf16 operands with fp32 sums, the result rounded to bf16
+    and back in fp32 before the fp32 bias, as ``Conv2d`` (the JAX package's
+    models/stanh/variants.py:44 runs under the codec's precision)."""
 
     def __init__(self, n_rates: int, in_ch: int, out_ch: int):
         super().__init__()
@@ -230,7 +251,10 @@ class StackedConv1x1(nn.Module):
         self.bias = nn.Parameter(torch.zeros(n_rates, out_ch))
 
     def forward(self, x, lv: int):
-        return torch.einsum("bihw,io->bohw", x, self.weight[lv]) + self.bias[lv][:, None, None]
+        w = self.weight[lv]
+        if compute_dtype() is not torch.float32:
+            x, w = x.to(torch.bfloat16), w.to(torch.bfloat16)
+        return torch.einsum("bihw,io->bohw", x, w).float() + self.bias[lv][:, None, None]
 
 
 _GDN_BETA_MIN = 1e-6

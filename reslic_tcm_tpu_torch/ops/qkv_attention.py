@@ -26,6 +26,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from . import build
 
@@ -47,23 +48,41 @@ def group_config(windows: int, t: int, c: int, head_dim: int) -> tuple[int, int]
     return (2, 8) if windows < SPLIT8_BELOW_WINDOWS else (2, 4)
 
 
-def plain_qkv_attention(windows, w_qkv, b_qkv, rel_bias, w_proj, b_proj, mask=None):
+def _linear(x, w, b, compute_dtype):
+    """x . w^T + b; under bf16 the operands as bf16 with fp32 sums, the
+    result rounded to bf16 as cuBLAS gives it and back in fp32 before the
+    fp32 bias (``layers.Linear``'s bf16 branch)."""
+    if compute_dtype == torch.float32:
+        return x @ w.t() + b
+    return F.linear(x.to(torch.bfloat16), w.to(torch.bfloat16)).float() + b
+
+
+def plain_qkv_attention(windows, w_qkv, b_qkv, rel_bias, w_proj, b_proj, mask=None,
+                        compute_dtype=torch.float32):
     """Plain PyTorch version of B4: windows [Nw, T, C]; w_qkv [3C, C];
     rel_bias [heads, T, T]; w_proj [C, C]; mask [nW, T, T] additive with Nw
     a multiple of nW (window i takes mask[i % nW]), or None. q is scaled
-    before q.k, as WindowAttention does."""
+    before q.k, as WindowAttention does. compute_dtype=torch.bfloat16 is
+    the JAX module's composed bf16 body (window_attention.py:364-392): the
+    linears take bf16 operands, q (scaled in fp32), k and v are cast to
+    bf16, and the scores, the bias and the mask (both cast to bf16), the
+    softmax and P.v are computed in bf16, the output back in fp32 before
+    proj. B4's kernel has no such form."""
     nw, t, c = windows.shape
     heads = rel_bias.shape[0]
     hd = c // heads
-    qkv = (windows @ w_qkv.t() + b_qkv).reshape(nw, t, 3, heads, hd).permute(2, 0, 3, 1, 4)
+    qkv = _linear(windows, w_qkv, b_qkv, compute_dtype).reshape(nw, t, 3, heads, hd).permute(
+        2, 0, 3, 1, 4)
     q, k, v = qkv[0] * hd ** -0.5, qkv[1], qkv[2]
-    attn = q @ k.transpose(-2, -1) + rel_bias[None]
+    if compute_dtype != torch.float32:
+        q, k, v = q.to(compute_dtype), k.to(compute_dtype), v.to(compute_dtype)
+    attn = q @ k.transpose(-2, -1) + rel_bias[None].to(q.dtype)
     if mask is not None:
         n_mask = mask.shape[0]
-        attn = (attn.reshape(nw // n_mask, n_mask, heads, t, t) + mask[None, :, None]).reshape(
-            nw, heads, t, t)
-    out = (torch.softmax(attn, dim=-1) @ v).transpose(1, 2).reshape(nw, t, c)
-    return out @ w_proj.t() + b_proj
+        attn = (attn.reshape(nw // n_mask, n_mask, heads, t, t)
+                + mask[None, :, None].to(q.dtype)).reshape(nw, heads, t, t)
+    out = (torch.softmax(attn, dim=-1) @ v).transpose(1, 2).reshape(nw, t, c).float()
+    return _linear(out, w_proj, b_proj, compute_dtype)
 
 
 def _lib() -> ctypes.CDLL:

@@ -16,13 +16,18 @@ Routing follows the JAX package:
   B4).
 
 Under ``layers.matmul_precision("bfloat16")`` the linears take bf16
-operands (``layers.Linear``), B1 runs its bf16 instance, and the composed
-WMSA and the composed MLP run in bf16 as the JAX package's do under its
-``_score_dtype()`` (window_attention.py:170-176, :258-261): the windows
-cast to bf16 before qkv and the whole attention body in bf16 up to its
-output, and LN2's output cast to bf16 before the MLP, each branch back to
-fp32 before its residual. WinBasedAttention's kernel path (B1's
-attention-only flavour) has no bf16 instance yet and raises there.
+operands (``layers.Linear``), B1 runs its bf16 instances (both flavours),
+and the composed WMSA and the composed MLP run in bf16 as the JAX
+package's do under its ``_score_dtype()`` (window_attention.py:170-176,
+:258-261): the windows cast to bf16 before qkv and the whole attention body
+in bf16 up to its output, and LN2's output cast to bf16 before the MLP,
+each branch back to fp32 before its residual. WindowAttention (WACNN's
+window-4 attention at M) then runs the JAX module's composed bf16 body
+(window_attention.py:364-392: q, k and v cast to bf16, scores, bias, mask,
+softmax and P.v in bf16, the output back to fp32 before proj) through
+``plain_qkv_attention(compute_dtype=torch.bfloat16)``: B4 keeps its fp32
+instance and is not launched in bf16 mode, as the JAX package computes this
+attention outside any Pallas kernel (and B4's Pallas body casts to fp32).
 
 While autograd records, or inside ``layers.plain_versions()``
 (``layers.composed``), each module takes its composed branch instead, on
@@ -216,23 +221,26 @@ class WindowAttention(nn.Module):
 
         return cached(self, "fused_qkv_attention", self.parameters(), make)
 
-    def window_block_weights(self):
+    def window_block_weights(self, compute_dtype=torch.float32):
         """(flash_window_block's attention-only weight arguments,
-        prepare_window_block of them), built once while the parameters are
-        unchanged."""
+        prepare_window_block of them at ``compute_dtype``), built once per
+        type while the parameters are unchanged."""
         def make():
             args = (self.qkv.weight, self.qkv.bias, self.proj.weight, self.proj.bias, None,
                     None, self.rel_bias(), None)
-            return args, prepare_window_block(*args, head_dim=self.dim // self.num_heads)
+            return args, prepare_window_block(*args, head_dim=self.dim // self.num_heads,
+                                              compute_dtype=compute_dtype)
 
-        return cached(self, "flash_window_block", self.parameters(), make)
+        return cached(self, f"flash_window_block_{compute_dtype}", self.parameters(), make)
 
     def forward(self, x, mask=None):
         """x: [B_, N, C] windows; mask: [nW, N, N] additive (window i takes
-        mask[i % nW]) or None."""
-        if composed(self):
+        mask[i % nW]) or None. Under bf16 the composed bf16 body (module
+        docstring), on either device and with or without autograd."""
+        cd = compute_dtype()
+        if composed(self) or cd is torch.bfloat16:
             return plain_qkv_attention(x, self.qkv.weight, self.qkv.bias, self.rel_bias(),
-                                       self.proj.weight, self.proj.bias, mask)
+                                       self.proj.weight, self.proj.bias, mask, compute_dtype=cd)
         args, prepared = self.kernel_weights()
         return fused_qkv_attention(x.contiguous(), *args, mask, prepared=prepared)
 
@@ -289,17 +297,15 @@ class WinBasedAttention(nn.Module):
     def _fused(self, x):
         """x + attn(x) as B1's attention-only flavour (the -1e9 boundary mask
         on the rolled map; the composed path's -100 gives the same softmax
-        to below 1e-40)."""
-        if compute_dtype() is torch.bfloat16:
-            raise NotImplementedError(
-                "WinBasedAttention under bf16: B1's attention-only flavour has no bf16 "
-                "instance yet (ROADMAP A15b)")
+        to below 1e-40), at the current compute type."""
+        cd = compute_dtype()
         w, s = self.window_size, self.shift_size
         if s > 0:
             x = torch.roll(x, shifts=(-s, -s), dims=(1, 2))
-        args, prepared = self.attn.window_block_weights()
+        args, prepared = self.attn.window_block_weights(cd)
         out = flash_window_block(x.contiguous(), *args, head_dim=self.dim // self.num_heads,
-                                 window=w, shifted=s > 0, with_ln=False, prepared=prepared)
+                                 window=w, shifted=s > 0, with_ln=False, prepared=prepared,
+                                 compute_dtype=cd)
         if s > 0:
             out = torch.roll(out, shifts=(s, s), dims=(1, 2))
         return out

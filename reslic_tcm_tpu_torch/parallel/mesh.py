@@ -26,6 +26,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.layers import compute_dtype
 from .multihost import broadcast_module, distribute_batch, gather_cat
 
 
@@ -136,22 +137,31 @@ def _sliced_forward(m: nn.Module, group):
     output, gathered over the model ranks, then the full bias (Megatron's
     column-parallel layer)."""
     if isinstance(m, nn.ConvTranspose2d):
-        def local(x):
-            return F.conv_transpose2d(x, m.weight, None, m.stride, m.padding, m.output_padding,
+        def local(x, w):
+            return F.conv_transpose2d(x, w, None, m.stride, m.padding, m.output_padding,
                                       m.groups, m.dilation)
         act_dim, bias_shape = 1, (-1, 1, 1)
     elif isinstance(m, nn.Conv2d):
-        def local(x):
-            return m._conv_forward(x, m.weight, None)
+        def local(x, w):
+            return m._conv_forward(x, w, None)
         act_dim, bias_shape = 1, (-1, 1, 1)
     else:
-        def local(x):
-            return F.linear(x, m.weight)
+        def local(x, w):
+            return F.linear(x, w)
         act_dim, bias_shape = -1, (-1,)
 
     def forward(x):
-        out = _GatherChannels.apply(local(_ToModelRanks.apply(x, group)), act_dim, group)
-        return out if m.bias is None else out + m.bias.view(bias_shape)
+        x = _ToModelRanks.apply(x, group)
+        # under bf16 the layers' bf16 branch (ops/layers.py Conv2d, Linear,
+        # Deconv): bf16 operands, an fp32 input's result back in fp32
+        # before the bias, a bf16 input's (the composed WMSA's) left in bf16
+        bf16 = x.dtype == torch.bfloat16 or compute_dtype() is torch.bfloat16
+        y = local(x.to(torch.bfloat16), m.weight.to(torch.bfloat16)) if bf16 else local(
+            x, m.weight)
+        if bf16 and x.dtype != torch.bfloat16:
+            y = y.float()
+        out = _GatherChannels.apply(y, act_dim, group)
+        return out if m.bias is None else out + m.bias.view(bias_shape).to(out.dtype)
     return forward
 
 

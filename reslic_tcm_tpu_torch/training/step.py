@@ -11,8 +11,16 @@ kernels are not on this path; ``eval_step`` runs the eval forward under
 The noise of step k comes from a ``torch.Generator`` on the batch's device
 seeded from (seed, k) (``step_noise``), as the JAX trainer keys step k with
 ``PRNGKey(k)``: a run resumed from a checkpoint repeats the uninterrupted
-one. Both steps run in full fp32 (``fp32_numerics``) whatever the caller's
-TF32 flags. The rate level ``lv`` and the STanH temperature ``beta`` reach
+one. Both steps run with TF32 off (``fp32_numerics``) whatever the caller's
+TF32 flags. ``train_step(..., matmul_precision="bfloat16")`` is the JAX
+step's ``make_train_step(matmul_precision=...)`` (the trainer's ``--bf16``):
+the forward, the loss, the backward and the aux loss run inside
+``ops/layers.py::matmul_precision``, so the composed convolutions and
+linears take bf16 operands with fp32 sums and the window attention runs
+the JAX package's bf16 body; the parameters, their gradients (through the
+casts, onto the fp32 weights) and both Adam states stay fp32. ``eval_step``
+(validation) stays fp32, as the JAX trainer's eval step runs outside the
+precision. The rate level ``lv`` and the STanH temperature ``beta`` reach
 the modules whose forward takes them, as in the JAX step; the STanH
 codecs' ``gap_gaussian`` output becomes the ``gap`` metric (0 elsewhere),
 which the trainer feeds to the beta annealing.
@@ -31,6 +39,7 @@ the step runs two optimisers and the aux backward outside the forward.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import inspect
 
@@ -39,6 +48,7 @@ import torch
 from torch import nn
 
 from ..models.base import fp32_numerics, uniform_noise
+from ..ops.layers import matmul_precision as precision_of
 from .loss import rate_distortion_loss
 from .optimizer import clip_by_global_norm, configure_optimizers
 
@@ -79,10 +89,27 @@ def _level_kwargs(module: nn.Module, lv, beta) -> dict:
     return {k: v for k, v in (("lv", lv), ("beta", beta)) if v is not None and k in params}
 
 
+@contextlib.contextmanager
+def _explain_cudnn_refusal(matmul_precision):
+    """Re-raise cuDNN's refusal of a bf16 convolution under
+    ``cudnn.deterministic`` (what the CLIs pin on the card) with what it
+    means; the flag stays as it is."""
+    try:
+        yield
+    except RuntimeError as e:
+        if (matmul_precision is None or not torch.backends.cudnn.deterministic
+                or "cudnn" not in str(e).lower()):
+            raise
+        raise RuntimeError(
+            "bf16 train step: cuDNN has no deterministic algorithm for one of the step's bf16 "
+            "convolutions at this shape (torch.backends.cudnn.deterministic stays on; train in "
+            f"fp32, without --bf16): {e}") from e
+
+
 @fp32_numerics()
 def train_step(state: TrainState, batch: torch.Tensor, lmbda: float, noise,
                loss_type: str = "mse", lv: int | None = None, beta: float | None = None,
-               sync=None) -> dict:
+               sync=None, matmul_precision: str | None = None) -> dict:
     """One step on ``batch`` (NCHW in [0, 1], on the module's device) with
     the ``noise`` callable of the training forward, at rate level ``lv``
     and STanH temperature ``beta`` where the module takes them. Updates the
@@ -90,7 +117,13 @@ def train_step(state: TrainState, batch: torch.Tensor, lmbda: float, noise,
     mse_loss (or ms_ssim_loss), gap, grad_norm (the main gradients' global
     norm before the clip) and aux_loss (after the aux step). ``sync``: the
     sharded step's ``parallel.mesh.GradientSync`` (``shard_train_step``),
-    None in one process."""
+    None in one process. ``matmul_precision``: None (fp32) or "bfloat16"
+    (module docstring)."""
+    with precision_of(matmul_precision), _explain_cudnn_refusal(matmul_precision):
+        return _train_step(state, batch, lmbda, noise, loss_type, lv, beta, sync)
+
+
+def _train_step(state, batch, lmbda, noise, loss_type, lv, beta, sync) -> dict:
     module = state.module
     state.optimizer.zero_grad(set_to_none=True)
     out = module(batch, training=True, noise=noise, **_level_kwargs(module, lv, beta))
@@ -122,13 +155,14 @@ def train_step(state: TrainState, batch: torch.Tensor, lmbda: float, noise,
     return metrics
 
 
-def shard_train_step(mesh):
+def shard_train_step(mesh, matmul_precision: str | None = None):
     """``train_step`` sharded over ``mesh`` (``parallel.mesh.make_mesh``;
-    the module placed by ``shard_params``): the returned step(state, batch,
-    lmbda, noise, loss_type="mse", lv=None, beta=None) takes this rank's
-    rows of the global batch (``parallel.mesh.shard_batch``) and the global
-    batch's ``noise`` callable (``step_noise`` at the same seed on every
-    rank), and returns the global batch's metrics on every rank."""
+    the module placed by ``shard_params``) at ``matmul_precision``: the
+    returned step(state, batch, lmbda, noise, loss_type="mse", lv=None,
+    beta=None) takes this rank's rows of the global batch
+    (``parallel.mesh.shard_batch``) and the global batch's ``noise``
+    callable (``step_noise`` at the same seed on every rank), and returns
+    the global batch's metrics on every rank."""
     from ..parallel.mesh import GradientSync, rank_noise
     from ..parallel.multihost import rank_and_size
 
@@ -136,7 +170,8 @@ def shard_train_step(mesh):
 
     def step(state: TrainState, batch, lmbda, noise, loss_type="mse", lv=None, beta=None):
         return train_step(state, batch, lmbda, rank_noise(noise, rank, size), loss_type, lv,
-                          beta, sync=GradientSync(mesh, state.module))
+                          beta, sync=GradientSync(mesh, state.module),
+                          matmul_precision=matmul_precision)
     return step
 
 
@@ -145,8 +180,10 @@ def shard_train_step(mesh):
 def eval_step(module: nn.Module, batch: torch.Tensor, lmbda: float,
               loss_type: str = "mse", lv: int | None = None) -> dict:
     """The eval forward's losses on ``batch`` (NCHW) at rate level ``lv``
-    (where the module takes it) and the PSNR of the clipped x_hat."""
-    out = module(batch, **_level_kwargs(module, lv, None))
+    (where the module takes it) and the PSNR of the clipped x_hat, in fp32
+    whatever the caller's matmul precision."""
+    with precision_of(None):
+        out = module(batch, **_level_kwargs(module, lv, None))
     losses = rate_distortion_loss(out, batch, lmbda, loss_type)
     mse = torch.mean((torch.clamp(out["x_hat"], 0, 1) - batch) ** 2)
     losses["psnr"] = -10.0 * torch.log10(mse)

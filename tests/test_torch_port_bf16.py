@@ -144,8 +144,8 @@ def test_bf16_mode_counts_no_launch_on_the_cpu(codecs, bf16_codec):
 
 def test_eval_cli_bf16_runs_tcm_only():
     """The JAX CLI reads --bf16 only on its TCM branch; the port refuses it
-    for the other models, naming the ROADMAP item that brings them."""
+    for the other models, naming the codecs' own way into the mode."""
     from reslic_tcm_tpu_torch.cli import eval as peval
 
-    with pytest.raises(NotImplementedError, match="A15b"):
+    with pytest.raises(NotImplementedError, match="set_matmul_precision"):
         peval.main(["--data", ".", "--platform", "cpu", "--bf16", "--model", "wacnn"])

@@ -7,6 +7,10 @@ layout (``layout="bd"``), whose casts the port follows (the probabilities
 rounded after the softmax's division); the head-packed layout rounds the
 unnormalised exponentials instead, a TPU-only arrangement.
 
+B1's attention-only flavour (WACNN's) is held the same way, and WACNN's
+window-4 attention, which the JAX package composes in bf16 outside any
+Pallas kernel, against JAX's composed module under its bf16 precision.
+
 Tolerances: both sides round the same operands to bf16 and sum the exact
 products in fp32, in other orders; where a sum lands within an fp32 ulp of
 a bf16 rounding boundary the two round a value to neighbouring bf16 values
@@ -112,10 +116,66 @@ def test_wrappers_refuse_other_compute_types():
                                 torch.from_numpy(b2), compute_dtype=torch.float16)
 
 
+@pytest.mark.parametrize("shifted", [False, True])
+@pytest.mark.parametrize("c,head_dim", [(48, 24), (32, 16)])
+def test_b1_attention_only_plain_bf16_matches_jax_kernel_interpret(shifted, c, head_dim):
+    """The attention-only flavour (with_ln=False, mlp=None; WACNN's head
+    dims 24 and 16) in bf16 against the Pallas kernel's bd layout."""
+    x, wts = attn_inputs(c + head_dim + 7, 1, 16, 16, c)
+    rel = np.random.default_rng(c + 9).normal(0, 0.5, (c // head_dim, 64, 64)).astype(
+        np.float32)
+    j = {k: jnp.asarray(v) for k, v in wts.items()}
+    ones, zeros = jnp.ones((c,), jnp.float32), jnp.zeros((c,), jnp.float32)
+    want = JF.flash_window_block(
+        jnp.asarray(x), j["wqkv"], j["bqkv"], j["wproj"], j["bproj"], ones, zeros,
+        jnp.asarray(rel), mlp=None, head_dim=head_dim, window=8, shifted=shifted,
+        compute_dtype=jnp.bfloat16, interpret=True, layout="bd", with_ln=False)
+    wqkv, bqkv, wproj, bproj, _, _, relt, _ = port_attn_args(wts, rel, lambda t: t)
+    args = (wqkv, bqkv, wproj, bproj, None, None, relt, None)
+    kw = dict(head_dim=head_dim, window=8, shifted=shifted, with_ln=False)
+    got = PF.flash_window_block(torch.from_numpy(x), *args, **kw, compute_dtype=BF16)
+    bf16_ok(got.numpy(), want)
+    # the residual x passes unrounded, so the attention branch alone moves
+    differs(got.numpy() - x, PF.flash_window_block(torch.from_numpy(x), *args, **kw).numpy() - x)
+
+
+def test_window4_attention_bf16_matches_jax_composed_bf16():
+    """WACNN's window-4 attention (the composed WindowAttention, B4's plain
+    version) in bf16: plain_qkv_attention's bf16 body, through the port's
+    WinBasedAttention under matmul_precision("bfloat16"), against JAX's
+    composed module under jax.default_matmul_precision("bfloat16"), shifted
+    (the -100 region mask). XLA's CPU keeps JAX's two linears in fp32 where
+    the port rounds their operands, so more elements differ than between
+    two kernels: within 4e-3 * max(1, max |jax|), at most 30% of the
+    elements beyond 1e-3 (measured: 4.4e-3 against a bound of 1.5e-2, and
+    21%); the mode moves over half the elements from the fp32 mode's
+    (measured: 99%)."""
+    import jax
+
+    from reslic_tcm_tpu_torch.ops.layers import matmul_precision
+    from tests.test_torch_port_wacnn import _attention_pair
+
+    m, v, p = _attention_pair(40, 2, 4, 2, seed=5)
+    x = np.random.default_rng(6).normal(size=(2, 8, 12, 40)).astype(np.float32)
+    with jax.default_matmul_precision("bfloat16"):
+        want = np.asarray(m.apply(v, jnp.asarray(x)))
+    with torch.no_grad():
+        fp32 = p(torch.from_numpy(x)).numpy()
+        with matmul_precision("bfloat16"):
+            got = p(torch.from_numpy(x)).numpy()
+    err = float(np.abs(got - want).max())
+    assert err <= TOL_MAX * max(1.0, float(np.abs(want).max())), err
+    assert _share_beyond(got, want, 1e-3) <= 0.3
+    differs(got, fp32)
+
+
 def test_attention_only_flavour_has_no_bf16_instance():
-    """WACNN's attention-only B1 flavour is ROADMAP A15b: its weights cannot
-    be prepared in bf16, and WinBasedAttention's kernel path raises under
-    bf16 on either device."""
+    """Once refused (ROADMAP A15b), the attention-only flavour now has its bf16
+    instance: its weights prepare in bf16 (the matrices bf16 [out, in], the
+    vectors and the bias table fp32), and WinBasedAttention's kernel path runs
+    it under bf16 on the CPU (the plain bf16 version, launching nothing),
+    giving the wrapper's output on the module's weights."""
+    from reslic_tcm_tpu_torch.ops.launches import launch_counts
     from reslic_tcm_tpu_torch.ops.layers import matmul_precision
     from reslic_tcm_tpu_torch.ops.window_attention import WinBasedAttention
 
@@ -123,10 +183,22 @@ def test_attention_only_flavour_has_no_bf16_instance():
     _, wts = attn_inputs(43, 1, 16, 16, c)
     rel = np.zeros((c // hd, 64, 64), np.float32)
     wqkv, bqkv, wproj, bproj, *_ = port_attn_args(wts, rel, lambda t: t)
-    with pytest.raises(ValueError, match="A15b"):
-        PF.prepare_window_block(wqkv, bqkv, wproj, bproj, None, None, torch.from_numpy(rel),
-                                None, head_dim=hd, compute_dtype=BF16)
-    m = WinBasedAttention(c, num_heads=2, window_size=8).eval()
-    with torch.no_grad(), matmul_precision("bfloat16"), pytest.raises(NotImplementedError,
-                                                                      match="A15b"):
-        m(torch.zeros(1, 16, 16, c))
+    prep = PF.prepare_window_block(wqkv, bqkv, wproj, bproj, None, None, torch.from_numpy(rel),
+                                   None, head_dim=hd, compute_dtype=BF16)
+    assert [t.dtype for t in prep] == [BF16, torch.float32, BF16, torch.float32, torch.float32]
+    assert prep[0].shape == (3 * c, c) and prep[2].shape == (c, c)
+    m = WinBasedAttention(c, num_heads=2, window_size=8, shift_size=4).eval()
+    x = torch.from_numpy(np.random.default_rng(44).normal(size=(1, 16, 16, c)).astype(np.float32))
+    before = (launch_counts(), launch_counts(BF16))
+    with torch.no_grad():
+        with matmul_precision("bfloat16"):
+            got = m(x)
+        fp32 = m(x)
+        a = m.attn
+        want = torch.roll(PF.plain_window_block(
+            torch.roll(x, (-4, -4), (1, 2)), a.qkv.weight, a.qkv.bias, a.proj.weight,
+            a.proj.bias, None, None, a.rel_bias(), None, head_dim=hd, window=8, shifted=True,
+            with_ln=False, compute_dtype=BF16), (4, 4), (1, 2))
+    assert (launch_counts(), launch_counts(BF16)) == before
+    assert torch.equal(got, want)
+    differs((got - x).numpy(), (fp32 - x).numpy())

@@ -1160,3 +1160,65 @@ def test_codec_switched_from_bf16_gives_the_fp32_bits_back(cuda):
     assert not any(launches_since(before[1], BF16).values())
     assert torch.equal(again["x_hat"], fp32["x_hat"])
     assert not torch.equal(bf16["x_hat"], fp32["x_hat"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shifted", [False, True])
+@pytest.mark.parametrize("c,head_dim,hw", [(128, 16, (16, 24)), (192, 24, (24, 16)),
+                                           (192, 24, (64, 64))])
+def test_b1_attention_only_bf16_instance_matches_plain_on_card(cuda, c, head_dim, hw, shifted):
+    """WACNN's attention-only flavour in bf16 at each (C, head_dim) of
+    KERNEL_SHAPES_ATTN against its plain bf16 version; every cluster of
+    ATTN_CLUSTERS, forced on the same input, and a second call give the same
+    bits; one launch counted in launches_bf16."""
+    x, wts = attn_inputs(100 + head_dim, 2, *hw, c)
+    rel = np.random.default_rng(101).normal(0, 0.5, (c // head_dim, 64, 64)).astype(np.float32)
+    wqkv, bqkv, wproj, bproj, _, _, relc, _ = port_attn_args(wts, rel, lambda t: t.to(cuda))
+    args = (wqkv, bqkv, wproj, bproj, None, None, relc, None)
+    kw = dict(head_dim=head_dim, window=8, shifted=shifted, with_ln=False, compute_dtype=BF16)
+    xc = torch.from_numpy(x).to(cuda)
+    with torch.no_grad():
+        want = PF.plain_window_block(xc, *args, **kw)
+        before = (PF.flash_window_block.launches, PF.flash_window_block.launches_bf16)
+        got = PF.flash_window_block(xc, *args, **kw)
+        torch.cuda.synchronize()
+        assert (PF.flash_window_block.launches,
+                PF.flash_window_block.launches_bf16) == (before[0], before[1] + 1)
+        for k in PF.ATTN_CLUSTERS:
+            assert torch.equal(PF.flash_window_block(xc, *args, **kw, cluster=k), got), k
+        assert torch.equal(PF.flash_window_block(xc, *args, **kw), got)
+    err_ok(got.cpu().numpy(), want.cpu().numpy(), TOL_BF16)
+
+
+@pytest.mark.cuda
+def test_wacnn_bf16_mode_launches_only_bf16_b1_and_decodes_exactly(cuda):
+    """WACNN (N=192, M=320, seeded) in bf16 mode on a 256x256 image: each
+    pass launches B1's attention-only bf16 instance (2 / 1 / 1) and nothing
+    else (B4 stays off: the window-4 attention composes in bf16), the decode
+    reproduces y_hat, and switching back gives the fp32 bits."""
+    from reslic_tcm_tpu_torch.data.synthetic import synth_image
+    from reslic_tcm_tpu_torch.models.wacnn import make_wacnn
+    from reslic_tcm_tpu_torch.ops.launches import launch_counts, launches_since
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    img = synth_image(np.random.default_rng(0), 256, 256)[None]
+    codec = make_wacnn(device=cuda, seed=1)
+    codec.update()
+    fp32 = codec.forward(img)
+    codec.set_matmul_precision("bfloat16")
+    counts = []
+    for run in (lambda: codec.forward(img), lambda: codec.compress(img)):
+        before = (launch_counts(), launch_counts(BF16))
+        out = run()
+        counts.append((launches_since(before[0]), launches_since(before[1], BF16)))
+    enc = out
+    before = (launch_counts(), launch_counts(BF16))
+    dec = codec.decompress(enc["strings"], enc["shape"])
+    counts.append((launches_since(before[0]), launches_since(before[1], BF16)))
+    for (f32, b16), n in zip(counts, (2, 1, 1)):
+        assert not any(f32.values()), f32
+        assert b16 == {"flash_window_block": n, "fused_residual_block": 0, "fused_conv_gdn": 0}
+    assert torch.equal(dec["y_hat"], enc["y_hat"])
+    codec.set_matmul_precision(None)
+    assert torch.equal(codec.forward(img)["x_hat"], fp32["x_hat"])

@@ -479,7 +479,11 @@ def test_train_cli_runs_an_epoch_and_the_tester(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv, refusal", [
-    (["--bf16"], (NotImplementedError, "item 15")),
+    # --bf16 was refused until item 15's second half (A15b): it now trains
+    # an epoch of a tiny TCM at two levels (the JAX trainer's bf16
+    # precision), under the id it had while refused
+    pytest.param(["-m", "tcm", "--N", "32", "--M", "80", "--lambda_list", "0.0025", "0.05",
+                  "--bf16"], None, id="argv0-refusal0"),
     # --coordinator is ported (item 13): without the process count and this
     # process's id it is refused (tests/test_torch_port_parallel.py trains
     # through it)
