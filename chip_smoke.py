@@ -45,8 +45,10 @@ Drives reslic_tcm_tpu_torch only (no JAX, no PIL), in these phases:
    bf16 and sum in other orders, so a value can round to the neighbouring
    bf16 value), its device time beside the fp32 instance's on the same
    input (both with prepared weights), the bound (bf16 tensor-core peak
-   989 TFLOP/s vs 3.35 TB/s, weights counted in bf16); B2/B3's other tile
-   and B1's other cluster on the same input give the same bits.
+   989 TFLOP/s vs 3.35 TB/s, weights counted in bf16); B2/B3's other tile,
+   B1 LN+MLP's every (cluster, windows a CTA) (flash_window_block_at) and
+   the attention-only flavour's other clusters on the same input give the
+   same bits.
 4. TCM slices, each evaluate() on two seeded 768x512 synthetic images, the
    forward estimate and then real compress -> decompress, asserting an
    exact decode of y_hat, the documented kernel launches per pass, and
@@ -729,13 +731,17 @@ def phase_kernels_bf16(torch):
             flops, nbytes = _cost(kernel, shape, option, weight_bytes=2)
             t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
             if kernel == _B1 and not option[2]:
-                forces = {k: {"cluster": k} for k in F.ATTN_CLUSTERS}
-            elif kernel == _B1:
-                forces = {k: {"cluster": k} for k in dict.fromkeys(
-                    (F.min_cluster(shape[3]), F.max_cluster(shape[3], option[0])))}
+                forces = {k: lambda k=k: run[bf16](cluster=k) for k in F.ATTN_CLUSTERS}
+            elif kernel == _B1:  # every (cluster, windows a CTA) of the LN+MLP kernel
+                at = {n: v for n, v in kw.items() if n != "with_ln"}
+                forces = {f"{k}x{g}": lambda k=k, g=g: F.flash_window_block_at(
+                    *args, cluster=k, group=g, prepared=prep[bf16], **at)
+                    for k in dict.fromkeys((F.min_cluster(shape[3]),
+                                            F.max_cluster(shape[3], option[0])))
+                    for g in F.window_groups(shape[3], k)}
             else:
-                forces = {t: {"tile": t} for t in C.TILES}
-            equal = all(bool(torch.equal(got, run[bf16](**f))) for f in forces.values())
+                forces = {t: lambda t=t: run[bf16](tile=t) for t in C.TILES}
+            equal = all(bool(torch.equal(got, f())) for f in forces.values())
             row = _bf16_row(kernel, option)
             case = {"kernel": row, "shape": list(shape), "option": option,
                     "per_forward": per_slice, "max_abs_err": err, "tol": bound,

@@ -39,10 +39,14 @@ NVCC_FLAGS = (
 )
 GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
-# name -> (source relative to the package, compiler)
+# name -> (source relative to the package, compiler[, extra flags]). B1's
+# bf16 source builds as two libraries (C <= 96 with the attention-only
+# flavour, and C >= 128), compiled at once: one took twice as long as any
+# other source.
 SOURCES = {
     "flash_window_attn": ("csrc/flash_window_attn.cu", "nvcc"),
     "flash_window_attn_bf16": ("csrc/flash_window_attn_bf16.cu", "nvcc"),
+    "flash_window_attn_bf16_wide": ("csrc/flash_window_attn_bf16.cu", "nvcc", ("-DSWIN_WIDE",)),
     "fused_conv": ("csrc/fused_conv.cu", "nvcc"),
     "fused_conv_bf16": ("csrc/fused_conv_bf16.cu", "nvcc"),
     "qkv_attention": ("csrc/qkv_attention.cu", "nvcc"),
@@ -67,12 +71,17 @@ def _nvcc() -> str:
     return found
 
 
+def _flags(name: str) -> tuple:
+    src, compiler, *extra = SOURCES[name]
+    return (NVCC_FLAGS if compiler == "nvcc" else GXX_FLAGS) + (extra[0] if extra else ())
+
+
 def _command(name: str, out: str) -> list[str]:
-    src, compiler = SOURCES[name]
+    src, compiler = SOURCES[name][:2]
     src = os.path.join(_PKG, src)
     if compiler == "nvcc":
-        return [_nvcc(), *NVCC_FLAGS, src, "-o", out]
-    return ["g++", *GXX_FLAGS, src, "-o", out]
+        return [_nvcc(), *_flags(name), src, "-o", out]
+    return ["g++", *_flags(name), src, "-o", out]
 
 
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
@@ -98,7 +107,7 @@ def source_files(name: str) -> list[str]:
 
 def library_path(name: str) -> str:
     compiler = SOURCES[name][1]
-    flags = NVCC_FLAGS if compiler == "nvcc" else GXX_FLAGS
+    flags = _flags(name)
     h = hashlib.sha256()
     for rel in source_files(name):
         h.update(rel.encode() + b"\0")

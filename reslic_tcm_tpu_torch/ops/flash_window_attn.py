@@ -33,7 +33,10 @@ the residuals stay fp32. On the card it launches
 ``csrc/flash_window_attn_bf16.cu`` (tensor cores: ``swin_block_bf16_kernel``
 for LN+MLP, ``attn_block_bf16_kernel`` for attention-only, at the fp32
 flavours' clusters); its launches are counted in
-``flash_window_block.launches_bf16``.
+``flash_window_block.launches_bf16``. The LN+MLP kernel also takes G
+windows a CTA (one warpgroup each, sharing every staged weight tile):
+``window_group`` chooses G from the grid, and ``flash_window_block_at``
+forces any (cluster, G) it has an instance for (the same bits).
 """
 
 from __future__ import annotations
@@ -45,7 +48,7 @@ import torch
 import torch.nn.functional as F
 
 from . import build
-from .fused_conv import rounder
+from .fused_conv import kgroups, rounder
 
 NEG_INF = -1e9
 KERNEL_WINDOW = 8
@@ -105,6 +108,31 @@ def cluster_size(c: int, head_dim: int, windows: int) -> int:
     if c == 192:
         return k if windows * k <= CLUSTER_CTAS_192 else min_cluster(c)
     return k if windows < CLUSTER_BELOW_WINDOWS else 1
+
+
+# bf16 LN+MLP kernel: windows a CTA (one warpgroup each); two only at the
+# smallest cluster
+GROUPS_BF16 = (1, 2)
+# two windows a CTA from this many CTAs of the grid on.
+# On an H100 (PERF.md §6) two won at 96 CTAs (C=192's 96 windows over
+# clusters of 2: 0.0735 against 0.0884 ms) and at 192 and more, and lost or
+# tied at 48 (96 windows at C=64 and 128).
+GROUP_CTAS = 96
+
+
+def window_group(c: int, head_dim: int, windows: int, cluster: int) -> int:
+    """Windows a CTA of the bf16 LN+MLP kernel for ``windows`` windows x
+    batch at ``cluster`` CTAs a window: two (each staged weight tile then
+    feeds two windows' products) where the grid keeps at least GROUP_CTAS
+    CTAs, else one. Two exist only at the smallest cluster."""
+    if cluster != min_cluster(c):
+        return 1
+    return 2 if -(-windows // 2) * cluster >= GROUP_CTAS else 1
+
+
+def window_groups(c: int, cluster: int) -> tuple:
+    """The windows a CTA the bf16 LN+MLP kernel has an instance for."""
+    return GROUPS_BF16 if cluster == min_cluster(c) else (1,)
 
 
 def window_partition(x: torch.Tensor, w: int) -> torch.Tensor:
@@ -190,15 +218,20 @@ def plain_window_block(x, wqkv, bqkv, wproj, bproj, ln_scale, ln_bias, rel_bias,
     return res + (torch.einsum("bhwk,ok->bhwo", rd(hid), rd(w2)) + b2)
 
 
-def _lib(compute_dtype=torch.float32) -> ctypes.CDLL:
+def _lib(compute_dtype=torch.float32, c: int = 0) -> ctypes.CDLL:
+    """The instances' library; the bf16 LN+MLP instances at C >= 128 live in
+    a library of their own (ops/build.py), the attention-only ones beside
+    those at C <= 96."""
     if compute_dtype == torch.bfloat16:
-        lib = build.load("flash_window_attn_bf16")
+        wide = c >= 128
+        lib = build.load("flash_window_attn_bf16_wide" if wide else "flash_window_attn_bf16")
         if not hasattr(lib, "_argtypes_set"):
             vp, i = ctypes.c_void_p, ctypes.c_int
-            lib.flash_window_block_bf16.argtypes = [vp] * 15 + [i] * 7 + [vp]
+            lib.flash_window_block_bf16.argtypes = [vp] * 15 + [i] * 8 + [vp]
             lib.flash_window_block_bf16.restype = ctypes.c_int
-            lib.window_attention_block_bf16.argtypes = [vp] * 7 + [i] * 7 + [vp]
-            lib.window_attention_block_bf16.restype = ctypes.c_int
+            if not wide:
+                lib.window_attention_block_bf16.argtypes = [vp] * 7 + [i] * 7 + [vp]
+                lib.window_attention_block_bf16.restype = ctypes.c_int
             lib._argtypes_set = True
         return lib
     lib = build.load("flash_window_attn")
@@ -219,8 +252,10 @@ def prepare_window_block(wqkv, bqkv, wproj, bproj, ln_scale, ln_bias, rel_bias, 
     LN1 and the MLP's only when ``mlp`` is given. The float32 instance takes
     [in, out] matrices; the bf16 one (``compute_dtype=torch.bfloat16``)
     the torch layout [out, in] in bf16, each output's weights contiguous,
-    the vectors and the bias table in fp32. The order is the C interface's
-    after x and out."""
+    the vectors and the bias table in fp32; with the MLP (the LN+MLP
+    kernel) the matrices as ``kgroups`` [in/8, out, 8] instead, wqkv's rows
+    head by head (each head's q, k and v rows together). The order is the C
+    interface's after x and out."""
     rounder(compute_dtype)  # raises for a type without instances
     c = wproj.shape[0]
     dev = wqkv.device
@@ -234,6 +269,12 @@ def prepare_window_block(wqkv, bqkv, wproj, bproj, ln_scale, ln_bias, rel_bias, 
         # a matrix of the float32 instance is [in, out]; of the bf16 one [out, in] in bf16
         mat = ((lambda m: m.detach().to(torch.bfloat16).contiguous()) if bf16
                else (lambda m: m.detach().t().contiguous()))
+        if bf16 and mlp is not None:
+            # the LN+MLP kernel's layout: k-groups, wqkv's rows head by head
+            nh = c // head_dim
+            heads = torch.arange(3 * c, device=dev).reshape(3, nh, head_dim)
+            mat = lambda m: kgroups(m.detach())  # noqa: E731
+            wq = wq[heads.permute(1, 0, 2).reshape(-1)]
         attn = [mat(wq), bq.contiguous(), mat(wproj), bproj.detach().contiguous()]
         if mlp is None:
             return (*attn, rel_bias.detach().contiguous())
@@ -264,6 +305,29 @@ def flash_window_block(x, wqkv, bqkv, wproj, bproj, ln_scale, ln_bias, rel_bias,
     kernel then reads it instead of preparing the weights again), at this
     ``compute_dtype`` (torch.float32 or torch.bfloat16, either flavour).
     Returns the block's output (float32)."""
+    return _window_block(x, wqkv, bqkv, wproj, bproj, ln_scale, ln_bias, rel_bias, mlp,
+                         head_dim=head_dim, window=window, shifted=shifted, with_ln=with_ln,
+                         cluster=cluster, group=None, prepared=prepared,
+                         compute_dtype=compute_dtype)
+
+
+def flash_window_block_at(x, wqkv, bqkv, wproj, bproj, ln_scale, ln_bias, rel_bias, mlp,
+                          *, head_dim: int, window: int, shifted: bool, cluster: int,
+                          group: int, prepared: tuple | None = None):
+    """``flash_window_block`` of the LN+MLP flavour in bf16 with both of its
+    kernel's splits forced: ``cluster`` CTAs a window (``min_cluster`` or
+    ``max_cluster``) and ``group`` windows a CTA (one of
+    ``window_groups(C, cluster)``). The result is the same for each; the
+    call counts in ``flash_window_block.launches_bf16``. On a CPU tensor it
+    runs the plain bf16 version."""
+    return _window_block(x, wqkv, bqkv, wproj, bproj, ln_scale, ln_bias, rel_bias, mlp,
+                         head_dim=head_dim, window=window, shifted=shifted, with_ln=True,
+                         cluster=cluster, group=group, prepared=prepared,
+                         compute_dtype=torch.bfloat16)
+
+
+def _window_block(x, wqkv, bqkv, wproj, bproj, ln_scale, ln_bias, rel_bias, mlp, *,
+                  head_dim, window, shifted, with_ln, cluster, group, prepared, compute_dtype):
     if x.device.type == "cpu":
         return plain_window_block(x, wqkv, bqkv, wproj, bproj, ln_scale, ln_bias, rel_bias,
                                   mlp, head_dim=head_dim, window=window, shifted=shifted,
@@ -291,6 +355,11 @@ def flash_window_block(x, wqkv, bqkv, wproj, bproj, ln_scale, ln_bias, rel_bias,
         raise ValueError(f"flash_window_block kernel at (C, head_dim) = ({c}, {head_dim}) "
                          f"takes cluster {' or '.join(map(str, sorted(set(clusters))))}, "
                          f"got {cluster}")
+    if group is None:
+        group = window_group(c, head_dim, windows, cluster) if full and bf16 else 1
+    elif not (full and bf16) or group not in window_groups(c, cluster):
+        raise ValueError(f"flash_window_block's bf16 LN+MLP kernel at C={c}, cluster {cluster} "
+                         f"takes {window_groups(c, cluster)} windows a CTA, got {group}")
     build.check_inference(x, wqkv, bqkv, wproj, bproj, rel_bias, *(mlp or ()),
                           *((ln_scale, ln_bias) if with_ln else ()))
     build.check_tensor("x", x, (bsz, h, wd, c), x.device, contiguous=True)
@@ -305,11 +374,15 @@ def flash_window_block(x, wqkv, bqkv, wproj, bproj, ln_scale, ln_bias, rel_bias,
                          f"C={c}, head_dim {head_dim}, {t} tokens and {compute_dtype}, on "
                          f"{x.device}")
     out = torch.empty_like(x)
-    lib = _lib(compute_dtype)
-    fn = ((lib.flash_window_block_bf16 if full else lib.window_attention_block_bf16) if bf16
-          else lib.flash_window_block_f32 if full else lib.window_attention_block_f32)
-    rc = fn(build.ptr(x), build.ptr(out), *[build.ptr(a) for a in prepared],
-            bsz, h, wd, c, head_dim, cluster, int(shifted), build.stream(x))
+    lib = _lib(compute_dtype, c if full else 0)
+    ptrs = (build.ptr(x), build.ptr(out), *[build.ptr(a) for a in prepared])
+    if bf16 and full:
+        rc = lib.flash_window_block_bf16(*ptrs, bsz, h, wd, c, head_dim, cluster, group,
+                                         int(shifted), build.stream(x))
+    else:
+        fn = (lib.window_attention_block_bf16 if bf16
+              else lib.flash_window_block_f32 if full else lib.window_attention_block_f32)
+        rc = fn(*ptrs, bsz, h, wd, c, head_dim, cluster, int(shifted), build.stream(x))
     if rc != 0:
         raise RuntimeError(f"flash_window_block kernel launch failed: cudaError {rc}")
     if bf16:

@@ -28,6 +28,7 @@ import torch
 from reslic_tcm_tpu.coding import analytic_rans as JA
 from reslic_tcm_tpu_torch.coding import analytic_rans as ar
 from reslic_tcm_tpu_torch.coding import device_kernels as dk
+from torch_port_threads import one_torch_thread  # noqa: E402,F401
 
 CU = os.path.join(os.path.dirname(ar.__file__), os.pardir, "csrc", "device_rans.cu")
 

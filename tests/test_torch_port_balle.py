@@ -48,6 +48,7 @@ from reslic_tcm_tpu_torch.utils.torch_convert import from_jax_params
 from tests.test_torch_port_train_parity import (B1, LMBDA, STEPS, TOL_GRAD, TOL_LOSS,
                                                 TOL_TRAJ, _adam_mu, _flat, _recording_uniform,
                                                 _rel, _tree)
+from torch_port_threads import one_torch_thread  # noqa: E402,F401
 
 TOL = 1e-5
 KINDS = ("factorized", "scale", "mean-scale")

@@ -33,6 +33,7 @@ from reslic_tcm_tpu.models.tcm import make_tcm as jax_make_tcm
 from reslic_tcm_tpu_torch.models.tcm import make_tcm
 from reslic_tcm_tpu_torch.ops.launches import launch_counts
 from reslic_tcm_tpu_torch.utils.torch_convert import from_jax_params
+from torch_port_threads import one_torch_thread  # noqa: E402,F401
 
 SMALL = dict(N=32, M=80, hyper_ch=24, atten_inter_dim=32)
 HW = 128

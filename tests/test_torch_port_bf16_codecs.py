@@ -47,6 +47,7 @@ from reslic_tcm_tpu_torch.ops.layers import Deconv, StackedConv1x1, matmul_preci
 from tests.test_torch_port_gain import _hyper_pair
 from tests.test_torch_port_stanh import GCFG, _perturb, _template, _to_jax, _update
 from tests.test_torch_port_train_parity import _tree
+from torch_port_threads import one_torch_thread  # noqa: E402,F401
 
 BF16 = torch.bfloat16
 TINY = dict(hyper_dims=(40, 36, 32), mean_dims=(32, 36, 40, 44), cc_dims=(28, 24, 20, 16))

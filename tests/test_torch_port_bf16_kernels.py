@@ -34,6 +34,7 @@ from reslic_tcm_tpu.ops import fused_conv as JC
 from reslic_tcm_tpu_torch.ops import flash_window_attn as PF
 from reslic_tcm_tpu_torch.ops import fused_conv as PC
 from torch_port_inputs import attn_inputs, conv_inputs, oihw, port_attn_args
+from torch_port_threads import one_torch_thread  # noqa: E402,F401
 
 TOL_MAX = 4e-3
 SHARE_MAX = 0.1
@@ -202,3 +203,134 @@ def test_attention_only_flavour_has_no_bf16_instance():
     assert (launch_counts(), launch_counts(BF16)) == before
     assert torch.equal(got, want)
     differs((got - x).numpy(), (fp32 - x).numpy())
+
+
+# ------------- the redesigned bf16 kernels' host-side choices -------------
+# (ops/fused_conv.py's bf16 tile rule, ops/flash_window_attn.py's windows a
+# CTA and both prepared layouts; the kernels themselves run on the card,
+# tests/test_torch_port_cuda.py)
+
+SMEM_BLOCK = 232448 - 1024  # a block's dynamic shared memory, the kernels' margin kept
+
+
+def _conv_smem(c: int, tile: str, taps: int) -> int:
+    """csrc/fused_conv_bf16.cu's ConvGeom: the bf16 halo [C/8][pixels,
+    rounded up to 8][8] and at least two W stages of KC x NB."""
+    th, tw, nb = PC.tile_shape_bf16(tile, c)
+    pad = 1 if taps == 9 else 0
+    npix = (th + 2 * pad) * (tw + 2 * pad)
+    kc = 64 if c % 64 == 0 else 32
+    return c // 8 * -(-npix // 8) * 8 * 16 + 2 * kc * nb * 2
+
+
+@pytest.mark.parametrize("c", [64, 96, 128, 192, 256, 384])
+def test_bf16_conv_tiles_fit_and_cover_the_channels(c):
+    """Each tile of every instance splits C into whole wgmma widths (a
+    multiple of 8, at most 192), its pixels into 8x8 blocks two warpgroups
+    share evenly, and its halo and two W stages fit one block's shared
+    memory, for the 3x3 launch and the 1x1 GDN launch."""
+    for tile in PC.TILES:
+        th, tw, nb = PC.tile_shape_bf16(tile, c)
+        assert c % nb == 0 and nb % 8 == 0 and nb <= 192, (c, tile)
+        assert th % 8 == 0 and tw % 8 == 0 and (th // 8) * (tw // 8) % 2 == 0, (c, tile)
+        for taps in (9, 1):
+            assert _conv_smem(c, tile, taps) <= SMEM_BLOCK, (c, tile, taps)
+    with pytest.raises(ValueError, match="no tile"):
+        PC.tile_shape_bf16("huge", c)
+
+
+@pytest.mark.parametrize("h,w,c,want", [
+    (384, 256, 64, "large"), (192, 128, 64, "large"), (96, 64, 64, "small"),
+    (192, 128, 192, "large"), (96, 64, 192, "small"), (96, 64, 128, "small"),
+    (96, 64, 256, "large"), (96, 64, 384, "large"), (24, 16, 384, "small"),
+    (24, 16, 256, "small"), (192, 128, 384, "large"), (13, 10, 96, "small")])
+def test_bf16_conv_tile_choice_follows_the_grid(h, w, c, want):
+    """The bf16 tile rule: the large tile where its grid has at least
+    LARGE_TILE_BLOCKS blocks, else the small one (the faster of the two at
+    each of these main-path maps on an H100); ragged maps count their
+    partial tiles."""
+    assert PC.tile_config_bf16(h, w, c) == want
+    th, tw, nb = PC.tile_shape_bf16("large", c)
+    blocks = -(-h // th) * -(-w // tw) * (c // nb)
+    assert PC.tile_blocks_bf16("large", h, w, c) == blocks
+    assert (blocks >= PC.LARGE_TILE_BLOCKS) == (want == "large")
+
+
+def test_bf16_prepared_weights_are_kgroups_of_the_matrices():
+    """B2/B3's bf16 weights as [K/8, C, 8]: entry [k // 8, n, k % 8] is the
+    [C][taps * C] matrix's (n, k), k = tap * C + input channel with the taps
+    in row-major order; gamma the same with one tap. The fp32 instance keeps
+    its own layout."""
+    c = 16
+    rng = np.random.default_rng(3)
+    w1, w2 = (torch.from_numpy(rng.normal(size=(c, c, 3, 3)).astype(np.float32))
+              for _ in range(2))
+    gamma = torch.from_numpy(rng.uniform(size=(c, c)).astype(np.float32))
+    wk, gk = PC.prepare_conv_gdn(w1, gamma, compute_dtype=BF16)
+    assert wk.shape == (9 * c // 8, c, 8) and gk.shape == (c // 8, c, 8)
+    assert wk.dtype == gk.dtype == BF16
+    for n, ci, a, b in [(0, 0, 0, 0), (3, 5, 1, 2), (15, 9, 2, 1), (7, 15, 2, 2)]:
+        k = (a * 3 + b) * c + ci
+        assert wk[k // 8, n, k % 8] == w1[n, ci, a, b].to(BF16)
+    assert torch.equal(gk.permute(1, 0, 2).reshape(c, c), gamma.to(BF16))
+    p1, p2 = PC.prepare_residual_block(w1, w2, compute_dtype=BF16)
+    assert torch.equal(p1, wk) and p2.shape == wk.shape
+    f1, _ = PC.prepare_residual_block(w1, w2, compute_dtype=torch.float32)
+    assert f1.shape == (3, 3, c, c) and f1.dtype == torch.float32
+
+
+@pytest.mark.parametrize("c,head_dim", [(64, 8), (96, 32), (192, 16)])
+def test_bf16_window_block_prepares_kgroups_head_by_head(c, head_dim):
+    """The LN+MLP kernel's bf16 weights: wqkv as k-groups with its rows head
+    by head (head h's q, k and v rows at 3 h head_dim ...), the q rows
+    pre-scaled; wproj, w1 and w2 as k-groups of the torch matrices; the
+    vectors fp32 in torch order."""
+    _, wts = attn_inputs(47, 1, 8, 8, c)
+    rel = np.zeros((c // head_dim, 64, 64), np.float32)
+    args = port_attn_args(wts, rel, lambda t: t)
+    wqkv, bqkv, wproj = args[0], args[1], args[2]
+    w1, w2 = args[7][2], args[7][4]
+    prep = PF.prepare_window_block(*args, head_dim=head_dim, compute_dtype=BF16)
+    assert len(prep) == 13
+    unk = lambda t: t.permute(1, 0, 2).reshape(t.shape[1], -1)  # noqa: E731
+    wq = unk(prep[0])
+    scale = head_dim ** -0.5
+    nh = c // head_dim
+    for h, seg, d in [(0, 0, 0), (nh - 1, 1, head_dim - 1), (nh // 2, 2, 1)]:
+        row = wqkv[seg * c + h * head_dim + d] * (scale if seg == 0 else 1.0)
+        assert torch.equal(wq[(3 * h + seg) * head_dim + d], row.to(BF16))
+    assert torch.equal(prep[1], bqkv * torch.cat([torch.full((c,), scale), torch.ones(2 * c)]))
+    assert torch.equal(unk(prep[2]), wproj.to(BF16))
+    assert torch.equal(unk(prep[9]), w1.to(BF16)) and torch.equal(unk(prep[11]), w2.to(BF16))
+    assert prep[11].shape == (4 * c // 8, c, 8)
+
+
+def test_bf16_windows_a_cta_follow_the_grid():
+    """Two windows a CTA (sharing every staged weight tile) at the smallest
+    cluster where the grid keeps at least GROUP_CTAS CTAs, else one; two
+    never at a larger cluster. On a CPU tensor the forcing entry point runs
+    the plain bf16 version."""
+    assert PF.window_group(64, 8, 1536, 1) == 2 and PF.window_group(192, 8, 1536, 2) == 2
+    assert PF.window_group(64, 32, 96, 1) == 1  # TCM-S's 96 windows: 48 CTAs
+    assert PF.window_group(192, 32, 96, 2) == 2  # N=192's 96 windows over clusters of 2
+    assert PF.window_group(128, 16, 24, 8) == 1
+    for c, hd in sorted(PF.KERNEL_SHAPES_FULL):
+        kmin, kmax = PF.min_cluster(c), PF.max_cluster(c, hd)
+        assert PF.window_groups(c, kmin) == PF.GROUPS_BF16
+        if kmax != kmin:
+            assert PF.window_groups(c, kmax) == (1,)
+        for windows in (1, 3, 24, 96, 263, 264, 384, 1536, 6144):
+            for k in {kmin, kmax}:
+                g = PF.window_group(c, hd, windows, k)
+                assert g in PF.window_groups(c, k)
+                assert g == 1 or -(-windows // 2) * k >= PF.GROUP_CTAS
+    c, hd = 64, 16
+    x, wts = attn_inputs(48, 1, 16, 24, c)
+    rel = np.random.default_rng(49).normal(0, 0.5, (c // hd, 64, 64)).astype(np.float32)
+    args = port_attn_args(wts, rel, lambda t: t)
+    xc = torch.from_numpy(x)
+    got = PF.flash_window_block_at(xc, *args, head_dim=hd, window=8, shifted=True, cluster=1,
+                                   group=2)
+    want = PF.plain_window_block(xc, *args, head_dim=hd, window=8, shifted=True,
+                                 compute_dtype=BF16)
+    assert torch.equal(got, want)

@@ -32,6 +32,7 @@ from reslic_tcm_tpu_torch.coding import device_kernels as PDK  # noqa: E402
 from reslic_tcm_tpu_torch.ops import flash_window_attn as PF  # noqa: E402
 from reslic_tcm_tpu_torch.ops import fused_conv as PC  # noqa: E402
 from reslic_tcm_tpu_torch.ops import qkv_attention as PQ  # noqa: E402
+from torch_port_threads import one_torch_thread  # noqa: E402,F401
 
 TOL_CARD = 1e-4
 # the whole forward compounds the per-layer differences over some 60 layers
@@ -1079,11 +1080,14 @@ BF16 = torch.bfloat16
     (64, 8, (48, 32), True), (64, 16, (16, 24), False), (64, 32, (24, 16), True),
     (96, 8, (16, 24), False), (96, 16, (24, 16), True), (96, 32, (8, 16), False),
     (128, 8, (16, 16), True), (128, 16, (48, 32), True), (128, 32, (24, 8), False),
-    (192, 8, (16, 24), False), (192, 16, (24, 16), True), (192, 32, (48, 32), True)])
+    (192, 8, (16, 24), False), (192, 16, (24, 16), True), (192, 32, (48, 32), True),
+    (64, 8, (24, 24), True), (128, 16, (40, 24), False), (192, 8, (24, 40), True),
+    (96, 32, (8, 24), True)])
 def test_b1_bf16_instance_matches_plain_on_card(cuda, c, head_dim, hw, shifted):
     """Every (C, head_dim) of KERNEL_SHAPES_FULL, each cluster the rules use
-    (the smallest and the largest) giving the same bits, and two calls the
-    same bits."""
+    (the smallest and the largest) at each of its windows a CTA giving the
+    same bits (window counts of 2 to 24 per image, 3 and 15 not a multiple
+    of two; 24: SWAtten's map), and two calls the same bits."""
     x, wts = attn_inputs(80 + head_dim, 2, *hw, c)
     rel = np.random.default_rng(81).normal(0, 0.5, (c // head_dim, 64, 64)).astype(np.float32)
     args = port_attn_args(wts, rel, lambda t: t.to(cuda))
@@ -1098,19 +1102,38 @@ def test_b1_bf16_instance_matches_plain_on_card(cuda, c, head_dim, hw, shifted):
                 PF.flash_window_block.launches_bf16) == (before[0], before[1] + 1)
         for k in {PF.min_cluster(c), PF.max_cluster(c, head_dim)}:
             assert torch.equal(PF.flash_window_block(xc, *args, **kw, cluster=k), got), k
+            for g in PF.window_groups(c, k):
+                forced = PF.flash_window_block_at(xc, *args, head_dim=head_dim, window=8,
+                                                  shifted=shifted, cluster=k, group=g)
+                assert torch.equal(forced, got), (k, g)
         assert torch.equal(PF.flash_window_block(xc, *args, **kw), got)
     err_ok(got.cpu().numpy(), want.cpu().numpy(), TOL_BF16)
+
+
+@pytest.mark.cuda
+def test_b1_bf16_refuses_windows_a_cta_without_an_instance(cuda):
+    """Two windows a CTA exist only at the smallest cluster."""
+    c, head_dim = 64, 8
+    x, wts = attn_inputs(88, 1, 16, 16, c)
+    rel = np.zeros((c // head_dim, 64, 64), np.float32)
+    args = port_attn_args(wts, rel, lambda t: t.to(cuda))
+    xc = torch.from_numpy(x).to(cuda)
+    with torch.no_grad(), pytest.raises(ValueError, match="windows a CTA"):
+        PF.flash_window_block_at(xc, *args, head_dim=head_dim, window=8, shifted=False,
+                                 cluster=PF.max_cluster(c, head_dim), group=2)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel,c,hw", [
     ("b2", 64, (96, 64)), ("b2", 96, (13, 10)), ("b2", 128, (24, 16)), ("b2", 192, (37, 45)),
     ("b3", 64, (37, 45)), ("b3", 128, (96, 64)), ("b3", 192, (24, 16)), ("b3", 256, (13, 10)),
-    ("b3", 384, (24, 16))])
+    ("b3", 384, (24, 16)), ("b2", 192, (24, 40)), ("b3", 384, (20, 36)),
+    ("b2", 96, (1, 1))])
 def test_b2_b3_bf16_instances_match_plain_on_card(cuda, kernel, c, hw):
     """Each instance against its plain bf16 version; both tiles, forced on
     the same input, and a second call give the same bits (GDN and IGDN for
-    B3)."""
+    B3). The maps include sides that are not multiples of either tile's
+    (16 or 8 rows, 16 columns) and a single pixel."""
     x, w1, b1, w2, b2, gamma, beta, skip = conv_inputs(90 + c, 2, *hw, c)
     t = lambda a: torch.from_numpy(a).to(cuda)  # noqa: E731
     with torch.no_grad():

@@ -44,6 +44,7 @@ from reslic_tcm_tpu_torch.models.wacnn import make_wacnn
 from reslic_tcm_tpu_torch.utils.metrics import compute_psnr
 from reslic_tcm_tpu_torch.utils.torch_convert import from_jax_params
 from tests.test_torch_port_train_parity import WACNN_TINY
+from torch_port_threads import one_torch_thread  # noqa: E402,F401
 
 SMALL = dict(N=32, M=40, hyper_ch=24, atten_inter_dim=16)
 K = 128

@@ -29,6 +29,7 @@ from reslic_tcm_tpu_torch.coding import analytic_rans as PA
 from reslic_tcm_tpu_torch.coding import device_kernels as PK
 from reslic_tcm_tpu_torch.coding import device_rans as PD
 from tests.torch_port_inputs import coder_symbols, coder_tables, gaussian_inputs
+from torch_port_threads import one_torch_thread  # noqa: E402,F401
 
 K = 128
 N = 128 * 128  # 16384 symbols: 128 steps of 128 lanes

@@ -55,6 +55,7 @@ from reslic_tcm_tpu_torch.utils.torch_convert import (from_jax_params, load_snap
                                                       load_snapshot_into)
 from tests.test_torch_port_stanh import _close, _to_jax, _update
 from tests.test_torch_port_train_parity import _flat, _tree
+from torch_port_threads import one_torch_thread  # noqa: E402,F401
 
 TOL = 1e-5
 LAMBDAS = (0.0025, 0.013, 0.05)

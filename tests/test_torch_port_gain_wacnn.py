@@ -32,6 +32,7 @@ from reslic_tcm_tpu_torch.models.gain import gained as PG
 from tests.test_torch_port_gain import _one_thread_and_fast_compiles  # noqa: F401
 from tests.test_torch_port_gain import _close, _image, _jax_params, _perturbed, _update
 from tests.test_torch_port_train_parity import WACNN_TINY
+from torch_port_threads import one_torch_thread  # noqa: E402,F401
 
 KEY = jax.random.PRNGKey(0)
 LAMBDAS = (0.0025, 0.05)

@@ -30,6 +30,7 @@ from reslic_tcm_tpu_torch.ops import fused_conv as PC
 from reslic_tcm_tpu_torch.ops import qkv_attention as PQ
 from torch_port_inputs import (attn_inputs, conv_inputs, err_ok, oihw, port_attn_args,
                                qkv_inputs)
+from torch_port_threads import one_torch_thread  # noqa: E402,F401
 
 TOL_CPU = 1e-5
 
@@ -268,8 +269,9 @@ def test_b1_attention_only_library_call_matches_plain(shifted):
 
 
 def test_library_path_hashes_the_headers_a_source_includes(tmp_path, monkeypatch):
-    """An edited header gives the kernel sources that include it (B1's two
-    and B4's) a new object name, and leaves the others' names alone."""
+    """An edited header gives the kernel sources that include it (B1's two,
+    the bf16 one built as two libraries, and B4's) a new object name, and
+    leaves the others' names alone."""
     from reslic_tcm_tpu_torch.ops import build
 
     import shutil
@@ -284,7 +286,8 @@ def test_library_path_hashes_the_headers_a_source_includes(tmp_path, monkeypatch
         f.write("\n// edited\n")
     after = {name: build.library_path(name) for name in build.SOURCES}
     changed = {name for name in build.SOURCES if before[name] != after[name]}
-    assert changed == {"flash_window_attn", "flash_window_attn_bf16", "qkv_attention"}
+    assert changed == {"flash_window_attn", "flash_window_attn_bf16",
+                       "flash_window_attn_bf16_wide", "qkv_attention"}
 
 
 def _cached_module(kind):

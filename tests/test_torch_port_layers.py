@@ -27,6 +27,7 @@ from reslic_tcm_tpu_torch.models.tcm import make_tcm
 from reslic_tcm_tpu_torch.ops import layers as PL
 from reslic_tcm_tpu_torch.ops import window_attention as PW
 from reslic_tcm_tpu_torch.utils.torch_convert import from_jax_params, load_snapshot
+from torch_port_threads import one_torch_thread  # noqa: E402,F401
 
 SNAPSHOT = os.path.join(os.path.dirname(os.path.dirname(__file__)), "checkpoints",
                         "tcm_s_lambda0.013_r5.npz")

@@ -30,6 +30,7 @@ from reslic_tcm_tpu_torch.entropy import factorized as pfz
 from reslic_tcm_tpu_torch.entropy.gaussian import GaussianConditional, build_scale_tables
 from reslic_tcm_tpu_torch.ops import math as pm
 from reslic_tcm_tpu_torch.utils import metrics as pmet
+from torch_port_threads import one_torch_thread  # noqa: E402,F401
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 

@@ -18,6 +18,7 @@ import torch
 from reslic_tcm_tpu_torch.entropy import factorized as fz
 from reslic_tcm_tpu_torch.models import base
 from reslic_tcm_tpu_torch.models.tcm import make_tcm
+from torch_port_threads import one_torch_thread  # noqa: E402,F401
 
 
 def _flags():

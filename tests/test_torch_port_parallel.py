@@ -62,6 +62,7 @@ from reslic_tcm_tpu_torch.utils.torch_convert import from_jax_params, torch_key
 from tests.test_torch_port_train_parity import _flat, _tree
 from tests.torch_port_inputs import TINY_TCM, err_ok
 from tests.torch_port_jax_models import jax_factorized, jax_tiny_tcm
+from torch_port_threads import one_torch_thread  # noqa: E402,F401
 
 TOL = 1e-5
 WORLD = 4

@@ -21,6 +21,7 @@ import torch
 from reslic_tcm_tpu_torch.models.gain.gained import make_gained_wacnn
 from reslic_tcm_tpu_torch.models.tcm import make_tcm
 from tests.test_torch_port_train_parity import TCM_SMALL, WACNN_TINY
+from torch_port_threads import one_torch_thread  # noqa: E402,F401
 
 
 def _wacnn_gain():

@@ -68,6 +68,7 @@ from reslic_tcm_tpu_torch.utils.torch_convert import (from_jax_params, is_deconv
                                                       load_snapshot_into, torch_key)
 from tests.test_golden_stanh import GOLDEN, _digest, _fact_tables, _scale_tables, _wb
 from tests.test_torch_port_train_parity import _flat, _recording_uniform, _rel, _tree
+from torch_port_threads import one_torch_thread  # noqa: E402,F401
 
 TOL = 1e-5
 TOL_STAIR = 1e-6

@@ -26,6 +26,7 @@ from torch_port_inputs import coder_tables, scale_tables  # noqa: E402
 from reslic_tcm_tpu_torch.coding import device_kernels as dk  # noqa: E402
 from reslic_tcm_tpu_torch.coding import device_rans as dr  # noqa: E402
 from reslic_tcm_tpu_torch.entropy.factorized import build_tables  # noqa: E402
+from torch_port_threads import one_torch_thread  # noqa: E402,F401
 
 
 def z_tables(seed=0, c=192):

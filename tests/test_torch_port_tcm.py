@@ -31,6 +31,7 @@ from reslic_tcm_tpu.models.tcm import make_tcm as jax_make_tcm
 from reslic_tcm_tpu_torch.cli import eval as peval
 from reslic_tcm_tpu_torch.models.tcm import make_tcm
 from reslic_tcm_tpu_torch.utils.torch_convert import from_jax_params, load_snapshot
+from torch_port_threads import one_torch_thread  # noqa: E402,F401
 
 TOL = 1e-5
 MAX_FLIP_SHARE = 1e-3

@@ -41,6 +41,7 @@ from reslic_tcm_tpu_torch.utils.torch_convert import from_jax_params
 from tests.test_torch_port_train_parity import _tree
 from tests.torch_port_inputs import TINY_TCM, err_ok
 from tests.torch_port_jax_models import jax_factorized, jax_tiny_tcm
+from torch_port_threads import one_torch_thread  # noqa: E402,F401
 
 TOL = 1e-5
 # (H, W, tile, overlap): tiled_forward's default tile on 1200x1200 and on

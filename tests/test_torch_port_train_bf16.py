@@ -47,6 +47,7 @@ from tests.test_torch_port_balle import _to_port_noise as balle_noise
 from tests.test_torch_port_bf16_codecs import balle_pair
 from tests.test_torch_port_train_parity import (B1, LMBDA, _adam_mu, _flat, _recording_uniform,
                                                 _rel, _tcm_pair, _to_port_noise, _tree)
+from torch_port_threads import one_torch_thread  # noqa: E402,F401
 
 STEPS = 2
 TOL_LOSS = 1e-2

@@ -58,6 +58,7 @@ from reslic_tcm_tpu_torch.models.tcm import make_tcm
 from reslic_tcm_tpu_torch.models.wacnn import make_wacnn
 from reslic_tcm_tpu_torch.training.step import create_train_state, train_step
 from reslic_tcm_tpu_torch.utils.torch_convert import from_jax_params
+from torch_port_threads import one_torch_thread  # noqa: E402,F401
 
 TOL_LOSS = 1e-5
 TOL_GRAD = 1e-3

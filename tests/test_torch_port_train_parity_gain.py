@@ -36,6 +36,7 @@ from tests.test_torch_port_gain_wacnn import _pair as _wacnn_pair
 from tests.test_torch_port_train_parity import (B1, LMBDA, TOL_GRAD, TOL_LOSS, _adam_mu, _flat,
                                                 _recording_uniform, _rel)
 from tests.test_torch_port_train_parity import _to_port_noise as _slices_to_port
+from torch_port_threads import one_torch_thread  # noqa: E402,F401
 
 KEY = jax.random.PRNGKey(0)
 

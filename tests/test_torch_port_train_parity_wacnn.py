@@ -14,6 +14,7 @@ from tests.test_torch_port_train_parity import (  # noqa: F401  (collected here 
     test_gradients_match_jax, test_noise_is_drawn_in_jax_order,
     test_ste_round_flips_are_rare, test_three_step_trajectory_matches_jax,
     test_training_forward_loss_matches_jax, train_both)
+from torch_port_threads import one_torch_thread  # noqa: E402,F401
 
 
 @pytest.fixture(scope="module")

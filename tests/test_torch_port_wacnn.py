@@ -43,6 +43,7 @@ from reslic_tcm_tpu_torch.ops import window_attention as PW
 from reslic_tcm_tpu_torch.ops.launches import launch_counts
 from reslic_tcm_tpu_torch.utils.torch_convert import (from_jax_params, load_snapshot_into,
                                                       torch_key)
+from torch_port_threads import one_torch_thread  # noqa: E402,F401
 
 TOL = 1e-5
 TOL_ATTN = 2e-4

@@ -22,6 +22,7 @@ from reslic_tcm_tpu_torch.ops import fused_conv as PC
 from reslic_tcm_tpu_torch.ops import layers as PL
 from reslic_tcm_tpu_torch.ops import qkv_attention as PQ
 from reslic_tcm_tpu_torch.ops import window_attention as PW
+from torch_port_threads import one_torch_thread  # noqa: E402,F401
 
 
 def routed_shapes(module) -> set:
