@@ -7,9 +7,9 @@
 Drives reslic_tcm_tpu_torch only (no JAX, no PIL), in these phases:
 
 1. Device: the card's name and power limit; TF32 off, cuDNN deterministic.
-2. Build: the four CUDA kernels' three sources, the device coder's
-   kernels' source (nvcc, one process per source, all at once) and the
-   host rANS coder (g++) into
+2. Build: every library of ops/build.py's SOURCES (the kernels of B1-B4
+   in fp32 and bf16, the device coder's kernels: nvcc, one process per
+   library, all at once; the host rANS coder: g++) into
    reslic_tcm_tpu_torch/_build/.
 3. Kernels: each kernel against its plain PyTorch version on the card at
    the shapes the main paths of TCM-S, TCM N=128, TCM N=192 and WACNN give
@@ -36,19 +36,22 @@ Drives reslic_tcm_tpu_torch only (no JAX, no PIL), in these phases:
    kernel's device time over 10 interleaved rounds of launches is printed.
    Where the profiler loses kernel records three times over, a device time
    is printed as not measured (NaN or null) beside the CUDA-event time.
-   Then the bf16 instances (csrc/fused_conv_bf16.cu, csrc/flash_window_attn_bf16.cu)
-   at the TCM-S, N=128 and N=192 main-path shapes of B1 (LN+MLP), B2 and
-   B3, and at WACNN N=192's and N=128's of B1's attention-only flavour (a
-   row of its own, flash_window_block_attn_bf16; every cluster of
-   ATTN_CLUSTERS): each against its plain bf16 version on the card (max abs error
-   against 4e-3 * max(1, max |plain|): the two round the same operands to
-   bf16 and sum in other orders, so a value can round to the neighbouring
-   bf16 value), its device time beside the fp32 instance's on the same
-   input (both with prepared weights), the bound (bf16 tensor-core peak
-   989 TFLOP/s vs 3.35 TB/s, weights counted in bf16); B2/B3's other tile,
-   B1 LN+MLP's every (cluster, windows a CTA) (flash_window_block_at) and
-   the attention-only flavour's other clusters on the same input give the
-   same bits.
+   Then the bf16 instances (csrc/fused_conv_bf16.cu,
+   csrc/flash_window_attn_bf16.cu, csrc/window_attn_bf16.cu) at the TCM-S,
+   N=128 and N=192 main-path shapes of B1 (LN+MLP), B2 and B3, and at
+   WACNN N=192's and N=128's of B1's attention-only flavour (a row of its
+   own, flash_window_block_attn_bf16): each against its plain bf16 version
+   on the card (max abs error against 4e-3 * max(1, max |plain|): the two
+   round the same operands to bf16 and sum in other orders, so a value can
+   round to the neighbouring bf16 value), its device time beside the fp32
+   instance's on the same input (both with prepared weights), the bound
+   (bf16 tensor-core peak 989 TFLOP/s vs 3.35 TB/s, weights counted in
+   bf16); B2/B3's other tile, B1 LN+MLP's every (cluster, windows a CTA)
+   (flash_window_block_at) and the attention-only flavour's every option
+   (attn_bf16_forces: each cluster at several persistent grids) on the
+   same input give the same bits. The attention-only row also times one
+   F.multi_head_attention_forward call in bf16 (its library yardstick,
+   held to the plain bf16 version at the same tolerance).
 4. TCM slices, each evaluate() on two seeded 768x512 synthetic images, the
    forward estimate and then real compress -> decompress, asserting an
    exact decode of y_hat, the documented kernel launches per pass, and
@@ -329,7 +332,7 @@ _B1_ATTN_BF16 = "flash_window_block_attn_bf16"
 
 def _bf16_row(kernel, option) -> str:
     """The kernels line's row of a bf16 case: B1's attention-only flavour
-    has a row of its own (another kernel, attn_block_bf16_kernel)."""
+    has a row of its own (another kernel, window_attn_bf16_kernel)."""
     return _B1_ATTN_BF16 if kernel == _B1 and not option[2] else f"{kernel}_bf16"
 
 
@@ -338,7 +341,7 @@ def _bf16_row(kernel, option) -> str:
 BF16_ROWS = {
     f"{_B1}_bf16": (_B1, "reslic_tcm_tpu_torch/csrc/flash_window_attn_bf16.cu",
                     ("bf16-tcm", "bf16-tcm192")),
-    _B1_ATTN_BF16: (_B1, "reslic_tcm_tpu_torch/csrc/flash_window_attn_bf16.cu",
+    _B1_ATTN_BF16: (_B1, "reslic_tcm_tpu_torch/csrc/window_attn_bf16.cu",
                     ("bf16-wacnn", "bf16-wacnn-stanh")),
     f"{_B2}_bf16": (_B2, "reslic_tcm_tpu_torch/csrc/fused_conv_bf16.cu", None),
     f"{_B3}_bf16": (_B3, "reslic_tcm_tpu_torch/csrc/fused_conv_bf16.cu", None),
@@ -503,10 +506,12 @@ def library_qkv_attention(torch, windows, w_qkv, b_qkv, attn_mask, w_proj, b_pro
     return out.transpose(0, 1)
 
 
-def _library(torch, kernel, shape, option, args):
+def _library(torch, kernel, shape, option, args, dtype=None):
     """(the library call on these inputs, its output -> the kernel's output's
     layout) for B4 and B1's attention-only flavour; the attn_mask (and for
-    B1 the partition into windows) is built here, outside the timed call."""
+    B1 the partition into windows) is built here, outside the timed call.
+    dtype=torch.bfloat16 (B1): the call's operands (windows, weights, biases
+    and attn_mask) in bf16, the residual added in fp32 outside it."""
     from reslic_tcm_tpu_torch.ops import flash_window_attn as F
 
     if kernel == "fused_qkv_attention":
@@ -523,9 +528,12 @@ def _library(torch, kernel, shape, option, args):
         blocked = torch.from_numpy(F.shift_window_mask(h // 8, w // 8, 8, 4)).to(x.device)
         blocked = torch.where(blocked, F.NEG_INF, 0.0).float()
     attn_mask = mha_mask(torch, rel, blocked, windows.shape[0])
+    if dtype is not None:
+        windows, w_qkv, b_qkv, attn_mask, w_proj, b_proj = (
+            t.to(dtype) for t in (windows, w_qkv, b_qkv, attn_mask, w_proj, b_proj))
     return (lambda: library_qkv_attention(torch, windows, w_qkv, b_qkv, attn_mask, w_proj, b_proj,
                                           c // hd),
-            lambda out: x + F.window_reverse(out.reshape(b, -1, 64, c), 8, h, w))
+            lambda out: x + F.window_reverse(out.float().reshape(b, -1, 64, c), 8, h, w))
 
 
 def _splits(kernel, shape, option):
@@ -541,6 +549,27 @@ def _splits(kernel, shape, option):
         ks = (F.min_cluster(shape[3]), F.max_cluster(shape[3], hd)) if full else F.ATTN_CLUSTERS
         return {k: {"cluster": k} for k in dict.fromkeys(ks)}
     return None
+
+
+def attn_bf16_forces(args, kw, prep, shape):
+    """{option: call} over the options the bf16 attention-only wrapper can
+    force at this shape (B1 attention-only, csrc/window_attn_bf16.cu): each
+    cluster of ATTN_CLUSTERS_BF16 at its default persistent grid ("K"), at
+    a grid that leaves some clusters one window short ("KxG", G = windows //
+    2 + 1) and at one cluster ("Kx1": every window in turn)."""
+    import torch
+
+    from reslic_tcm_tpu_torch.ops import flash_window_attn as F
+
+    b, h, w, c = shape
+    windows = b * (h // 8) * (w // 8)
+    forces = {}
+    for k in F.ATTN_CLUSTERS_BF16[c]:
+        for g in dict.fromkeys((None, windows // 2 + 1, 1)):
+            forces[str(k) if g is None else f"{k}x{g}"] = (
+                lambda k=k, g=g: F.flash_window_block(*args, **kw, cluster=k, grid=g,
+                                                      prepared=prep, compute_dtype=torch.bfloat16))
+    return forces
 
 
 def _chosen_split(kernel, shape, option):
@@ -731,7 +760,7 @@ def phase_kernels_bf16(torch):
             flops, nbytes = _cost(kernel, shape, option, weight_bytes=2)
             t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
             if kernel == _B1 and not option[2]:
-                forces = {k: lambda k=k: run[bf16](cluster=k) for k in F.ATTN_CLUSTERS}
+                forces = attn_bf16_forces(args, kw, prep[bf16], shape)
             elif kernel == _B1:  # every (cluster, windows a CTA) of the LN+MLP kernel
                 at = {n: v for n, v in kw.items() if n != "with_ln"}
                 forces = {f"{k}x{g}": lambda k=k, g=g: F.flash_window_block_at(
@@ -753,6 +782,12 @@ def phase_kernels_bf16(torch):
                     "tflops": flops / device_ms / 1e9,
                     "share_of_bound": max(t_ops, t_bytes) / device_ms,
                     "splits": list(forces), "equal_across_splits": equal}
+            if kernel == _B1 and not option[2]:
+                # one F.multi_head_attention_forward call in bf16 (the fp32 rows'
+                # yardstick; partition, roll and residual outside it)
+                lib, to_out = _library(torch, kernel, shape, option, args, bf16)
+                case["library_ms"] = _time_ms(torch, lib, reps)
+                case["library_err"] = float((to_out(lib()) - want).abs().max())
             log("kernel_case_bf16 " + json.dumps(case))
             if not err <= bound:
                 raise AssertionError(f"{kernel} bf16 {shape} {option}: max abs err {err:.3e} "
@@ -760,22 +795,31 @@ def phase_kernels_bf16(torch):
             if not equal:
                 raise AssertionError(f"{kernel} bf16 {shape} {option}: the splits {list(forces)} "
                                      f"give different bits")
+            if "library_err" in case and not case["library_err"] <= bound:
+                raise AssertionError(f"{kernel} bf16 {shape} {option}: the bf16 library call "
+                                     f"disagrees with the plain version by "
+                                     f"{case['library_err']:.3e}")
+            library_ms = case.get("library_ms", 0.0)
             k = per_kernel.setdefault(row, dict.fromkeys(
-                ("max_abs_err", "ms", "device_ms", "fp32_device_ms", "plain_ms", "t_ops",
-                 "t_bytes"), 0.0))
+                ("max_abs_err", "ms", "device_ms", "fp32_device_ms", "plain_ms", "library_ms",
+                 "t_ops", "t_bytes"), 0.0))
             k["max_abs_err"] = max(k["max_abs_err"], err)
             for key, v in (("ms", ms), ("device_ms", device_ms), ("fp32_device_ms", fp32_device_ms),
-                           ("plain_ms", plain_ms), ("t_ops", t_ops), ("t_bytes", t_bytes)):
+                           ("plain_ms", plain_ms), ("library_ms", library_ms), ("t_ops", t_ops),
+                           ("t_bytes", t_bytes)):
                 k[key] += v * per_pass
             for slice_name, n in per_slice.items():
                 sk = per_slice_kernel.setdefault((slice_name, row), dict.fromkeys(
-                    ("launches", "ms", "device_ms", "fp32_device_ms", "plain_ms", "bound_ms"), 0.0))
+                    ("launches", "ms", "device_ms", "fp32_device_ms", "plain_ms", "library_ms",
+                     "bound_ms"), 0.0))
                 sk["launches"] += n
                 for key, v in (("ms", ms), ("device_ms", device_ms),
                                ("fp32_device_ms", fp32_device_ms), ("plain_ms", plain_ms),
-                               ("bound_ms", max(t_ops, t_bytes))):
+                               ("library_ms", library_ms), ("bound_ms", max(t_ops, t_bytes))):
                     sk[key] += v * n
     for (slice_name, kernel), sk in per_slice_kernel.items():
+        if kernel != _B1_ATTN_BF16:
+            sk["library_ms"] = None  # no single PyTorch call computes it
         log("kernel_per_pass_bf16 " + json.dumps({"slice": slice_name, "kernel": kernel, **sk}))
     log(f"phase 3 bf16 rows: {time.perf_counter() - t0:.1f} s")
     return per_kernel
@@ -3035,7 +3079,7 @@ def main() -> int:
             "replaces": KERNEL_SOURCES[base][1], "launches": n, "max_abs_err": k["max_abs_err"],
             "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": max(k["t_ops"], k["t_bytes"]),
             "bound_by": "operations" if k["t_ops"] >= k["t_bytes"] else "bytes",
-            "library_ms": None,
+            "library_ms": k["library_ms"] if kernel == _B1_ATTN_BF16 else None,
             # null where the profiler lost a case's records (not measured)
             "device_ms": None if np.isnan(k["device_ms"]) else k["device_ms"],
             "fp32_device_ms": None if np.isnan(k["fp32_device_ms"]) else k["fp32_device_ms"],
@@ -3050,8 +3094,10 @@ def main() -> int:
         "ms, plain_ms, device_ms, fp32_device_ms and bound_ms: the launches of one 768x512 "
         "forward pass of TCM-S, TCM N=128 and TCM N=192 (B1 LN+MLP, B2, B3) or of WACNN "
         "N=192 (B1 attention-only) at their main-path shapes, with prepared weights; "
-        "bound_ms against the bf16 tensor-core peak, weights counted in bf16; library_ms "
-        "null: no single PyTorch call computes them")
+        "bound_ms against the bf16 tensor-core peak, weights counted in bf16; library_ms: "
+        "B1 attention-only: one F.multi_head_attention_forward call in bf16 a launch "
+        "(partition, roll and residual outside it), null for the others: no single PyTorch "
+        "call computes them")
     log("launches: the slices' main-path runs (two images each, all three passes, every "
         "level or point of the variable-rate slices), the pipelined phase's serial run, the "
         "device-coder path's runs and the parallel phase's tiled pass (B1-B3); "

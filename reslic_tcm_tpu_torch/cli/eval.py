@@ -191,10 +191,13 @@ def _forward_estimate(codec, xp, tile: int, tile_overlap: int, shard_spatial: in
 
 def load_checkpoint(codec, path: str) -> None:
     """A committed ``.npz`` snapshot of JAX parameters, or a reference
-    PyTorch ``.pth``/``.pth.tar`` state dict (CDF buffers ignored). Every
-    parameter of the codec must be in the file; snapshot entries it has no
-    place for are listed."""
-    from ..utils.torch_convert import load_snapshot_into
+    PyTorch ``.pth``/``.pth.tar``/``.pt`` state dict. A snapshot must hold
+    every parameter of the codec (entries it has no place for are listed).
+    A PyTorch file loads non-strictly, as the JAX CLI's converter loads it
+    (``utils/torch_convert.py::warm_start_codec``: CDF buffers ignored,
+    parameters without a twin in the file kept at their init), and the
+    missing and unused counts are printed."""
+    from ..utils.torch_convert import load_snapshot_into, warm_start_codec
 
     if path.endswith(".npz"):
         unused = load_snapshot_into(codec.module, path, allow_unused=True)
@@ -202,13 +205,10 @@ def load_checkpoint(codec, path: str) -> None:
             print(f"ignored {len(unused)} snapshot entries: {', '.join(unused)}")
         return
     if path.endswith((".pth", ".pth.tar", ".pt")):
-        ckpt = torch.load(path, map_location="cpu", weights_only=True)
-        sd = ckpt.get("state_dict", ckpt)
-        sd = {k.replace("module.", ""): v for k, v in sd.items()}
-        missing, unused = codec.module.load_state_dict(sd, strict=False)
-        if missing:
-            raise ValueError(f"checkpoint lacks {len(missing)} parameters, e.g. {missing[:5]}")
-        print(f"ignored {len(unused)} checkpoint entries (CDF buffers and the like)")
+        report = warm_start_codec(codec, path, log=False)
+        if report["missing"] or report["unused"]:
+            print(f"converter: {len(report['missing'])} missing, "
+                  f"{len(report['unused'])} unused torch keys")
         return
     raise NotImplementedError(
         "orbax checkpoint directories need JAX: snapshot them to .npz with the "

@@ -13,8 +13,12 @@ staircases and synthesis transforms. The gain codecs train level p's
 gains with lambda p; ``scale_gain_sc`` is refused (its forward needs a
 quality map, which no train step feeds).
 ``--tester`` validates and stops; ``--checkpoint`` takes a ``.npz``
-snapshot of JAX parameters (a warm start) or the port's own checkpoint,
-whose optimisers, scheduler, step and epoch ``--continue_train`` resumes.
+snapshot of JAX parameters (a warm start, every parameter required), a
+PyTorch ``.pth``/``.pth.tar``/``.pt`` state dict (a non-strict warm start,
+as the JAX trainer's: ``utils/torch_convert.py::warm_start_codec``, e.g. a
+CompressAI-zoo bmshj2018 checkpoint into ``-m scale_stanh``) or the port's
+own checkpoint, whose optimisers, scheduler, step and epoch
+``--continue_train`` resumes.
 Runs on the CUDA device unless ``--platform cpu``. ``--bf16`` trains with
 the JAX trainer's bf16 matmul precision (``training/step.py``; parameters
 and optimiser states fp32, validation fp32). wandb is not ported.
@@ -44,6 +48,19 @@ import torch
 
 from .eval import _device  # the card (TF32 off, cuDNN deterministic) or the CPU
 from .eval import load_checkpoint as load_snapshot
+
+
+def warm_start(codec, path: str) -> None:
+    """``--checkpoint``'s weights-only warm starts: a PyTorch state-dict file
+    non-strictly (the JAX trainer's ``warm_start_codec``), a ``.npz``
+    snapshot strictly (every parameter in it)."""
+    if path.endswith((".pth", ".pth.tar", ".pt")):
+        from ..utils.torch_convert import warm_start_codec
+
+        warm_start_codec(codec, path)
+    else:
+        load_snapshot(codec, path)
+
 
 def to_device(batch: np.ndarray, device) -> torch.Tensor:
     """An NHWC numpy batch -> an NCHW float32 tensor on ``device``."""
@@ -103,7 +120,7 @@ def _train(args, device) -> int:
     if args.checkpoint != "none":
         print("Loading", args.checkpoint)
         if args.checkpoint.endswith((".npz", ".pth", ".pth.tar", ".pt")):
-            load_snapshot(codec, args.checkpoint)  # weights only: a warm start
+            warm_start(codec, args.checkpoint)  # weights only
         else:
             restored = load_checkpoint(args.checkpoint)
             module.load_state_dict(restored["state_dict"])

@@ -1,7 +1,7 @@
 // Flash window attention for Hopper (sm_90a) on the bf16 tensor cores: the
-// bf16 instances of csrc/flash_window_attn.cu's two flavours, one whole
-// Swin sub-block (LN+MLP) or one attention block (attention-only) per 8x8
-// window.
+// bf16 instance of csrc/flash_window_attn.cu's LN+MLP flavour, one whole
+// Swin sub-block per 8x8 window (the attention-only flavour's bf16 instance
+// is csrc/window_attn_bf16.cu).
 //
 // Replaces the Pallas TPU kernel reslic_tcm_tpu/ops/flash_window_attn.py:239
 // (flash_window_block / _kernel) in its bf16 mode (compute_dtype=bfloat16,
@@ -48,10 +48,10 @@
 //    the same way. LN reduces 4 tokens a warp at a time.
 // 3. Attention per head group (at most 64 channels: its q | k | v product
 //    at most 192 wide), one warp per (head, 16 query rows), in registers on
-//    mma.sync m16n8k16 (about 5-17% of the FLOPs): the scores of 16 rows x
-//    64 keys, bias (loaded a head ahead), mask and the row softmax over the
-//    quad that holds a row (shuffles), the probabilities rounded to bf16 as
-//    the A operand of P.v.
+//    mma.sync m16n8k16 (about 5-17% of the FLOPs; bf16_attention.cuh): the
+//    scores of 16 rows x 64 keys, bias (loaded a head ahead), mask and the
+//    row softmax over the quad that holds a row (shuffles), the
+//    probabilities rounded to bf16 as the A operand of P.v.
 // 4. Operands in shared memory as [n/8][64][8] bf16 (csrc/hopper_wgmma.cuh),
 //    k-groups 1040 bytes apart: the layout wgmma reads without swizzle, and
 //    bank-conflict free for the fragment loads and epilogue stores. x, then
@@ -74,19 +74,6 @@
 //    sum the same products in the same order): equal digests at every
 //    main-path shape (tools/bf16_redesign/compare.py).
 //
-// The attention-only flavour (with_ln=False, mlp=None: WACNN's
-// WinBasedAttention at (C, head_dim) = (128, 16) and (192, 24)) is
-// attn_block_bf16_kernel<C, HD, K>, still the first version: x + bf16(o) .
-// bf16(Wproj) + bproj with qkv = bf16(x) . bf16(Wqkv) + bqkv, the same cast
-// points (the Pallas body's flash_window_attn.py:93, :173, :183, :195), one
-// window per cluster of K CTAs, mma.sync, W ([out][in] bf16) staged by
-// cp.async in slices of 32 k. Its residual x is read again from global
-// memory in proj's epilogue, so shared memory holds only bf16(x) (later the
-// heads' output), q | k, v^T and the staged W: 119 KB at C = 192, K = 1.
-// head_dim 24 is not a multiple of m16n8k16's k: q.k^T takes a second step
-// over dims 16..31 whose upper half (24..31, past the head) is zeroed in
-// registers, as head_dim 8 zeroes 8..15; P.v takes three n8 tiles.
-//
 // Interface: plain C, raw pointers, the launch stream; returns the launch's
 // error (0 on success).
 
@@ -95,6 +82,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bf16_attention.cuh"
 #include "bf16_mma.cuh"
 #include "hopper_wgmma.cuh"
 #include "window_attn_common.cuh"
@@ -104,190 +92,9 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr float kEps = 1e-5f;
-constexpr int kKS = 32;         // W's k per staged slice (attention-only)
-constexpr int kLW = kKS + 8;    // staged W row stride (bf16)
 
 __device__ __forceinline__ float gelu(float v) {
   return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
-}
-
-__host__ __device__ constexpr int align16(int bytes) { return (bytes + 15) / 16 * 16; }
-
-// The warps' split of a 64 x NB product: warp w takes row tile w % 4 and
-// the column tiles j * WN + w / 4 (j < NTW); with WN = 1 warps 4-7 idle.
-template <int NB>
-struct Split {
-  static constexpr int NT = NB / 8;
-  static constexpr int WN = NT % 2 == 0 ? 2 : 1;
-  static constexpr int NTW = NT / WN;
-  static_assert(NB % 8 == 0, "n8 tiles");
-};
-
-// acc[j] += sum over k < KD of A[row][k] * W[n][k] for the warp's tiles,
-// one m16n8k16 step per 16 k, k ascending. wrow(n, k): the global address of
-// W's eight bf16 at local column n and k (16-byte aligned). W comes through
-// `stage` (2 x [NB][kLW]) in slices of kKS, the next slice's cp.async in
-// flight while one is multiplied. Every thread calls it; it ends with a
-// barrier, so the caller may then overwrite A and the stage.
-template <int NB, int KD, int LDA, class WRow>
-__device__ __forceinline__ void mma_product(float (&acc)[Split<NB>::NTW][4], const bf16* A,
-                                            WRow wrow, bf16* stage) {
-  using S = Split<NB>;
-  constexpr int CHUNKS = NB * kKS / 8;
-  constexpr int NS = KD / kKS;
-  static_assert(KD % kKS == 0 && LDA % 8 == 0, "slices and aligned rows");
-  const int warp = threadIdx.x / 32;
-  const int mt = warp % 4, wn = warp / 4;
-  auto fetch = [&](int s) {
-    if (s < NS) {
-      bf16* buf = stage + (s % 2) * NB * kLW;
-      for (int q = threadIdx.x; q < CHUNKS; q += kThreads) {
-        const int n = q / (kKS / 8), kc = q % (kKS / 8) * 8;
-        cp_async16_bf16(buf + n * kLW + kc, wrow(n, s * kKS + kc));
-      }
-    }
-    cp_async_commit_group();
-  };
-  fetch(0);
-  for (int s = 0; s < NS; ++s) {
-    cp_async_wait_group<0>();  // slice s has landed (this thread's copies)
-    __syncthreads();           // ... everyone's, and everyone is done with slice s - 1
-    fetch(s + 1);              // into slice s - 1's buffer
-    if (wn < S::WN) {
-      const bf16* ws = stage + (s % 2) * NB * kLW;
-#pragma unroll
-      for (int kk = 0; kk < kKS; kk += 16) {
-        uint32_t a[4];
-        frag_a(a, A, LDA, mt * 16, s * kKS + kk);
-#pragma unroll
-        for (int j = 0; j < S::NTW; ++j) {
-          uint32_t b[2];
-          frag_b(b, ws, kLW, (j * S::WN + wn) * 8, kk);
-          mma_bf16(acc[j], a, b);
-        }
-      }
-    }
-  }
-  __syncthreads();
-}
-
-// epi(row, col, v0, v1) for the warp's outputs of mma_product: columns col
-// and col + 1 (col even) of the block.
-template <int NB, class Epi>
-__device__ __forceinline__ void mma_epilogue(const float (&acc)[Split<NB>::NTW][4], Epi epi) {
-  using S = Split<NB>;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wn = warp / 4;
-  if (wn >= S::WN) return;
-  const int r = (warp % 4) * 16 + lane / 4;
-#pragma unroll
-  for (int j = 0; j < S::NTW; ++j) {
-    const int n = (j * S::WN + wn) * 8 + 2 * (lane % 4);
-    epi(r, n, acc[j][0], acc[j][1]);
-    epi(r + 8, n, acc[j][2], acc[j][3]);
-  }
-}
-
-// One head's attention for 16 query rows (row tile mt), one warp: q and k
-// in qk ([token][q | k], stride ldqk, k at column kofs), v in vt
-// ([dim][token], stride kT + 8), the bf16 output into o (stride ldo) at the
-// head's columns.
-template <int HD>
-__device__ __forceinline__ void head_attention(const bf16* qk, int ldqk, int kofs, int hofs,
-                                               const bf16* vt, const float* __restrict__ rb,
-                                               bf16* o, int ldo, int mt, bool last_row,
-                                               bool last_col) {
-  constexpr int KSTEPS = (HD + 15) / 16;
-  constexpr bool HALF = HD % 16 == 8;  // the last k step's upper 8 dims lie past the head
-  constexpr int DT = HD / 8;  // n8 tiles of the output
-  constexpr int LV = kT + 8;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4, t4 = lane % 4;
-  float s[8][4];
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) s[j][q] = 0.f;
-#pragma unroll
-  for (int ks = 0; ks < KSTEPS; ++ks) {
-    uint32_t a[4];
-    frag_a(a, qk, ldqk, mt * 16, hofs + ks * 16);
-    const bool half = HALF && ks == KSTEPS - 1;
-    if (half) a[2] = a[3] = 0u;  // k 8..15 of the step lie past the head: zero products
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      uint32_t b[2];
-      frag_b(b, qk + kofs, ldqk, j * 8, hofs + ks * 16);
-      if (half) b[1] = 0u;
-      mma_bf16(s[j], a, b);
-    }
-  }
-  // + bias (+ the SW mask), then the softmax of rows p0 and p0 + 8 over the
-  // quad that holds each
-  float mx[2] = {-3.402823466e38f, -3.402823466e38f};  // -FLT_MAX
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int p = mt * 16 + g + half * 8;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int q = j * 8 + 2 * t4;
-      const float2 bv = __ldg(reinterpret_cast<const float2*>(rb + p * kT + q));
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        float v = s[j][2 * half + e] + (e == 0 ? bv.x : bv.y);
-        const int qq = q + e;
-        if (last_row && ((p / kWin < kHalf) != (qq / kWin < kHalf))) v += kNegInf;
-        if (last_col && ((p % kWin < kHalf) != (qq % kWin < kHalf))) v += kNegInf;
-        s[j][2 * half + e] = v;
-        mx[half] = fmaxf(mx[half], v);
-      }
-    }
-  }
-  float sum[2] = {0.f, 0.f};
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    mx[half] = fmaxf(mx[half], __shfl_xor_sync(0xffffffffu, mx[half], 1));
-    mx[half] = fmaxf(mx[half], __shfl_xor_sync(0xffffffffu, mx[half], 2));
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float v = expf(s[j][2 * half + e] - mx[half]);
-        s[j][2 * half + e] = v;
-        sum[half] += v;
-      }
-    sum[half] += __shfl_xor_sync(0xffffffffu, sum[half], 1);
-    sum[half] += __shfl_xor_sync(0xffffffffu, sum[half], 2);
-    sum[half] = 1.f / sum[half];
-  }
-  // P . v: the probabilities' accumulator tiles 2kc, 2kc+1 are the A operand
-  // of keys 16kc..16kc+15
-  float o_acc[DT][4];
-#pragma unroll
-  for (int d = 0; d < DT; ++d)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) o_acc[d][q] = 0.f;
-#pragma unroll
-  for (int kc = 0; kc < 4; ++kc) {
-    const uint32_t a[4] = {
-        pack_bf16(s[2 * kc][0] * sum[0], s[2 * kc][1] * sum[0]),
-        pack_bf16(s[2 * kc][2] * sum[1], s[2 * kc][3] * sum[1]),
-        pack_bf16(s[2 * kc + 1][0] * sum[0], s[2 * kc + 1][1] * sum[0]),
-        pack_bf16(s[2 * kc + 1][2] * sum[1], s[2 * kc + 1][3] * sum[1])};
-#pragma unroll
-    for (int d = 0; d < DT; ++d) {
-      uint32_t b[2];
-      frag_b(b, vt, LV, hofs + d * 8, kc * 16);
-      mma_bf16(o_acc[d], a, b);
-    }
-  }
-#pragma unroll
-  for (int d = 0; d < DT; ++d) {
-    const int c = hofs + d * 8 + 2 * t4;
-    const int p = mt * 16 + g;
-    *reinterpret_cast<uint32_t*>(o + p * ldo + c) = pack_bf16(o_acc[d][0], o_acc[d][1]);
-    *reinterpret_cast<uint32_t*>(o + (p + 8) * ldo + c) = pack_bf16(o_acc[d][2], o_acc[d][3]);
-  }
 }
 
 struct SwinArgs {
@@ -306,7 +113,6 @@ struct SwinArgs {
 
 // ------------------- LN+MLP flavour: wgmma, several windows a CTA -------------------
 
-constexpr int kLA = kT * 8 + 8;          // k-group stride (bf16) of a [64 x n] operand: [n/8][64][8]
 constexpr int kSmemDyn = 232448 - 1024;  // a block's dynamic shared memory, with a margin
 
 __host__ __device__ constexpr int align128(int bytes) { return (bytes + 127) / 128 * 128; }
@@ -318,9 +124,6 @@ __host__ __device__ constexpr int group_width(int ck, int hd, int cap) {
   while (g > hd && ck % g != 0) g -= hd;
   return g;
 }
-
-// Element (row, col) of a [64 x n] operand in shared memory.
-__device__ __forceinline__ int al(int row, int col) { return (col / 8) * kLA + row * 8 + col % 8; }
 
 // Shared-memory geometry (bytes) and stage sequence of one CTA: G windows,
 // each 1/K of it on this CTA (rank r of a cluster of K).
@@ -430,131 +233,6 @@ __device__ void ln_window(const float* src, bf16* dst, const float* __restrict__
         dst[al(tb + k, c)] = __float2bfloat16_rn(v[k][i] * rstd * __ldg(g + c) + __ldg(b + c));
       }
     }
-  }
-}
-
-// epi(row, col, v0, v1) over a warpgroup's m64nN accumulators: columns col
-// and col + 1 (col even) of rows row.
-template <int N, class Epi>
-__device__ __forceinline__ void wg_epilogue(const float (&d)[N / 2], Epi epi) {
-  const int lt = threadIdx.x % 128;
-  const int r = 16 * (lt / 32) + (lt % 32) / 4, c = 2 * (lt % 4);
-#pragma unroll
-  for (int j = 0; j < N / 8; ++j) {
-    epi(r, 8 * j + c, d[4 * j], d[4 * j + 1]);
-    epi(r + 8, 8 * j + c, d[4 * j + 2], d[4 * j + 3]);
-  }
-}
-
-// One head's attention for 16 query rows (row tile mt), one warp: q and k in
-// qk (a [64 x 2GW] operand, k from column GW), v in v ([64/8][GW][8]), the
-// head's dims from column hofs; the bf16 output into o (a [64 x C] operand)
-// at columns ocol..ocol+HD-1.
-// The bias (rel_bias[h] at rows mt*16 + g (+8), columns 8j + 2t4, +1) of
-// one head for head_attention_wg, loaded ahead of its use.
-__device__ __forceinline__ void head_bias(float2 (&bv)[2][8], const float* __restrict__ rb,
-                                          int mt) {
-  const int lane = threadIdx.x % 32;
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      bv[hf][j] = __ldg(reinterpret_cast<const float2*>(
-          rb + (mt * 16 + lane / 4 + hf * 8) * kT + j * 8 + 2 * (lane % 4)));
-}
-
-template <int HD, int GW>
-__device__ __forceinline__ void head_attention_wg(const bf16* qk, const bf16* v, int hofs,
-                                                  const float2 (&bias)[2][8], bf16* o, int ocol,
-                                                  int mt, bool last_row, bool last_col) {
-  constexpr int KSTEPS = (HD + 15) / 16;
-  constexpr bool HALF = HD % 16 == 8;  // the last k step's upper 8 dims lie past the head
-  constexpr int DT = HD / 8;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4, t4 = lane % 4;
-  float s[8][4];
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) s[j][q] = 0.f;
-#pragma unroll
-  for (int ks = 0; ks < KSTEPS; ++ks) {
-    const bool half = HALF && ks == KSTEPS - 1;  // k 8..15 of the step: zero products
-    const int c0 = hofs + ks * 16;
-    const bf16* pa = qk + al(mt * 16 + g, c0) + 2 * t4;
-    uint32_t a[4];
-    a[0] = ld_u32(pa);
-    a[1] = ld_u32(pa + 64);
-    a[2] = half ? 0u : ld_u32(pa + kLA);
-    a[3] = half ? 0u : ld_u32(pa + kLA + 64);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const bf16* pb = qk + al(j * 8 + g, GW + c0) + 2 * t4;
-      const uint32_t b[2] = {ld_u32(pb), half ? 0u : ld_u32(pb + kLA)};
-      mma_bf16(s[j], a, b);
-    }
-  }
-  float mx[2] = {-3.402823466e38f, -3.402823466e38f};  // -FLT_MAX
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    const int p = mt * 16 + g + hf * 8;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int q = j * 8 + 2 * t4;
-      const float2 bv = bias[hf][j];
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        float val = s[j][2 * hf + e] + (e == 0 ? bv.x : bv.y);
-        const int qq = q + e;
-        if (last_row && ((p / kWin < kHalf) != (qq / kWin < kHalf))) val += kNegInf;
-        if (last_col && ((p % kWin < kHalf) != (qq % kWin < kHalf))) val += kNegInf;
-        s[j][2 * hf + e] = val;
-        mx[hf] = fmaxf(mx[hf], val);
-      }
-    }
-  }
-  float sum[2] = {0.f, 0.f};
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(0xffffffffu, mx[hf], 1));
-    mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(0xffffffffu, mx[hf], 2));
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float val = expf(s[j][2 * hf + e] - mx[hf]);
-        s[j][2 * hf + e] = val;
-        sum[hf] += val;
-      }
-    sum[hf] += __shfl_xor_sync(0xffffffffu, sum[hf], 1);
-    sum[hf] += __shfl_xor_sync(0xffffffffu, sum[hf], 2);
-    sum[hf] = 1.f / sum[hf];
-  }
-  float o_acc[DT][4];
-#pragma unroll
-  for (int d = 0; d < DT; ++d)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) o_acc[d][q] = 0.f;
-#pragma unroll
-  for (int kc = 0; kc < 4; ++kc) {
-    const uint32_t a[4] = {
-        pack_bf16(s[2 * kc][0] * sum[0], s[2 * kc][1] * sum[0]),
-        pack_bf16(s[2 * kc][2] * sum[1], s[2 * kc][3] * sum[1]),
-        pack_bf16(s[2 * kc + 1][0] * sum[0], s[2 * kc + 1][1] * sum[0]),
-        pack_bf16(s[2 * kc + 1][2] * sum[1], s[2 * kc + 1][3] * sum[1])};
-#pragma unroll
-    for (int d = 0; d < DT; ++d) {
-      const bf16* pb = v + (2 * kc * GW + hofs + d * 8 + g) * 8 + 2 * t4;
-      const uint32_t b[2] = {ld_u32(pb), ld_u32(pb + GW * 8)};
-      mma_bf16(o_acc[d], a, b);
-    }
-  }
-#pragma unroll
-  for (int d = 0; d < DT; ++d) {
-    const int c = ocol + d * 8 + 2 * t4;
-    const int p = mt * 16 + g;
-    *reinterpret_cast<uint32_t*>(o + al(p, c)) = pack_bf16(o_acc[d][0], o_acc[d][1]);
-    *reinterpret_cast<uint32_t*>(o + al(p + 8, c)) = pack_bf16(o_acc[d][2], o_acc[d][3]);
   }
 }
 
@@ -873,174 +551,6 @@ cudaError_t launch_swin(const SwinArgs& a, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-#ifndef SWIN_WIDE  // the attention-only flavour builds with the narrow instances
-
-// Shared-memory geometry of one CTA of the attention-only flavour (strides
-// in elements, offsets in bytes).
-template <int C, int HD, int K>
-struct Attn {
-  static constexpr int NH = C / HD;
-  static constexpr int HK = NH / K;  // heads per rank
-  static constexpr int CK = C / K;   // output columns per rank
-  static constexpr int QW = 3 * CK;  // qkv columns per rank
-  static constexpr int NBQ = block_cols(QW);
-  static constexpr int NBP = block_cols(CK);  // proj's column blocks
-  static constexpr int LA = C + 8;   // as (bf16)
-  static constexpr int LQK = 2 * CK + 8;
-  static constexpr int LV = kT + 8;
-  static constexpr int NBMAX = cmax(NBQ, NBP);
-  static constexpr int AS = 0;
-  static constexpr int QK = AS + align16(2 * kT * LA);
-  static constexpr int VT = QK + align16(2 * kT * LQK);
-  static constexpr int STAGE = VT + align16(2 * CK * LV);
-  static constexpr int BYTES = STAGE + 2 * 2 * NBMAX * kLW;
-  static constexpr int MIN_BLOCKS = blocks_per_sm(BYTES);
-  static_assert(C % 32 == 0 && NH * HD == C && NH % K == 0, "heads split evenly over the cluster");
-  static_assert(HD % 8 == 0 && CK % 8 == 0, "n8 tiles");
-  static_assert(Split<NBQ>::NTW <= 8 && Split<NBP>::NTW <= 8, "accumulators");
-  static_assert(BYTES <= kSmemPerBlock, "shared memory of a block");
-};
-
-// out = x + bf16(attn(x)) . bf16(Wproj) + bproj over one 8x8 window per
-// cluster of K CTAs: rank r computes the heads [r*NH/K, (r+1)*NH/K) and the
-// output columns [r*C/K, (r+1)*C/K), the heads' output gathered through
-// distributed shared memory, as swin_block_bf16_kernel without LN and MLP.
-template <int C, int HD, int K>
-__global__ void __launch_bounds__(kThreads, (Attn<C, HD, K>::MIN_BLOCKS))
-    attn_block_bf16_kernel(const SwinArgs p) {
-  using G = Attn<C, HD, K>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* as = reinterpret_cast<bf16*>(smem + G::AS);  // [T][LA] bf16(x), then the heads' out
-  bf16* qk = reinterpret_cast<bf16*>(smem + G::QK);  // [T][LQK] this rank's q | k
-  bf16* vt = reinterpret_cast<bf16*>(smem + G::VT);  // [CK][LV] this rank's v, transposed
-  bf16* stage = reinterpret_cast<bf16*>(smem + G::STAGE);
-
-  const int rank = K == 1 ? 0 : static_cast<int>(cg::this_cluster().block_rank());
-  const int win = blockIdx.x / K;
-  const int nww = p.W / kWin;
-  const int nwh = p.H / kWin;
-  const int wy = win / nww;
-  const int wx = win % nww;
-  const size_t img = static_cast<size_t>(blockIdx.y) * p.H * p.W * C;
-  auto gofs = [&](int t, int c) {
-    return img + (static_cast<size_t>(wy * kWin + t / kWin) * p.W + wx * kWin + t % kWin) * C + c;
-  };
-  const int cbase = rank * G::CK;  // this rank's first output column
-
-  for (int i = threadIdx.x; i < kT * C / 4; i += kThreads) {
-    const int t = i / (C / 4);
-    const int c = i % (C / 4) * 4;
-    const float4 v = __ldg(reinterpret_cast<const float4*>(p.x + gofs(t, c)));
-    uint2 packed;
-    packed.x = pack_bf16(v.x, v.y);
-    packed.y = pack_bf16(v.z, v.w);
-    *reinterpret_cast<uint2*>(as + t * G::LA + c) = packed;
-  }
-  __syncthreads();
-
-  // qkv of this rank's heads: local column m lies in segment m / CK (q, k or
-  // v) and is global column (m / CK) * C + cbase + m % CK.
-  for (int nb0 = 0; nb0 < G::QW; nb0 += G::NBQ) {
-    auto col = [&](int n) { return (nb0 + n) / G::CK * C + cbase + (nb0 + n) % G::CK; };
-    float acc[Split<G::NBQ>::NTW][4] = {};
-    mma_product<G::NBQ, C, G::LA>(
-        acc, as, [&](int n, int k) { return p.wqkv + static_cast<size_t>(col(n)) * C + k; },
-        stage);
-    mma_epilogue<G::NBQ>(acc, [&](int t, int n, float v0, float v1) {
-      const int m = nb0 + n;  // m and m + 1 lie in one segment (CK is even)
-      const int gc = col(n);
-      v0 += __ldg(p.bqkv + gc);
-      v1 += __ldg(p.bqkv + gc + 1);
-      if (m < 2 * G::CK) {
-        *reinterpret_cast<uint32_t*>(qk + t * G::LQK + m) = pack_bf16(v0, v1);
-      } else {
-        vt[(m - 2 * G::CK) * G::LV + t] = __float2bfloat16_rn(v0);
-        vt[(m - 2 * G::CK + 1) * G::LV + t] = __float2bfloat16_rn(v1);
-      }
-    });
-  }
-  __syncthreads();
-
-  // attention, one warp per (head, 16 query rows); each head's output lands
-  // in `as` (bf16(x) is no longer read) at its global columns
-  const bool last_row = p.shifted && wy == nwh - 1;
-  const bool last_col = p.shifted && wx == nww - 1;
-  for (int task = threadIdx.x / 32; task < 4 * G::HK; task += kWarps) {
-    const int hl = task / 4;
-    const int h = rank * G::HK + hl;
-    head_attention<HD>(qk, G::LQK, G::CK, hl * HD, vt, p.relb + static_cast<size_t>(h) * kT * kT,
-                       as + cbase, G::LA, task % 4, last_row, last_col);
-  }
-  if constexpr (K > 1) {
-    // every rank's heads are in: gather the other ranks' column blocks, then
-    // wait until every rank has read this one's
-    cg::cluster_group cluster = cg::this_cluster();
-    cluster.sync();
-    constexpr int PER = kT * G::CK / 8;  // 16-byte chunks per rank
-    for (int i = threadIdx.x; i < K * PER; i += kThreads) {
-      const int r = i / PER;
-      if (r == rank) continue;
-      const int t = i % PER / (G::CK / 8);
-      const int c = r * G::CK + i % (G::CK / 8) * 8;
-      const bf16* src = cluster.map_shared_rank(as, r);
-      *reinterpret_cast<uint4*>(as + t * G::LA + c) =
-          *reinterpret_cast<const uint4*>(src + t * G::LA + c);
-    }
-    cluster.sync();
-  } else {
-    __syncthreads();
-  }
-
-  // out[:, own columns] = x + (o . Wproj + bproj), x read again from memory
-  for (int nb0 = 0; nb0 < G::CK; nb0 += G::NBP) {
-    float acc[Split<G::NBP>::NTW][4] = {};
-    mma_product<G::NBP, C, G::LA>(
-        acc, as,
-        [&](int n, int k) { return p.wproj + static_cast<size_t>(cbase + nb0 + n) * C + k; },
-        stage);
-    mma_epilogue<G::NBP>(acc, [&](int t, int n, float v0, float v1) {
-      const int c = cbase + nb0 + n;
-      const size_t o = gofs(t, c);
-      const float2 xv = __ldg(reinterpret_cast<const float2*>(p.x + o));
-      float2 v;
-      v.x = xv.x + (v0 + __ldg(p.bproj + c));
-      v.y = xv.y + (v1 + __ldg(p.bproj + c + 1));
-      *reinterpret_cast<float2*>(p.out + o) = v;
-    });
-  }
-}
-
-template <int C, int HD, int K>
-cudaError_t launch_attn(const SwinArgs& a, int B, cudaStream_t stream) {
-  using G = Attn<C, HD, K>;
-  cudaError_t e = cudaFuncSetAttribute(attn_block_bf16_kernel<C, HD, K>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, G::BYTES);
-  if (e != cudaSuccess) return e;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((a.H / kWin) * (a.W / kWin) * K, B, 1);
-  cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = G::BYTES;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = K;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, attn_block_bf16_kernel<C, HD, K>, a);
-  if (e != cudaSuccess) return e;
-  return cudaGetLastError();
-}
-
-// Instances (C, head_dim, K) of the attention-only flavour: every cluster of
-// ops/flash_window_attn.py::ATTN_CLUSTERS for each (C, head_dim) of
-// KERNEL_SHAPES_ATTN, as the fp32 instance's ATTN_INSTANCES.
-#define ATTN_BF16_INSTANCES(X) \
-  X(128, 16, 1) X(128, 16, 2) X(128, 16, 4) X(192, 24, 1) X(192, 24, 2) X(192, 24, 4)
-
-#endif  // SWIN_WIDE
-
 // Instances (C, head_dim, K, G): for each (C, head_dim) the smallest
 // cluster (ops/flash_window_attn.py::min_cluster) with one and with two
 // windows a CTA, and the largest cluster (max_cluster) with one. The source
@@ -1090,30 +600,5 @@ int flash_window_block_bf16(const float* x, float* out, const bf16* wqkv, const 
 #undef SWIN_CASE
   return cudaErrorInvalidValue;
 }
-
-#ifndef SWIN_WIDE
-// The attention-only flavour (no LN1, no MLP): out = x + bf16(attn(x)) .
-// bf16(Wproj) + bproj. x, out: [B][H][W][C] float32 (H, W multiples of 8;
-// C 128 with head_dim 16 or C 192 with head_dim 24), 16-byte aligned.
-// wqkv: [3C][C] bf16 with the q rows pre-scaled; wproj: [C][C] bf16 (both
-// [out][in]); bqkv: [3C] with the q entries pre-scaled; bproj: [C]; relb:
-// [C/head_dim][64][64] (float32). cluster: CTAs per window, one of
-// ATTN_BF16_INSTANCES' K for (C, head_dim); the result does not depend on it.
-int window_attention_block_bf16(const float* x, float* out, const bf16* wqkv,
-                                const float* bqkv, const bf16* wproj, const float* bproj,
-                                const float* relb, int B, int H, int W, int C, int head_dim,
-                                int cluster, int shifted, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (H % kWin != 0 || W % kWin != 0 || B <= 0) return cudaErrorInvalidValue;
-  const SwinArgs a{x,       out,     wqkv,    bqkv,    wproj,   bproj,   nullptr, nullptr, relb,
-                   nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, H,       W,       shifted};
-#define ATTN_CASE(c, hd, k) \
-  if (C == c && head_dim == hd && cluster == k) return launch_attn<c, hd, k>(a, B, s);
-  ATTN_BF16_INSTANCES(ATTN_CASE)
-#undef ATTN_CASE
-  return cudaErrorInvalidValue;
-}
-
-#endif  // SWIN_WIDE
 
 }  // extern "C"

@@ -289,25 +289,6 @@ __global__ void __launch_bounds__(kConvThreads,
   }
 }
 
-// cuTensorMapEncodeTiled, reached through the runtime (nothing more to link).
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) !=
-            cudaSuccess ||
-        q != cudaDriverEntryPointSuccess)
-      return static_cast<EncodeTiled>(nullptr);
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
 // The tensor map of a bf16 [B][H][W][C] map read in boxes of 8 channels x
 // bw x bh pixels; out-of-range elements read as zero.
 cudaError_t act_map(CUtensorMap* m, const bf16* a, int B, int H, int W, int C, int bh, int bw) {

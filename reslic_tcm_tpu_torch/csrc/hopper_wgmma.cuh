@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the redesigned bf16 kernels
-// (fused_conv_bf16.cu, B2/B3, and flash_window_attn_bf16.cu, B1): warpgroup
-// matrix products (wgmma) on operands in shared memory, the shared-memory
-// descriptors they read, mbarriers, and copies by the copy engine (TMA):
-// bulk copies of contiguous bytes and tensor copies of a box of a tensor map.
+// (fused_conv_bf16.cu, B2/B3; flash_window_attn_bf16.cu and
+// window_attn_bf16.cu, B1): warpgroup matrix products (wgmma) on operands in
+// shared memory, the shared-memory descriptors they read, mbarriers, and
+// copies by the copy engine (TMA): bulk copies of contiguous bytes and
+// tensor copies of a box of a tensor map (encode_tiled builds the map).
 //
 // Operand layout (both operands K-major, no swizzle): an operand is made of
 // core matrices of 8 rows x 8 bf16 (16 bytes a row, the 8 rows 16 bytes
@@ -24,6 +25,7 @@
 
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -123,6 +125,25 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const void* tmap, int c0,
       "l"(reinterpret_cast<uint64_t>(tmap)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
       "r"(smem_u32(bar))
       : "memory");
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime (nothing more to link).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) !=
+            cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      return static_cast<EncodeTiled>(nullptr);
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
 }
 
 // Named barrier over `threads` threads (a multiple of 32), id 1..15.
@@ -276,7 +297,6 @@ __device__ __forceinline__ void wgmma_bf16<192>(float (&d)[96], uint64_t da, uin
       : WG_F4(0), WG_F4(4), WG_F4(8), WG_F4(12), WG_F4(16), WG_F4(20), WG_F4(24), WG_F4(28), WG_F4(32), WG_F4(36), WG_F4(40), WG_F4(44), WG_F4(48), WG_F4(52), WG_F4(56), WG_F4(60), WG_F4(64), WG_F4(68), WG_F4(72), WG_F4(76), WG_F4(80), WG_F4(84), WG_F4(88), WG_F4(92)
       : "l"(da), "l"(db), "r"(1));
 }
-
 
 #undef WG_F4
 

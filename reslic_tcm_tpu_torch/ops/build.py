@@ -40,13 +40,14 @@ NVCC_FLAGS = (
 GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 # name -> (source relative to the package, compiler[, extra flags]). B1's
-# bf16 source builds as two libraries (C <= 96 with the attention-only
-# flavour, and C >= 128), compiled at once: one took twice as long as any
-# other source.
+# bf16 LN+MLP source builds as two libraries (C <= 96, and C >= 128),
+# compiled at once: one took twice as long as any other source; its
+# attention-only flavour is a source of its own.
 SOURCES = {
     "flash_window_attn": ("csrc/flash_window_attn.cu", "nvcc"),
     "flash_window_attn_bf16": ("csrc/flash_window_attn_bf16.cu", "nvcc"),
     "flash_window_attn_bf16_wide": ("csrc/flash_window_attn_bf16.cu", "nvcc", ("-DSWIN_WIDE",)),
+    "window_attn_bf16": ("csrc/window_attn_bf16.cu", "nvcc"),
     "fused_conv": ("csrc/fused_conv.cu", "nvcc"),
     "fused_conv_bf16": ("csrc/fused_conv_bf16.cu", "nvcc"),
     "qkv_attention": ("csrc/qkv_attention.cu", "nvcc"),

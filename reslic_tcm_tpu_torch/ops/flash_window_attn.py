@@ -29,14 +29,18 @@ Pallas body casts them (LN1's output, or x without LN, and wqkv; q and k;
 the softmax's probabilities and v; the heads' output and wproj; LN2's
 output and w1; the GELU's output and w2), the q scale folded into wqkv in
 fp32 first; LN, the bias and the -1e9 mask, softmax, GELU, the biases and
-the residuals stay fp32. On the card it launches
-``csrc/flash_window_attn_bf16.cu`` (tensor cores: ``swin_block_bf16_kernel``
-for LN+MLP, ``attn_block_bf16_kernel`` for attention-only, at the fp32
-flavours' clusters); its launches are counted in
-``flash_window_block.launches_bf16``. The LN+MLP kernel also takes G
-windows a CTA (one warpgroup each, sharing every staged weight tile):
-``window_group`` chooses G from the grid, and ``flash_window_block_at``
-forces any (cluster, G) it has an instance for (the same bits).
+the residuals stay fp32. On the card it launches tensor-core kernels:
+``csrc/flash_window_attn_bf16.cu`` (``swin_block_bf16_kernel``) for LN+MLP,
+at the fp32 flavour's clusters, and ``csrc/window_attn_bf16.cu``
+(``window_attn_bf16_kernel``) for attention-only, whose persistent clusters
+keep their share of W in shared memory for the launch
+(``attn_cluster_size_bf16`` chooses K from ``ATTN_CLUSTERS_BF16``,
+``attn_grid`` the clusters; ``grid`` forces them); their launches are
+counted in ``flash_window_block.launches_bf16``. The LN+MLP kernel also
+takes G windows a CTA (one warpgroup each, sharing every staged weight
+tile): ``window_group`` chooses G from the grid, and
+``flash_window_block_at`` forces any (cluster, G) it has an instance for.
+Every option gives the same bits.
 """
 
 from __future__ import annotations
@@ -80,6 +84,45 @@ def attn_cluster_size(c: int, head_dim: int, windows: int) -> int:
     if windows < 32:
         return 4
     return 2 if windows < 192 or c == 128 else 1
+
+
+# attention-only, bf16 (csrc/window_attn_bf16.cu): the clusters with an
+# instance at each C of KERNEL_SHAPES_ATTN; a rank keeps its share of W in
+# shared memory, which at C=192 takes two CTAs at least
+ATTN_CLUSTERS_BF16 = {128: (2, 4), 192: (2, 4)}
+
+
+# the bf16 attention-only kernel's rule: 4 CTAs a window below
+# ATTN_QUAD_BELOW_BF16 windows x batch, else 2
+ATTN_QUAD_BELOW_BF16 = 32
+
+
+def attn_cluster_size_bf16(c: int, head_dim: int, windows: int) -> int:
+    """CTAs per window of the bf16 attention-only kernel for ``windows``
+    windows x batch (one of ``ATTN_CLUSTERS_BF16[c]``), the same at both
+    widths. On an H100 (kernel device time over 4-768 windows, PERF.md §6)
+    4 pays below 32 windows (16: 0.0123 ms at C=192 against 0.0143 at 2;
+    0.0100 against 0.0115 at C=128) and 2 from there on (32: 0.0144 against
+    0.0197 at 4; 384: 0.0558 against 0.1082 at 4, and 0.0426 at C=128)."""
+    return 4 if windows < ATTN_QUAD_BELOW_BF16 else 2
+
+
+_max_clusters: dict = {}  # (device index, C, head_dim, cluster) -> resident clusters
+
+
+def attn_grid(c: int, head_dim: int, cluster: int, windows: int, device) -> int:
+    """The persistent clusters the bf16 attention-only kernel launches by
+    default on ``device``: as many as the card holds at once (the
+    library's occupancy query, asked once per device and instance), at most
+    one a window."""
+    key = (torch.device(device).index, c, head_dim, cluster)
+    if key not in _max_clusters:
+        with torch.cuda.device(torch.device(device)):
+            n = _attn_lib().window_attention_bf16_max_clusters(c, head_dim, cluster)
+        if n <= 0:
+            raise RuntimeError(f"window_attn_bf16 occupancy query failed: cudaError {-n}")
+        _max_clusters[key] = n
+    return min(windows, _max_clusters[key])
 
 
 def max_cluster(c: int, head_dim: int) -> int:
@@ -220,18 +263,13 @@ def plain_window_block(x, wqkv, bqkv, wproj, bproj, ln_scale, ln_bias, rel_bias,
 
 def _lib(compute_dtype=torch.float32, c: int = 0) -> ctypes.CDLL:
     """The instances' library; the bf16 LN+MLP instances at C >= 128 live in
-    a library of their own (ops/build.py), the attention-only ones beside
-    those at C <= 96."""
+    a library of their own (ops/build.py)."""
     if compute_dtype == torch.bfloat16:
-        wide = c >= 128
-        lib = build.load("flash_window_attn_bf16_wide" if wide else "flash_window_attn_bf16")
+        lib = build.load("flash_window_attn_bf16_wide" if c >= 128 else "flash_window_attn_bf16")
         if not hasattr(lib, "_argtypes_set"):
             vp, i = ctypes.c_void_p, ctypes.c_int
             lib.flash_window_block_bf16.argtypes = [vp] * 15 + [i] * 8 + [vp]
             lib.flash_window_block_bf16.restype = ctypes.c_int
-            if not wide:
-                lib.window_attention_block_bf16.argtypes = [vp] * 7 + [i] * 7 + [vp]
-                lib.window_attention_block_bf16.restype = ctypes.c_int
             lib._argtypes_set = True
         return lib
     lib = build.load("flash_window_attn")
@@ -245,17 +283,28 @@ def _lib(compute_dtype=torch.float32, c: int = 0) -> ctypes.CDLL:
     return lib
 
 
+def _attn_lib() -> ctypes.CDLL:
+    """The bf16 attention-only kernel's library (csrc/window_attn_bf16.cu)."""
+    lib = build.load("window_attn_bf16")
+    if not hasattr(lib, "_argtypes_set"):
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        lib.window_attention_block_bf16.argtypes = [vp] * 7 + [i] * 8 + [vp]
+        lib.window_attention_block_bf16.restype = ctypes.c_int
+        lib.window_attention_bf16_max_clusters.argtypes = [i] * 3
+        lib.window_attention_bf16_max_clusters.restype = ctypes.c_int
+        lib._argtypes_set = True
+    return lib
+
+
 def prepare_window_block(wqkv, bqkv, wproj, bproj, ln_scale, ln_bias, rel_bias, mlp=None,
                          *, head_dim: int, compute_dtype=torch.float32) -> tuple:
     """The kernel's weights from the wrapper's (torch layout, checked here),
     contiguous, head_dim^-0.5 folded into the q columns of wqkv and bqkv;
     LN1 and the MLP's only when ``mlp`` is given. The float32 instance takes
-    [in, out] matrices; the bf16 one (``compute_dtype=torch.bfloat16``)
-    the torch layout [out, in] in bf16, each output's weights contiguous,
-    the vectors and the bias table in fp32; with the MLP (the LN+MLP
-    kernel) the matrices as ``kgroups`` [in/8, out, 8] instead, wqkv's rows
-    head by head (each head's q, k and v rows together). The order is the C
-    interface's after x and out."""
+    [in, out] matrices; the bf16 ones (``compute_dtype=torch.bfloat16``)
+    take them in bf16 as ``kgroups`` [in/8, out, 8], wqkv's rows head by
+    head (each head's q, k and v rows together), the vectors and the bias
+    table in fp32. The order is the C interface's after x and out."""
     rounder(compute_dtype)  # raises for a type without instances
     c = wproj.shape[0]
     dev = wqkv.device
@@ -266,11 +315,9 @@ def prepare_window_block(wqkv, bqkv, wproj, bproj, ln_scale, ln_bias, rel_bias, 
     bf16 = compute_dtype == torch.bfloat16
     with torch.no_grad():
         wq, bq = _q_scaled(wqkv, bqkv, head_dim)
-        # a matrix of the float32 instance is [in, out]; of the bf16 one [out, in] in bf16
-        mat = ((lambda m: m.detach().to(torch.bfloat16).contiguous()) if bf16
-               else (lambda m: m.detach().t().contiguous()))
-        if bf16 and mlp is not None:
-            # the LN+MLP kernel's layout: k-groups, wqkv's rows head by head
+        # a matrix of the float32 instance is [in, out]
+        mat = lambda m: m.detach().t().contiguous()  # noqa: E731
+        if bf16:  # k-groups in bf16, wqkv's rows head by head
             nh = c // head_dim
             heads = torch.arange(3 * c, device=dev).reshape(3, nh, head_dim)
             mat = lambda m: kgroups(m.detach())  # noqa: E731
@@ -291,7 +338,7 @@ def prepare_window_block(wqkv, bqkv, wproj, bproj, ln_scale, ln_bias, rel_bias, 
 def flash_window_block(x, wqkv, bqkv, wproj, bproj, ln_scale, ln_bias, rel_bias, mlp=None,
                        *, head_dim: int, window: int, shifted: bool, with_ln: bool = True,
                        cluster: int | None = None, prepared: tuple | None = None,
-                       compute_dtype=torch.float32):
+                       compute_dtype=torch.float32, grid: int | None = None):
     """x: [B, H, W, C] NHWC float32 (pre-rolled for the shifted flavour);
     wqkv: [3C, C]; bqkv: [3C]; wproj: [C, C]; bproj, ln_*: [C];
     rel_bias: [C/head_dim, w*w, w*w]; mlp = (ln2_scale, ln2_bias,
@@ -300,15 +347,18 @@ def flash_window_block(x, wqkv, bqkv, wproj, bproj, ln_scale, ln_bias, rel_bias,
     (``with_ln=False, mlp=None``; ln_* may be None). ``cluster`` forces the
     kernel's CTAs per window (LN+MLP: ``min_cluster`` or ``max_cluster``, default
     ``cluster_size``; attention-only: one of ``ATTN_CLUSTERS``, default
-    ``attn_cluster_size``); the result is the same for each. ``prepared``:
-    ``prepare_window_block`` of these weights, built by the caller (the
-    kernel then reads it instead of preparing the weights again), at this
-    ``compute_dtype`` (torch.float32 or torch.bfloat16, either flavour).
-    Returns the block's output (float32)."""
+    ``attn_cluster_size``, or in bf16 one of ``ATTN_CLUSTERS_BF16[C]``,
+    default ``attn_cluster_size_bf16``), and ``grid`` (the bf16
+    attention-only kernel only) its persistent clusters, 1 to the windows x
+    batch (default ``attn_grid``); the result is the same for each.
+    ``prepared``: ``prepare_window_block`` of these weights, built by the
+    caller (the kernel then reads it instead of preparing the weights
+    again), at this ``compute_dtype`` (torch.float32 or torch.bfloat16,
+    either flavour). Returns the block's output (float32)."""
     return _window_block(x, wqkv, bqkv, wproj, bproj, ln_scale, ln_bias, rel_bias, mlp,
                          head_dim=head_dim, window=window, shifted=shifted, with_ln=with_ln,
                          cluster=cluster, group=None, prepared=prepared,
-                         compute_dtype=compute_dtype)
+                         compute_dtype=compute_dtype, grid=grid)
 
 
 def flash_window_block_at(x, wqkv, bqkv, wproj, bproj, ln_scale, ln_bias, rel_bias, mlp,
@@ -323,11 +373,12 @@ def flash_window_block_at(x, wqkv, bqkv, wproj, bproj, ln_scale, ln_bias, rel_bi
     return _window_block(x, wqkv, bqkv, wproj, bproj, ln_scale, ln_bias, rel_bias, mlp,
                          head_dim=head_dim, window=window, shifted=shifted, with_ln=True,
                          cluster=cluster, group=group, prepared=prepared,
-                         compute_dtype=torch.bfloat16)
+                         compute_dtype=torch.bfloat16, grid=None)
 
 
 def _window_block(x, wqkv, bqkv, wproj, bproj, ln_scale, ln_bias, rel_bias, mlp, *,
-                  head_dim, window, shifted, with_ln, cluster, group, prepared, compute_dtype):
+                  head_dim, window, shifted, with_ln, cluster, group, prepared, compute_dtype,
+                  grid):
     if x.device.type == "cpu":
         return plain_window_block(x, wqkv, bqkv, wproj, bproj, ln_scale, ln_bias, rel_bias,
                                   mlp, head_dim=head_dim, window=window, shifted=shifted,
@@ -348,9 +399,12 @@ def _window_block(x, wqkv, bqkv, wproj, bproj, ln_scale, ln_bias, rel_bias, mlp,
         raise ValueError("flash_window_block kernel reads x in 16-byte vectors: x must be "
                          "16-byte aligned")
     windows = bsz * (h // window) * (wd // window)
-    clusters = (min_cluster(c), max_cluster(c, head_dim)) if full else ATTN_CLUSTERS
+    persistent = bf16 and not full  # the bf16 attention-only kernel
+    clusters = ((min_cluster(c), max_cluster(c, head_dim)) if full
+                else ATTN_CLUSTERS_BF16[c] if persistent else ATTN_CLUSTERS)
     if cluster is None:
-        cluster = (cluster_size if full else attn_cluster_size)(c, head_dim, windows)
+        cluster = (cluster_size if full else attn_cluster_size_bf16 if persistent
+                   else attn_cluster_size)(c, head_dim, windows)
     elif cluster not in clusters:
         raise ValueError(f"flash_window_block kernel at (C, head_dim) = ({c}, {head_dim}) "
                          f"takes cluster {' or '.join(map(str, sorted(set(clusters))))}, "
@@ -360,6 +414,9 @@ def _window_block(x, wqkv, bqkv, wproj, bproj, ln_scale, ln_bias, rel_bias, mlp,
     elif not (full and bf16) or group not in window_groups(c, cluster):
         raise ValueError(f"flash_window_block's bf16 LN+MLP kernel at C={c}, cluster {cluster} "
                          f"takes {window_groups(c, cluster)} windows a CTA, got {group}")
+    if grid is not None and not (persistent and 1 <= grid <= windows):
+        raise ValueError(f"flash_window_block: grid takes the bf16 attention-only kernel's "
+                         f"persistent clusters, 1 to {windows} here; got {grid}")
     build.check_inference(x, wqkv, bqkv, wproj, bproj, rel_bias, *(mlp or ()),
                           *((ln_scale, ln_bias) if with_ln else ()))
     build.check_tensor("x", x, (bsz, h, wd, c), x.device, contiguous=True)
@@ -374,14 +431,18 @@ def _window_block(x, wqkv, bqkv, wproj, bproj, ln_scale, ln_bias, rel_bias, mlp,
                          f"C={c}, head_dim {head_dim}, {t} tokens and {compute_dtype}, on "
                          f"{x.device}")
     out = torch.empty_like(x)
-    lib = _lib(compute_dtype, c if full else 0)
     ptrs = (build.ptr(x), build.ptr(out), *[build.ptr(a) for a in prepared])
-    if bf16 and full:
-        rc = lib.flash_window_block_bf16(*ptrs, bsz, h, wd, c, head_dim, cluster, group,
-                                         int(shifted), build.stream(x))
+    if persistent:
+        if grid is None:
+            grid = attn_grid(c, head_dim, cluster, windows, x.device)
+        rc = _attn_lib().window_attention_block_bf16(*ptrs, bsz, h, wd, c, head_dim, cluster,
+                                                     grid, int(shifted), build.stream(x))
+    elif bf16:
+        rc = _lib(compute_dtype, c).flash_window_block_bf16(
+            *ptrs, bsz, h, wd, c, head_dim, cluster, group, int(shifted), build.stream(x))
     else:
-        fn = (lib.window_attention_block_bf16 if bf16
-              else lib.flash_window_block_f32 if full else lib.window_attention_block_f32)
+        lib = _lib()
+        fn = lib.flash_window_block_f32 if full else lib.window_attention_block_f32
         rc = fn(*ptrs, bsz, h, wd, c, head_dim, cluster, int(shifted), build.stream(x))
     if rc != 0:
         raise RuntimeError(f"flash_window_block kernel launch failed: cudaError {rc}")

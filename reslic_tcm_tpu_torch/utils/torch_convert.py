@@ -35,6 +35,14 @@ blocks' ``ga_SFT*/mlp_shared`` convolutions) map through the same rules
 ``load_snapshot`` reads the committed fp16 snapshots
 (``checkpoints/*.npz``: one array per '/'-joined flax parameter path) and
 upcasts them to float32.
+
+``warm_start_codec`` loads a reference PyTorch state-dict file (``.pth``,
+``.pth.tar``, ``.pt``) non-strictly, with the JAX package's converter's
+rules (its ``convert_state_dict`` and ``warm_start_codec``): CDF buffers
+are skipped, the STanH bottleneck's chain is read from CompressAI's
+``entropy_bottleneck.*`` names, every tensor's shape is checked, and a
+parameter with no twin in the file keeps its init. The port's modules
+carry the reference layouts, so nothing is transposed.
 """
 
 from __future__ import annotations
@@ -190,3 +198,59 @@ def load_snapshot_into(module: torch.nn.Module, path: str,
         raise ValueError(f"{path} lacks {len(missing)} parameters, e.g. {missing[:5]}")
     module.load_state_dict({k: v for k, v in sd.items() if k in own}, strict=True)
     return unused
+
+
+# derived state (rebuilt by update()) and index buffers, never loaded
+_SKIP_SUFFIXES = ("_quantized_cdf", "_offset", "_cdf_length", "scale_table",
+                  "relative_position_index", ".target")
+
+
+def load_torch_state_dict(path: str) -> dict:
+    """A PyTorch checkpoint's tensors ({key: CPU tensor}): its ``state_dict``
+    entry or the bare dict, every 'module.' removed from the keys."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    sd = ckpt.get("state_dict", ckpt) if isinstance(ckpt, dict) else ckpt
+    return {k.replace("module.", ""): v for k, v in sd.items() if isinstance(v, torch.Tensor)}
+
+
+def file_key(key: str) -> str:
+    """The reference file's name of a port state-dict key: the STanH
+    bottleneck (``entropy_bottleneck_stanh``) shares CompressAI's
+    ``entropy_bottleneck`` names, so a zoo checkpoint warms its chain."""
+    return key.replace("entropy_bottleneck_stanh.", "entropy_bottleneck.")
+
+
+def warm_start_codec(codec, path: str, log: bool = True) -> dict:
+    """Warm-start a codec (or a module) from a PyTorch state-dict file,
+    non-strictly, as the JAX package's ``warm_start_codec``: each parameter
+    whose twin (``file_key``) is in the file takes it (a shape mismatch
+    raises ValueError), the others keep their init. Returns the report
+    {"missing": [(port key, file key wanted)], "unused": [file keys read by
+    no parameter, CDF buffers aside]}; with ``log`` prints JAX's line of
+    counts when either list is non-empty."""
+    module = getattr(codec, "module", codec)
+    sd = load_torch_state_dict(path)
+    own = module.state_dict()
+    used, missing, loaded = set(), [], {}
+    for key, param in own.items():
+        if key.endswith(_SKIP_SUFFIXES):
+            continue
+        fkey = file_key(key)
+        if fkey not in sd:
+            missing.append((key, fkey))
+            continue
+        w = sd[fkey]
+        if tuple(w.shape) != tuple(param.shape):
+            raise ValueError(f"shape mismatch {key}: torch {tuple(w.shape)} vs "
+                             f"{tuple(param.shape)} (key {fkey})")
+        used.add(fkey)
+        loaded[key] = w
+    with torch.no_grad():
+        for key, w in loaded.items():
+            own[key].copy_(w)
+    unused = [k for k in sd if k not in used and not k.endswith(_SKIP_SUFFIXES)]
+    report = {"missing": missing, "unused": unused}
+    if log and (missing or unused):
+        print(f"warm start from {path}: {len(loaded)} leaves loaded, {len(missing)} kept init, "
+              f"{len(unused)} torch keys unused")
+    return report

@@ -172,7 +172,8 @@ def test_window4_attention_bf16_matches_jax_composed_bf16():
 
 def test_attention_only_flavour_has_no_bf16_instance():
     """Once refused (ROADMAP A15b), the attention-only flavour now has its bf16
-    instance: its weights prepare in bf16 (the matrices bf16 [out, in], the
+    instance: its weights prepare in bf16 (the matrices as bf16 k-groups
+    [in/8, out, 8], wqkv's rows head by head with the q rows scaled; the
     vectors and the bias table fp32), and WinBasedAttention's kernel path runs
     it under bf16 on the CPU (the plain bf16 version, launching nothing),
     giving the wrapper's output on the module's weights."""
@@ -187,7 +188,11 @@ def test_attention_only_flavour_has_no_bf16_instance():
     prep = PF.prepare_window_block(wqkv, bqkv, wproj, bproj, None, None, torch.from_numpy(rel),
                                    None, head_dim=hd, compute_dtype=BF16)
     assert [t.dtype for t in prep] == [BF16, torch.float32, BF16, torch.float32, torch.float32]
-    assert prep[0].shape == (3 * c, c) and prep[2].shape == (c, c)
+    assert prep[0].shape == (c // 8, 3 * c, 8) and prep[2].shape == (c // 8, c, 8)
+    heads = torch.arange(3 * c).reshape(3, c // hd, hd).permute(1, 0, 2).reshape(-1)
+    wq, _ = PF._q_scaled(wqkv, bqkv, hd)
+    assert torch.equal(prep[0], wq[heads].reshape(3 * c, c // 8, 8).permute(1, 0, 2).to(BF16))
+    assert torch.equal(prep[2], wproj.reshape(c, c // 8, 8).permute(1, 0, 2).to(BF16))
     m = WinBasedAttention(c, num_heads=2, window_size=8, shift_size=4).eval()
     x = torch.from_numpy(np.random.default_rng(44).normal(size=(1, 16, 16, c)).astype(np.float32))
     before = (launch_counts(), launch_counts(BF16))

@@ -161,28 +161,54 @@ def test_b1_attention_only_kernel_at_128_channels_matches_plain_on_card(cuda, sh
     err_ok(got.cpu().numpy(), want.cpu().numpy(), TOL_CARD)
 
 
+def attn_options(c, windows, compute_dtype):
+    """{option: the wrapper's keywords} over every option the attention-only
+    wrapper can force: the fp32 kernel's clusters; the bf16 kernel's clusters,
+    each at its default persistent grid, at every window a cluster (grid =
+    windows), at a grid that leaves some clusters one window short (windows //
+    2 + 1; windows // 3 + 1), and at one cluster."""
+    if compute_dtype != torch.bfloat16:
+        return {str(k): dict(cluster=k) for k in PF.ATTN_CLUSTERS}
+    grids = (None, windows, windows // 2 + 1, windows // 3 + 1, 1)
+    return {f"{k}x{g}": dict(cluster=k, grid=g)
+            for k in PF.ATTN_CLUSTERS_BF16[c] for g in dict.fromkeys(grids)}
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("hw", [(16, 24), (16, 16), (32, 32), (192, 128)])
 @pytest.mark.parametrize("shifted", [False, True])
 @pytest.mark.parametrize("c,head_dim", sorted(PF.KERNEL_SHAPES_ATTN))
-def test_b1_attention_only_bits_do_not_depend_on_the_cluster(cuda, shifted, c, head_dim):
-    """Every attention-only cluster, forced on the same input, gives the
-    bits of the wrapper's choice, and they agree with the plain version."""
-    x, wts = attn_inputs(c + 2 * head_dim, 2, 16, 24, c)
+def test_b1_attention_only_bits_do_not_depend_on_the_cluster(cuda, shifted, c, head_dim, hw,
+                                                             compute_dtype):
+    """Every option the attention-only wrapper can force (attn_options: the
+    cluster; in bf16 also the persistent grid, some clusters a window short),
+    on the same input at batch 2 (6, 4, 16 and 384 windows an image), gives
+    the bits of the wrapper's choice, and they agree with the plain version;
+    a cluster or grid with no instance raises."""
+    x, wts = attn_inputs(c + 2 * head_dim, 2, *hw, c)
     rel = np.random.default_rng(c + 1).normal(0, 0.5, (c // head_dim, 64, 64)).astype(np.float32)
     wqkv, bqkv, wproj, bproj, _, _, relc, _ = port_attn_args(wts, rel, lambda t: t.to(cuda))
     args = (wqkv, bqkv, wproj, bproj, None, None, relc, None)
-    kw = dict(head_dim=head_dim, window=8, shifted=shifted, with_ln=False)
+    kw = dict(head_dim=head_dim, window=8, shifted=shifted, with_ln=False,
+              compute_dtype=compute_dtype)
+    windows = 2 * (hw[0] // 8) * (hw[1] // 8)
     xc = torch.from_numpy(x).to(cuda)
     with torch.no_grad():
         want = PF.plain_window_block(xc, *args, **kw)
         chosen = PF.flash_window_block(xc, *args, **kw)
-        outs = {k: PF.flash_window_block(xc, *args, **kw, cluster=k) for k in PF.ATTN_CLUSTERS}
+        outs = {n: PF.flash_window_block(xc, *args, **kw, **force)
+                for n, force in attn_options(c, windows, compute_dtype).items()}
         torch.cuda.synchronize()
         with pytest.raises(ValueError):  # a cluster with no instance
             PF.flash_window_block(xc, *args, **kw, cluster=3)
-    for k, out in outs.items():
-        assert torch.equal(out, chosen), k
-    err_ok(chosen.cpu().numpy(), want.cpu().numpy(), TOL_CARD)
+        for grid in (0, windows + 1):  # a grid out of range (fp32: no grid at all)
+            with pytest.raises(ValueError):
+                PF.flash_window_block(xc, *args, **kw, grid=grid)
+    for n, out in outs.items():
+        assert torch.equal(out, chosen), n
+    err_ok(chosen.cpu().numpy(), want.cpu().numpy(),
+           TOL_BF16 if compute_dtype == torch.bfloat16 else TOL_CARD)
 
 
 @pytest.mark.cuda
@@ -1188,17 +1214,22 @@ def test_codec_switched_from_bf16_gives_the_fp32_bits_back(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shifted", [False, True])
 @pytest.mark.parametrize("c,head_dim,hw", [(128, 16, (16, 24)), (192, 24, (24, 16)),
-                                           (192, 24, (64, 64))])
+                                           (192, 24, (64, 64)), (128, 16, (16, 16)),
+                                           (192, 24, (32, 32)), (128, 16, (192, 128)),
+                                           (192, 24, (192, 128))])
 def test_b1_attention_only_bf16_instance_matches_plain_on_card(cuda, c, head_dim, hw, shifted):
-    """WACNN's attention-only flavour in bf16 at each (C, head_dim) of
-    KERNEL_SHAPES_ATTN against its plain bf16 version; every cluster of
-    ATTN_CLUSTERS, forced on the same input, and a second call give the same
-    bits; one launch counted in launches_bf16."""
+    """WACNN's attention-only flavour in bf16 (csrc/window_attn_bf16.cu) at
+    each (C, head_dim) of KERNEL_SHAPES_ATTN, batch 2 (4, 6, 16, 64 and 384
+    windows an image), against its plain bf16 version; every option its
+    wrapper can force (attn_options: each cluster at several persistent
+    grids, some leaving clusters a window short), on the same input, and a
+    second call give the same bits; one launch counted in launches_bf16."""
     x, wts = attn_inputs(100 + head_dim, 2, *hw, c)
     rel = np.random.default_rng(101).normal(0, 0.5, (c // head_dim, 64, 64)).astype(np.float32)
     wqkv, bqkv, wproj, bproj, _, _, relc, _ = port_attn_args(wts, rel, lambda t: t.to(cuda))
     args = (wqkv, bqkv, wproj, bproj, None, None, relc, None)
     kw = dict(head_dim=head_dim, window=8, shifted=shifted, with_ln=False, compute_dtype=BF16)
+    windows = 2 * (hw[0] // 8) * (hw[1] // 8)
     xc = torch.from_numpy(x).to(cuda)
     with torch.no_grad():
         want = PF.plain_window_block(xc, *args, **kw)
@@ -1207,8 +1238,8 @@ def test_b1_attention_only_bf16_instance_matches_plain_on_card(cuda, c, head_dim
         torch.cuda.synchronize()
         assert (PF.flash_window_block.launches,
                 PF.flash_window_block.launches_bf16) == (before[0], before[1] + 1)
-        for k in PF.ATTN_CLUSTERS:
-            assert torch.equal(PF.flash_window_block(xc, *args, **kw, cluster=k), got), k
+        for n, force in attn_options(c, windows, BF16).items():
+            assert torch.equal(PF.flash_window_block(xc, *args, **kw, **force), got), n
         assert torch.equal(PF.flash_window_block(xc, *args, **kw), got)
     err_ok(got.cpu().numpy(), want.cpu().numpy(), TOL_BF16)
 

@@ -269,9 +269,9 @@ def test_b1_attention_only_library_call_matches_plain(shifted):
 
 
 def test_library_path_hashes_the_headers_a_source_includes(tmp_path, monkeypatch):
-    """An edited header gives the kernel sources that include it (B1's two,
-    the bf16 one built as two libraries, and B4's) a new object name, and
-    leaves the others' names alone."""
+    """An edited header gives the kernel sources that include it (B1's
+    three, the bf16 LN+MLP one built as two libraries, and B4's) a new
+    object name, and leaves the others' names alone."""
     from reslic_tcm_tpu_torch.ops import build
 
     import shutil
@@ -287,7 +287,7 @@ def test_library_path_hashes_the_headers_a_source_includes(tmp_path, monkeypatch
     after = {name: build.library_path(name) for name in build.SOURCES}
     changed = {name for name in build.SOURCES if before[name] != after[name]}
     assert changed == {"flash_window_attn", "flash_window_attn_bf16",
-                       "flash_window_attn_bf16_wide", "qkv_attention"}
+                       "flash_window_attn_bf16_wide", "window_attn_bf16", "qkv_attention"}
 
 
 def _cached_module(kind):

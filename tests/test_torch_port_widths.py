@@ -222,3 +222,34 @@ def test_attention_split_choice_has_an_instance_at_every_shape(model, n):
             b, h, w, c = shape
             assert (c, option[0]) in PF.KERNEL_SHAPES_ATTN
             assert PF.attn_cluster_size(c, option[0], b * (h // 8) * (w // 8)) in PF.ATTN_CLUSTERS
+
+
+@pytest.mark.parametrize("model,n", [("wacnn", 128), ("wacnn", 192)])
+def test_bf16_attention_choice_has_an_instance_at_every_shape(model, n):
+    """The bf16 attention-only kernel (csrc/window_attn_bf16.cu): its cluster
+    comes from the shape alone and names an instance the source builds
+    (ATTN_BF16_INSTANCES, parsed here), at every width this model hands the
+    wrapper and at window counts from 1 to 6144; ATTN_CLUSTERS_BF16 lists
+    exactly the source's instances."""
+    import inspect
+    import os
+    import re
+
+    from reslic_tcm_tpu_torch.ops import build
+
+    assert list(inspect.signature(PF.attn_cluster_size_bf16).parameters) == [
+        "c", "head_dim", "windows"]
+    with open(os.path.join(build._PKG, build.SOURCES["window_attn_bf16"][0])) as f:
+        src = f.read()
+    macro = re.search(r"#define ATTN_BF16_INSTANCES\(X\) \\\n(.*)\n", src).group(1)
+    instances = {tuple(map(int, m)) for m in re.findall(r"X\((\d+), (\d+), (\d+)\)", macro)}
+    assert instances == {(c, hd, k) for (c, hd) in PF.KERNEL_SHAPES_ATTN
+                         for k in PF.ATTN_CLUSTERS_BF16[c]}
+    shapes = [(c, hd) for kernel, flavour, c, hd in
+              routed_shapes(make_wacnn(N=n, M=320, device="cpu").module)
+              if kernel == "flash_window_block"]
+    assert len(shapes) == 1
+    for c, hd in shapes:
+        for windows in (1, 2, 3, 7, 16, 24, 31, 32, 34, 48, 64, 96, 97, 192, 384, 1536, 6144):
+            k = PF.attn_cluster_size_bf16(c, hd, windows)
+            assert (c, hd, k) in instances and (c // hd) % k == 0

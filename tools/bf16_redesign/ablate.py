@@ -3,9 +3,16 @@ main path's 768x512 shapes, cuDNN's bf16 conv as a yardstick, and a probe of
 csrc/hopper_wgmma.cuh's conventions (descriptors, the fragment layout, bulk
 copies), on the card:
 
-    python3 tools/bf16_redesign/ablate.py [SRC_DIR]
+    python3 tools/bf16_redesign/ablate.py [SRC_DIR] [--new] [--only=attn]
 
 SRC_DIR (default: the package's csrc/) holds the kernel sources to ablate;
+--only=attn ablates B1's attention-only bf16 kernel instead, per launch at
+WACNN N=192's and N=128's 192x128 maps, at every cluster: the first
+version, attn_block_bf16_kernel (W's staging, the qkv product, the
+attention core, proj, the x load and cast, the residual re-read), or with
+--new csrc/window_attn_bf16.cu (qkv, the attention core, proj, the fetch
+of the next x, the cluster's pushes, the residual's loads; exp2f in
+place of expf);
 the ablations (products off, W staging off, the MLP or attention off, A's
 loads off, the GDN launch off) are made by patching copies of them under
 runs/bf16_ablate/ (the sources themselves have no such switch). The patches
@@ -137,6 +144,157 @@ def patched_copy_new(dst):
                "#define ATTN_BF16_INSTANCES(X) X(192, 24, 1)\n", s, count=1)
     assert s.count("ABL_") == 14, ("b1 patch", s.count("ABL_"))
     open(p, "w").write(s)
+
+
+ATTN_SWITCHES = ("WSTAGE", "QKV", "ATT", "PROJ", "XLOAD", "RESID")
+ATTN_VARIANTS = {"full": [], **{f"no_{n.lower()}": [f"-DABL_NO_{n}"] for n in ATTN_SWITCHES}}
+
+
+def patched_copy_attn(dst):
+    """Switches in a copy of the first version of B1's attention-only bf16
+    kernel (attn_block_bf16_kernel): W's cp.async staging, the qkv product
+    (its staging and products), the attention core, proj (its staging and
+    products; the epilogue still writes x + bproj), the load and cast of x,
+    the residual's re-read of x. The LN+MLP instances are left out of the
+    build."""
+    os.makedirs(dst, exist_ok=True)
+    for f in ("bf16_mma.cuh", "hopper_wgmma.cuh", "window_attn_common.cuh",
+              "flash_window_attn_bf16.cu"):
+        shutil.copy(os.path.join(SRC, f), dst)
+    p = os.path.join(dst, "flash_window_attn_bf16.cu")
+    s = open(p).read()
+    flags = "".join(f"#ifdef ABL_NO_{n}\n#define ABL_{n} 0\n#else\n#define ABL_{n} 1\n#endif\n"
+                    for n in ATTN_SWITCHES)
+    s = s.replace('#include "window_attn_common.cuh"\n',
+                  '#include "window_attn_common.cuh"\n' + flags, 1)
+    for old, new in (
+            ("        cp_async16_bf16(buf + n * kLW + kc,",
+             "        if (ABL_WSTAGE) cp_async16_bf16(buf + n * kLW + kc,"),
+            ("i < kT * C / 4; i += kThreads) {", "i < ABL_XLOAD * kT * C / 4; i += kThreads) {"),
+            ("    mma_product<G::NBQ, C, G::LA>(", "    if (ABL_QKV) mma_product<G::NBQ, C, G::LA>("),
+            ("task < 4 * G::HK; task += kWarps)", "task < ABL_ATT * 4 * G::HK; task += kWarps)"),
+            ("    mma_product<G::NBP, C, G::LA>(", "    if (ABL_PROJ) mma_product<G::NBP, C, G::LA>(")):
+        assert s.count(old) == 1, old
+        s = s.replace(old, new)
+    old = "const float2 xv = __ldg(reinterpret_cast<const float2*>(p.x + o));"
+    i = s.rfind(old)  # the attention-only kernel's epilogue (the last one in the file)
+    s = (s[:i] + "const float2 xv = ABL_RESID ? __ldg(reinterpret_cast<const float2*>(p.x + o))"
+         " : make_float2(0.f, 0.f);" + s[i + len(old):])
+    s, n = re.subn(r"#define SWIN_BF16_INSTANCES\(X\)[^\n]*\n(?:[^\n]*\\\n)*[^\n]*\n",
+                   "#define SWIN_BF16_INSTANCES(X)\n", s)
+    assert n == 2 and s.count("ABL_") == 6 * 3 + 6, ("attn patch", n, s.count("ABL_"))
+    open(p, "w").write(s)
+
+
+ATTN_SWITCHES_NEW = ("QKV", "ATT", "PROJ", "XCOPY", "EXCH", "RESID")
+ATTN_VARIANTS_NEW = {"full": [], **{f"no_{n.lower()}": [f"-DABL_NO_{n}"]
+                                    for n in ATTN_SWITCHES_NEW},
+                     "exp2": ["-DABL_EXP2"]}
+
+
+def patched_copy_attn_new(dst):
+    """The switches of the redesigned attention-only kernel
+    (csrc/window_attn_bf16.cu): the qkv and proj products (wgmma), the
+    attention core, the copy engine's fetch of the next window's x, the
+    cluster's exchanges of bf16(x) and o (the copy engine's pushes into the
+    peers; the arrivals that free a region stay), the loads of proj's
+    residual."""
+    os.makedirs(dst, exist_ok=True)
+    for f in ("bf16_mma.cuh", "hopper_wgmma.cuh", "window_attn_common.cuh", "bf16_attention.cuh",
+              "window_attn_bf16.cu"):
+        shutil.copy(os.path.join(SRC, f), dst)
+    # exp2: the softmax's exp as exp2f of the scaled argument (other bits; its
+    # cost measured, never built into the kernel)
+    p = os.path.join(dst, "bf16_attention.cuh")
+    s = open(p).read()
+    old = "const float val = expf(s[j][2 * hf + e] - mx[hf]);"
+    assert s.count(old) == 1, "exp patch"
+    s = s.replace(old, "#ifdef ABL_EXP2\n        const float val = exp2f((s[j][2 * hf + e] - mx[hf]) * "
+                  "1.4426950408889634f);\n#else\n        " + old + "\n#endif")
+    open(p, "w").write(s)
+    p = os.path.join(dst, "window_attn_bf16.cu")
+    s = open(p).read()
+    flags = "".join(f"#ifdef ABL_NO_{n}\n#define ABL_{n} 0\n#else\n#define ABL_{n} 1\n#endif\n"
+                    for n in ATTN_SWITCHES_NEW)
+    s = s.replace('#include "window_attn_common.cuh"\n',
+                  '#include "window_attn_common.cuh"\n' + flags, 1)
+    for old, new, n in (
+            ("        wgmma_bf16<S::NQ>(acc, da, db);", "        if (ABL_QKV) wgmma_bf16<S::NQ>(acc, da, db);", 1),
+            ("        wgmma_bf16<S::NP>(acc, da, db);", "        if (ABL_PROJ) wgmma_bf16<S::NP>(acc, da, db);", 1),
+            ("i < S::TASKS; i += S::NT) {", "i < ABL_ATT * S::TASKS; i += S::NT) {", 1),
+            ("      mbar_expect_tx(&xbar, S::XF_BYTES);",
+             "#ifdef ABL_NO_XCOPY\n      mbar_arrive(&xbar);\n      return;\n#endif\n"
+             "      mbar_expect_tx(&xbar, S::XF_BYTES);", 1),
+            ("      bulk_copy_peer(", "      if (ABL_EXCH) bulk_copy_peer(", 1),
+            ("(K - 1) * S::SLICE);", "ABL_EXCH * (K - 1) * S::SLICE);", 2),
+            ("        res[u][hf] = __ldg(",
+             "        res[u][hf] = !ABL_RESID ? make_float2(0.f, 0.f) : __ldg(", 1)):
+        assert s.count(old) == n, old
+        s = s.replace(old, new)
+    open(p, "w").write(s)
+
+
+def main_attn():
+    """--only=attn: the ablation builds of the attention-only kernel, each
+    timed per launch (CUDA events) at every cluster on the same inputs."""
+    log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                       capture_output=True, text=True).stdout.strip())
+    src = os.path.join(WORK, "src_attn_new" if NEW else "src_attn")
+    (patched_copy_attn_new if NEW else patched_copy_attn)(src)
+    variants = ATTN_VARIANTS_NEW if NEW else ATTN_VARIANTS
+    source = "window_attn_bf16.cu" if NEW else "flash_window_attn_bf16.cu"
+    procs = {}
+    t0 = time.perf_counter()
+    for v, fl in variants.items():
+        out = os.path.join(OUT, f"libattn{'_new' if NEW else ''}_{v}.so")
+        procs[v] = (subprocess.Popen(
+            [NVCC, *FLAGS, *fl, os.path.join(src, source), "-o", out],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), out)
+    libs = {}
+    vp, ii = ctypes.c_void_p, ctypes.c_int
+    for v, (p, out) in procs.items():
+        text, _ = p.communicate()
+        log(f"build attn {v}: rc {p.returncode} at {time.perf_counter() - t0:.1f} s")
+        if v == "full":
+            for line in text.splitlines():
+                if "attn" in line or "registers" in line or "spill" in line:
+                    log("  ptxas " + line.strip())
+        if p.returncode != 0:
+            log(text[-6000:])
+            continue
+        libs[v] = ctypes.CDLL(out)
+        libs[v].window_attention_block_bf16.argtypes = [vp] * 7 + [ii] * (8 if NEW else 7) + [vp]
+    import chip_smoke as S
+    from reslic_tcm_tpu_torch.ops import flash_window_attn as F
+
+    dev = torch.device("cuda")
+    P = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    st = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    with torch.no_grad():
+        for n, (c, hd) in enumerate(((192, 24), (128, 16))):
+            shape, option = (1, 192, 128, c), (hd, True, False)
+            args, kw = S._inputs(torch, S._B1, shape, option, dev, 950 + n)
+            prep = S._prepared(S._B1, args, kw, torch.bfloat16)
+            x = args[0]
+            out = torch.empty_like(x)
+            b, h, w, _ = shape
+            windows = b * h * w // 64
+            chosen = (F.attn_cluster_size_bf16 if NEW else F.attn_cluster_size)(c, hd, windows)
+            for k in F.ATTN_CLUSTERS_BF16[c] if NEW else F.ATTN_CLUSTERS:
+                grid = F.attn_grid(c, hd, k, windows, dev) if NEW else windows
+                rec = {"kernel": "window_attn_bf16_kernel" if NEW else "attn_block_bf16_kernel",
+                       "shape": list(shape), "option": option, "cluster": k, "chosen": chosen,
+                       "grid": [grid * k, b]}
+                split = (k, grid) if NEW else (k,)
+                for v in variants if k == chosen else ("full",):
+                    if v not in libs:
+                        continue
+                    call = lambda lib=libs[v]: lib.window_attention_block_bf16(  # noqa: E731
+                        P(x), P(out), *[P(a) for a in prep], b, h, w, c, hd, *split, 1, st)
+                    rec[v] = time_ms(call, 100)
+                flops, nbytes = S._cost(S._B1, shape, option, weight_bytes=2)
+                rec["bound_ms"] = max(flops / S.PEAK_BF16_FLOPS, nbytes / S.PEAK_BYTES) * 1e3
+                log("step0 " + json.dumps(rec))
 
 
 VARIANTS_NEW = {
@@ -363,4 +521,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if "--only=attn" in sys.argv:
+        main_attn()
+    else:
+        main()
