@@ -2,9 +2,10 @@
 """Smoke run of the PyTorch + CUDA port on one NVIDIA GPU (built for H100).
 
     python3 chip_smoke.py                 # on a machine with the card
-    python3 chip_smoke.py --cpu-rehearsal # the slices and train phases on the CPU, no card
+    python3 chip_smoke.py --cpu-rehearsal # the slices, train and CLI phases on the CPU, no card
 
-Drives reslic_tcm_tpu_torch only (no JAX, no PIL), in these phases:
+Drives reslic_tcm_tpu_torch only (no JAX; Pillow is not used, whether or not
+it is installed), in these phases:
 
 1. Device: the card's name and power limit; TF32 off, cuDNN deterministic.
 2. Build: every library of ops/build.py's SOURCES (the kernels of B1-B4
@@ -195,6 +196,32 @@ Drives reslic_tcm_tpu_torch only (no JAX, no PIL), in these phases:
    timed steps: ms per step and images/s beside 5b's fp32 step, peak
    memory, finite metrics, no kernel launched, parameters and Adam states
    fp32, and a profile of one more step.
+5i. (after 5b) The CLIs as a user runs them, on a corpus the port writes
+   (PNG through data/png.py), with Pillow blocked whether or not it is
+   installed (in this process through sys.modules, in the subprocesses by
+   a PIL package first on PYTHONPATH whose import raises; whether it is
+   installed is printed): `python -m
+   reslic_tcm_tpu_torch.data.synthetic <tmp>/corpus 32` as a subprocess
+   (32 train images of 512x512, 24 test images of 512x768; seconds
+   printed); cli/train.py::main trains TCM-S (N=64, M=320) from the
+   committed weights for one epoch (32 images, batch 16: two steps; lambda
+   0.013) and validates on 8 test crops and on the 24 test images as the
+   "Kodak" set (finite losses, the epoch's best and _very_best.ckpt saved,
+   B1-B3 launched 32 / 18 / 9 per validation forward, none in the steps;
+   wall seconds by utils/profiling.timed); then cli/eval.py::main on the
+   test images with --checkpoint <_very_best.ckpt> --N 64 --M 320 --real,
+   with the host coder, with --device-coder and with --bf16: every image's
+   y_hat exact, B1-B3 launched 26 / 12 / 6 per compress and 26 / 10 / 5
+   per decompress (their bf16 instances under --bf16, no fp32 one), D1-D4
+   1 / 1 / 1 / 5 per image under --device-coder (none otherwise), the
+   printed average bpp and PSNR equal to evaluate()'s on a codec that
+   loaded the same checkpoint (same precision and coder); MP/s, encode and
+   decode ms per image, bpp and PSNR per run (`cli_eval` lines), the
+   device coder's bpp gap to the host coder's; and the host-coder run once
+   more as `python -m reslic_tcm_tpu_torch.cli.eval ...`, its printed
+   averages equal to the in-process run's. --cpu-rehearsal writes a
+   corpus of 4 + 2 images of 256x256 in process and trains at batch 2 of
+   128x128.
 6. Profile: torch.profiler over one warm forward, compress and decompress
    of each slice at 768x512 (scale_gain_sc aside), over one step of each
    train slice and over one run of the serial and each pipelined variant
@@ -202,8 +229,9 @@ Drives reslic_tcm_tpu_torch only (no JAX, no PIL), in these phases:
    busy time and idle share of each, and the kernels that take the most
    device time.
 7. Summary: the kernels line (B1-B4; B1-B3's launches include the tiled
-   pass's; B1-B3's bf16 instances as rows of their own, their launches the
-   bf16 phase's), the coder_kernels line (D1-D4), the
+   pass's and the CLI phase's; B1-B3's bf16 instances as rows of their own,
+   their launches the bf16 phase's and the --bf16 eval run's), the
+   coder_kernels line (D1-D4, with the --device-coder eval run's), the
    card line, the wall time, and last the {"ok": true, "device": ...} line.
 
 Each slice is driven with every launch counter set to 0 just before it and
@@ -216,6 +244,7 @@ A hang dumps every thread's stack and exits non-zero after BUDGET_S.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import faulthandler
 import json
 import os
@@ -225,7 +254,7 @@ import time
 
 import numpy as np
 
-BUDGET_S = 1150  # seconds; a run must end within 1200 (a full run on an H100 took 856)
+BUDGET_S = 1150  # seconds; a run must end within 1200 (a full run on an H100 took 891)
 TOL = 1e-4
 TOL_BF16 = 4e-3  # bf16 instances vs their plain bf16 versions (phase 3's docstring)
 PEAK_FLOPS = 67e12  # H100 SXM fp32, CUDA cores (NVIDIA data sheet)
@@ -340,7 +369,7 @@ def _bf16_row(kernel, option) -> str:
 # both B1 rows share the wrapper's launches_bf16, each flavour on its own slices)
 BF16_ROWS = {
     f"{_B1}_bf16": (_B1, "reslic_tcm_tpu_torch/csrc/flash_window_attn_bf16.cu",
-                    ("bf16-tcm", "bf16-tcm192")),
+                    ("bf16-tcm", "bf16-tcm192", "cli-bf16")),
     _B1_ATTN_BF16: (_B1, "reslic_tcm_tpu_torch/csrc/window_attn_bf16.cu",
                     ("bf16-wacnn", "bf16-wacnn-stanh")),
     f"{_B2}_bf16": (_B2, "reslic_tcm_tpu_torch/csrc/fused_conv_bf16.cu", None),
@@ -2889,6 +2918,264 @@ def phase_train_bf16(torch, device, slice_name, batch_size, hw, warmup, steps):
     log(f"phase train bf16: {time.perf_counter() - t0:.1f} s")
 
 
+# --------------------------------- CLIs ---------------------------------
+
+# phase 5i: the corpus writer's train images (512x512; two steps at batch 16)
+# and the validation's test crops; the writer's 24 test images (512x768) are
+# the "Kodak" stand-in and the eval CLI's data
+CLI_TRAIN_IMAGES = 32
+CLI_VAL_IMAGES = 8
+CLI_TEST_IMAGES = 24  # generate_corpus's default n_test
+# D1-D4's launches per image on the analytic device coder's path (PERF.md):
+# D1 and D3 encode z and y, D2 decodes z, D4 the five y segments
+CLI_CODER_LAUNCHES = {"encode_lanes": 1, "decode_lanes": 1, "gaussian_encode_lanes": 1,
+                      "gaussian_decode_lanes": 5}
+_REPO = os.path.dirname(os.path.abspath(__file__))
+
+
+@contextlib.contextmanager
+def _without_pillow(tmp):
+    """Pillow made unimportable for the block, whether or not it is
+    installed: in this process through sys.modules, in subprocesses through
+    the environment it yields (a PIL package first on PYTHONPATH whose
+    import raises)."""
+    blocker = os.path.join(tmp, "no_pillow", "PIL")
+    os.makedirs(blocker)
+    with open(os.path.join(blocker, "__init__.py"), "w") as f:
+        f.write('raise ImportError("Pillow is blocked for this run")\n')
+    path = [os.path.dirname(blocker), os.environ.get("PYTHONPATH", "")]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(p for p in path if p))
+    saved = {name: sys.modules.get(name) for name in ("PIL", "PIL.Image")}
+    sys.modules.update(dict.fromkeys(saved))
+    try:
+        yield env
+    finally:
+        for name, module in saved.items():
+            if module is None:
+                del sys.modules[name]
+            else:
+                sys.modules[name] = module
+
+
+def _run_cli(main, argv):
+    """(exit code, standard output) of a CLI's ``main(argv)`` run in this
+    process; the output's tail is printed when the run raises."""
+    import io
+
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = main(argv)
+    except BaseException:
+        log("  ... " + buf.getvalue()[-4000:])
+        raise
+    return rc, buf.getvalue()
+
+
+def _printed_averages(out: str) -> dict:
+    """The eval CLI's printed average PSNR and bpp, as printed."""
+    found = {}
+    for line in out.splitlines():
+        if line.startswith("average_PSNR: "):
+            found["psnr"] = line.split()[1]
+        elif line.startswith("average_Bit-rate: "):
+            found["bpp"] = line.split()[1]
+    if set(found) != {"psnr", "bpp"}:
+        raise AssertionError(f"the eval CLI printed no averages:\n{out[-2000:]}")
+    return found
+
+
+def _as_printed(summary: dict) -> dict:
+    return {"psnr": f"{summary['psnr']:.2f}dB", "bpp": f"{summary['bpp']:.3f}"}
+
+
+def phase_cli(torch, device, rehearsal=False):
+    """Phase 5i (module docstring): the corpus writer, the train CLI and the
+    eval CLI as a user runs them. Returns the launches of B1-B3 (fp32: the
+    train CLI's validation and the host and device-coder eval runs; bf16: the
+    --bf16 eval run) and D1-D4's (the device-coder run)."""
+    import importlib.util
+    import tempfile
+
+    from reslic_tcm_tpu_torch.cli import eval as peval
+    from reslic_tcm_tpu_torch.cli import train as ptrain
+    from reslic_tcm_tpu_torch.cli.eval import evaluate
+    from reslic_tcm_tpu_torch.coding import device_kernels as dk
+    from reslic_tcm_tpu_torch.data.datasets import list_images, read_image
+    from reslic_tcm_tpu_torch.models.tcm import make_tcm
+    from reslic_tcm_tpu_torch.ops.launches import launch_counts, reset_launch_counts
+    from reslic_tcm_tpu_torch.utils.checkpoint import load_checkpoint
+    from reslic_tcm_tpu_torch.utils.profiling import throughput_mp_s, timed
+
+    t_phase = time.perf_counter()
+    on_card = device == "cuda"
+    installed = importlib.util.find_spec("PIL") is not None
+    platform = [] if on_card else ["--platform", "cpu"]
+    with (tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp,
+          _without_pillow(tmp) as env):
+        blocked = subprocess.run([sys.executable, "-c", "import PIL"], env=env,
+                                 capture_output=True).returncode != 0
+        if not blocked or importlib.util.find_spec("PIL") is not None:
+            raise AssertionError("Pillow could not be blocked")
+        log(f"cli: Pillow installed: {installed}; blocked for the phase, in this process and "
+            f"its subprocesses")
+        corpus = os.path.join(tmp, "corpus")
+        # 1. the corpus, as a user writes it (the rehearsal writes a small
+        # one in this process: the module's command writes 24 images of
+        # 512x768, too many for the CPU)
+        t0 = time.perf_counter()
+        if rehearsal:
+            from reslic_tcm_tpu_torch.data.synthetic import generate_corpus
+
+            n_train, n_val, n_test = 4, 2, 2
+            generate_corpus(corpus, n_train=n_train, n_test=n_test, train_size=(256, 256),
+                            test_size=(256, 256))
+        else:
+            n_train, n_val, n_test = CLI_TRAIN_IMAGES, CLI_VAL_IMAGES, CLI_TEST_IMAGES
+            subprocess.run([sys.executable, "-m", "reslic_tcm_tpu_torch.data.synthetic", corpus,
+                            str(n_train)], cwd=_REPO, env=env, check=True, timeout=300,
+                           stdout=subprocess.DEVNULL)
+        test_dir = os.path.join(corpus, "test", "data")
+        counts = [len(list_images(os.path.join(corpus, s, "data"))) for s in ("train", "test")]
+        if counts != [n_train, n_test]:
+            raise AssertionError(f"the corpus writer wrote {counts} images, not "
+                                 f"{[n_train, n_test]}")
+        log(f"cli corpus: {n_train} train and {n_test} test images in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        # 2. the train CLI: TCM-S from the committed weights, one epoch
+        batch = 2 if rehearsal else 16
+        argv = ["-m", "tcm", "--N", "64", "--M", "320", "-d", corpus, "--checkpoint", SNAPSHOT,
+                "--lambda_list", "0.013", "-e", "1", "--num_images", str(n_train),
+                "--num_images_val", str(n_val), "--batch-size", str(batch),
+                "--save_path", os.path.join(tmp, "runs"), "--kodak", test_dir, *platform]
+        if rehearsal:
+            argv += ["--patch-size", "128", "128", "--test-batch-size", "2"]
+        reset_launch_counts()
+        times = {}
+        with timed("train CLI", times):
+            rc, out = _run_cli(ptrain.main, argv)
+        train_launches = launch_counts()
+        if rc != 0:
+            raise AssertionError(f"the train CLI exited {rc}")
+        losses = [float(line.split("Loss:")[1].split("|")[0]) for line in out.splitlines()
+                  if "Loss:" in line]
+        if not losses or not all(np.isfinite(losses)):
+            raise AssertionError(f"the train CLI's losses: {losses}")
+        ckpts = {f for _, _, fs in os.walk(os.path.join(tmp, "runs")) for f in fs}
+        very_best = [os.path.join(d, f) for d, _, fs in os.walk(os.path.join(tmp, "runs"))
+                     for f in fs if f == "_very_best.ckpt"]
+        if len(very_best) != 1 or not any("best" in f and f != "_very_best.ckpt"
+                                          for f in ckpts):
+            raise AssertionError(f"the train CLI saved {sorted(ckpts)}")
+        # validation: one forward a batch of test crops, one a "Kodak" image;
+        # no kernel in the train steps (composed under autograd)
+        forwards = -(-n_val // (2 if rehearsal else 8)) + n_test
+        want = {k: forwards * n for k, n in _TCM_LAUNCHES["forward"].items()}
+        _check_launches(0, "train CLI validation", train_launches, want, on_card)
+        log(f"cli train: {len(losses)} losses {losses} finite; {times['train CLI']:.1f} s; "
+            f"validation launches {json.dumps(train_launches)} ({forwards} forwards); "
+            f"saved {sorted(ckpts)}")
+
+        # 3. the eval CLI on the checkpoint just saved, in three modes
+        images = [read_image(p) for p in list_images(test_dir)]
+        pixels = sum(img.shape[0] * img.shape[1] for img in images)
+        fp32, bf16 = {k: 0 for k in _TCM_LAUNCHES["forward"]}, None
+        coder = {k: 0 for k in CLI_CODER_LAUNCHES}
+        per_mode = {}
+        for mode, extra in (("host", []), ("device", ["--device-coder"]), ("bf16", ["--bf16"])):
+            dtype = torch.bfloat16 if mode == "bf16" else torch.float32
+            argv = ["--data", test_dir, "--checkpoint", very_best[0], "--N", "64", "--M", "320",
+                    "--real", *extra, *platform]
+            summaries = []
+
+            def recording(*args, **kw):
+                summaries.append(evaluate(*args, **kw))
+                return summaries[-1]
+
+            reset_launch_counts()
+            dk.reset_launch_counts()
+            peval.evaluate = recording  # the CLI's loop, its records kept
+            try:
+                t0 = time.perf_counter()
+                rc, out = _run_cli(peval.main, argv)
+                wall = time.perf_counter() - t0
+            finally:
+                peval.evaluate = evaluate
+            launches = {"fp32": launch_counts(), "bf16": launch_counts(torch.bfloat16),
+                        "coder": dk.launch_counts()}
+            if rc != 0 or len(summaries) != 1:
+                raise AssertionError(f"eval CLI {mode}: exit {rc}, {len(summaries)} evaluations")
+            records = summaries[0]["records"]
+            if len(records) != n_test or not all(r["y_hat_exact"] for r in records):
+                raise AssertionError(f"eval CLI {mode}: y_hat exact on "
+                                     f"{sum(r['y_hat_exact'] for r in records)} of {n_test}")
+            for j, r in enumerate(records):
+                for name in ("compress", "decompress"):
+                    want = {k: v for k, v in _TCM_LAUNCHES[name].items()
+                            if k in r[f"launches_{name}"]}
+                    _check_launches(j, f"eval CLI {mode} {name}", r[f"launches_{name}"], want,
+                                    on_card)
+            idle = "fp32" if mode == "bf16" else "bf16"
+            if any(launches[idle].values()):
+                raise AssertionError(f"eval CLI {mode}: {idle} instances launched "
+                                     f"{launches[idle]}")
+            want = {k: n_test * n if mode == "device" else 0 for k, n in CLI_CODER_LAUNCHES.items()}
+            _check_launches(0, f"eval CLI {mode} coder", launches["coder"], want, on_card)
+
+            # the same files through evaluate() on a codec that loaded the
+            # same checkpoint, at the same precision and coder
+            codec = make_tcm(N=64, M=320, device=device)
+            if mode == "bf16":
+                codec.set_matmul_precision("bfloat16")
+            codec.module.load_state_dict(load_checkpoint(very_best[0])["state_dict"], strict=True)
+            codec.update()
+            ref = evaluate(codec, images, real=True, log=lambda *_: None,
+                                 device_coder=mode == "device")
+            del codec
+            printed = _printed_averages(out)
+            if printed != _as_printed(ref):
+                raise AssertionError(f"eval CLI {mode}: printed {printed}, evaluate() "
+                                     f"{_as_printed(ref)}")
+            enc = sum(r["encode_ms"] for r in records)
+            dec = sum(r["decode_ms"] for r in records)
+            per_mode[mode] = summaries[0]
+            if mode == "bf16":
+                bf16 = launches["bf16"]
+            else:
+                fp32 = {k: fp32[k] + launches["fp32"][k] for k in fp32}
+            if mode == "device":
+                coder = launches["coder"]
+            log("cli_eval " + json.dumps({
+                "mode": mode, "images": n_test, "wall_s": wall, "bpp": summaries[0]["bpp"],
+                "psnr": summaries[0]["psnr"], "ms_ssim_db": summaries[0]["ms_ssim_db"],
+                "encode_ms": enc / n_test, "decode_ms": dec / n_test,
+                "mp_s": throughput_mp_s(pixels, (enc + dec) / 1e3),
+                "printed": printed, "launches": launches[
+                    "bf16" if mode == "bf16" else "fp32"],
+                "coder_launches": launches["coder"],
+                "bpp_gap_to_host": (summaries[0]["bpp"] / per_mode["host"]["bpp"] - 1
+                                    if mode == "device" else None)}))
+
+        # 4. the host-coder run once more as a user starts it
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-m", "reslic_tcm_tpu_torch.cli.eval", "--data",
+                              test_dir, "--checkpoint", very_best[0], "--N", "64", "--M", "320",
+                              "--real", *platform], cwd=_REPO, env=env, capture_output=True,
+                             text=True, timeout=600)
+        if run.returncode != 0:
+            raise AssertionError(f"python -m reslic_tcm_tpu_torch.cli.eval exited "
+                                 f"{run.returncode}:\n{run.stderr[-3000:]}")
+        printed = _printed_averages(run.stdout)
+        if printed != _as_printed(per_mode["host"]):
+            raise AssertionError(f"python -m ...cli.eval printed {printed}, the host run "
+                                 f"{_as_printed(per_mode['host'])}")
+        log(f"cli eval as a command: {printed} in {time.perf_counter() - t0:.1f} s")
+    fp32 = {k: fp32[k] + train_launches[k] for k in fp32}
+    log(f"cli: phase wall {time.perf_counter() - t_phase:.1f} s")
+    return fp32, bf16, coder
+
+
 def phase_profile(torch, codecs: dict):
     """torch.profiler over one warm 768x512 forward, compress and decompress
     of each slice's codec: the device's busy time and idle share of the
@@ -2942,9 +3229,9 @@ def _profile_window(torch, label: str, fn, watch=()) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
-                    help="run the slices (256x256) and the train phases (batch 2 of "
-                         "128x128) on the CPU through the plain versions; never prints the ok "
-                         "line")
+                    help="run the slices (256x256), the train phases (batch 2 of "
+                         "128x128) and the CLI phase (a corpus of 256x256 images) on the CPU "
+                         "through the plain versions; never prints the ok line")
     args = ap.parse_args()
     faulthandler.dump_traceback_later(BUDGET_S, exit=True)
     t0 = time.perf_counter()
@@ -2973,6 +3260,8 @@ def main() -> int:
         for slice_name in TRAIN_SLICES:
             phase_train(torch, "cpu", slice_name, 2, (128, 128), 1, 2)
         phase_train_bf16(torch, "cpu", "tcm192", 2, (128, 128), 1, 2)
+        launches["cli"], launches["cli-bf16"], cli_coder = phase_cli(torch, "cpu", rehearsal=True)
+        coder_launches = {k: n + cli_coder[k] for k, n in coder_launches.items()}
         log("kernels " + json.dumps({"launches": launches}))
         log("coder_kernels " + json.dumps({"launches": coder_launches}))
         log(f"rehearsal done in {time.perf_counter() - t0:.1f} s (no ok line: no card)")
@@ -3036,6 +3325,9 @@ def main() -> int:
         "scale-gain": phase_train(torch, "cuda", "scale-gain", 16, (256, 256), 3, 10),
     }
     lap("phase 5b train")
+    paths["cli"], bf16_paths["cli-bf16"], cli_coder = phase_cli(torch, "cuda")
+    coder_launches = {k: n + cli_coder[k] for k, n in coder_launches.items()}
+    lap("phase 5i CLIs")
     phase_train_bf16(torch, "cuda", "tcm192", 2, (256, 256), 1, 3)
     lap("phase 5h train bf16")
     phase_profile(torch, codecs)
@@ -3089,7 +3381,8 @@ def main() -> int:
             f"(fp32 instance {k['fp32_device_ms'] * 1e3:.0f} us, plain {k['plain_ms'] * 1e3:.0f} "
             f"us, bound {max(k['t_ops'], k['t_bytes']) * 1e3:.0f} us)")
     log("bf16 rows (*_bf16): launches: the bf16 phase's runs (two images, all passes: B1 "
-        "LN+MLP, B2, B3 on TCM-S, with its device-coder pair, and TCM N=192; B1 "
+        "LN+MLP, B2, B3 on TCM-S, with its device-coder pair, and TCM N=192) and the eval "
+        "CLI's --bf16 run (phase 5i, TCM-S, 24 images, compress and decompress; B1 "
         "attention-only on WACNN and WACNN-STanH at level 1, with forward_codec_consistent); "
         "ms, plain_ms, device_ms, fp32_device_ms and bound_ms: the launches of one 768x512 "
         "forward pass of TCM-S, TCM N=128 and TCM N=192 (B1 LN+MLP, B2, B3) or of WACNN "
@@ -3100,7 +3393,9 @@ def main() -> int:
         "call computes them")
     log("launches: the slices' main-path runs (two images each, all three passes, every "
         "level or point of the variable-rate slices), the pipelined phase's serial run, the "
-        "device-coder path's runs and the parallel phase's tiled pass (B1-B3); "
+        "device-coder path's runs, the parallel phase's tiled pass (B1-B3) and the CLIs' "
+        "phase (B1-B3: the train CLI's validation and the eval CLI's host and device-coder "
+        "runs); "
         "ms, plain_ms, library_ms and bound_ms: the kernel's launches in one 768x512 forward "
         "pass of TCM-S plus one of TCM N=128, one of TCM N=192 and one of WACNN, at their "
         "main-path shapes (kernel_per_pass lines: each slice's share); "
@@ -3121,7 +3416,7 @@ def main() -> int:
             "library_ms": None, "launches_per_image": rec["launches_per_image"]})
     log("coder kernels (replace lax.scan programs, not Pallas kernels): launches: the "
         "device-coder path's runs (two images, both profiles, each run "
-        f"{DC_REPEATS} times); ms, plain_ms and bound_ms: one 768x512 image's launches "
+        f"{DC_REPEATS} times) and the eval CLI's --device-coder run (24 images); ms, plain_ms and bound_ms: one 768x512 image's launches "
         "(D1: its y and z encode, D2: its z and five y segments, D3: one, D4: five y "
         "segments); device_ms: the profiler's time of each at its wrapper's variant (`split` "
         "lines; null: not measured); max_abs_err 0: the kernels equal their plain versions bit for bit; "

@@ -29,25 +29,28 @@ the codec's matmul precision to bfloat16 after it is built
 codec (host or device coder) and the tiled forward run with bf16 operands
 and fp32 sums; ``--shard-spatial``'s forward stays fp32, as the JAX CLI
 runs it outside the codec's programs.
+``--checkpoint`` takes a ``.npz`` snapshot, a reference PyTorch state dict
+or a checkpoint the train CLI saved (``load_checkpoint``); an orbax
+directory of the JAX package is refused. Images are read by
+``data/datasets.py::read_image`` (PNG and PPM without Pillow).
 Runs on the CUDA device unless ``--platform cpu``.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
-from pathlib import Path
 
-import numpy as np
 import torch
 
+from ..data.datasets import list_images, read_image
 from ..ops.launches import launch_counts, launches_since
 from ..ops.math import compute_padding, crop_nhwc, pad_nhwc
 from ..training.codec_eval import compress_with_ac, sync
 from ..utils.metrics import compute_psnr, ms_ssim, msssim_to_db
 
-_IMG_EXTS = {".png", ".jpg", ".jpeg", ".bmp", ".ppm", ".webp"}
 PAD = 128
 
 
@@ -76,18 +79,6 @@ def parse_args(argv):
     parser.add_argument("--gauss_trainable", nargs="+", type=str, default=None)
     parser.add_argument("--lv", type=int, default=-1)
     return parser.parse_args(argv)
-
-
-def list_images(directory) -> list[Path]:
-    return [f for f in sorted(Path(directory).iterdir())
-            if f.is_file() and f.suffix.lower() in _IMG_EXTS]
-
-
-def read_image(path) -> np.ndarray:
-    """HWC float32 in [0, 1]."""
-    from PIL import Image
-
-    return np.asarray(Image.open(path).convert("RGB"), np.float32) / 255.0
 
 
 def evaluate(codec, images, real: bool = True, log=print, device_coder: bool = False,
@@ -190,13 +181,19 @@ def _forward_estimate(codec, xp, tile: int, tile_overlap: int, shard_spatial: in
 
 
 def load_checkpoint(codec, path: str) -> None:
-    """A committed ``.npz`` snapshot of JAX parameters, or a reference
-    PyTorch ``.pth``/``.pth.tar``/``.pt`` state dict. A snapshot must hold
-    every parameter of the codec (entries it has no place for are listed).
-    A PyTorch file loads non-strictly, as the JAX CLI's converter loads it
+    """A committed ``.npz`` snapshot of JAX parameters, a reference PyTorch
+    ``.pth``/``.pth.tar``/``.pt`` state dict, or a checkpoint of the train
+    CLI (``utils/checkpoint.py::save_checkpoint``, any other file name:
+    ``.ckpt`` in practice). A snapshot must hold every parameter of the
+    codec (entries it has no place for are listed). A PyTorch file loads
+    non-strictly, as the JAX CLI's converter loads it
     (``utils/torch_convert.py::warm_start_codec``: CDF buffers ignored,
     parameters without a twin in the file kept at their init), and the
-    missing and unused counts are printed."""
+    missing and unused counts are printed. A train CLI checkpoint's
+    ``state_dict`` loads strictly, as the JAX CLI loads its own trainer's
+    parameters. The caller's ``update()`` then rebuilds the derived tables
+    from the loaded parameters."""
+    from ..utils.checkpoint import load_checkpoint as load_train_checkpoint
     from ..utils.torch_convert import load_snapshot_into, warm_start_codec
 
     if path.endswith(".npz"):
@@ -210,9 +207,11 @@ def load_checkpoint(codec, path: str) -> None:
             print(f"converter: {len(report['missing'])} missing, "
                   f"{len(report['unused'])} unused torch keys")
         return
-    raise NotImplementedError(
-        "orbax checkpoint directories need JAX: snapshot them to .npz with the "
-        "repository's snapshot_ckpt.py first")
+    if os.path.isdir(path):
+        raise NotImplementedError(
+            "orbax checkpoint directories need JAX: snapshot them to .npz with the "
+            "repository's snapshot_ckpt.py first")
+    codec.module.load_state_dict(load_train_checkpoint(path)["state_dict"], strict=True)
 
 
 def _device(args) -> torch.device:

@@ -1,5 +1,6 @@
-"""Host-side data pipeline (port of reslic_tcm_tpu/data/datasets.py; numpy,
-PIL imported only inside the image reader).
+"""Host-side data pipeline (port of reslic_tcm_tpu/data/datasets.py; numpy).
+PNG and binary PPM are read by ``data/png.py``, with or without Pillow;
+only JPEG, BMP and WebP files import Pillow, when one is read.
 
 ImageFolder over root/{split}/data capped at num_images (reference
 dataset/utils.py:21-60) with random crops for training and center crops for
@@ -18,6 +19,8 @@ from typing import Iterator
 
 import numpy as np
 
+from .png import read_png, read_ppm
+
 _IMG_EXTS = {".png", ".jpg", ".jpeg", ".bmp", ".ppm", ".webp"}
 
 
@@ -27,9 +30,18 @@ def list_images(directory) -> list[Path]:
 
 
 def read_image_u8(path) -> np.ndarray:
-    """HWC uint8 RGB."""
-    from PIL import Image
-
+    """HWC uint8 RGB: PNG and PPM through ``data/png.py``, the other formats
+    through Pillow's ``convert("RGB")``."""
+    suffix = Path(path).suffix.lower()
+    if suffix == ".png":
+        return read_png(path)
+    if suffix == ".ppm":
+        return read_ppm(path)
+    try:
+        from PIL import Image
+    except ImportError:
+        raise ImportError(f"{path}: reading {suffix} images needs Pillow, which is not "
+                          f"installed; PNG and PPM images are read without it") from None
     return np.asarray(Image.open(path).convert("RGB"), np.uint8)
 
 

@@ -6,9 +6,17 @@ random fields with correlated RGB channels, gradient polygons and oriented
 gratings, mixed per image: a proxy for photographs where no image dataset
 is available. The same seed gives the same image as the JAX package's
 generator.
+
+``generate_corpus`` writes the JAX writer's corpus, root/{train,test}/data
+/synth_NNNNN.png (the ImageFolder layout), pixel for pixel, through
+``data/png.py`` instead of Pillow:
+
+    python -m reslic_tcm_tpu_torch.data.synthetic <root> <n_train>
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -116,3 +124,32 @@ def synth_image(rng: np.random.Generator, h: int, w: int) -> np.ndarray:
     # sensor-ish noise + slight blur variation
     img = img + rng.normal(0, rng.uniform(0.002, 0.01), img.shape)
     return np.clip(img, 0, 1).astype(np.float32)
+
+
+def generate_corpus(root: str, n_train: int = 400, n_test: int = 24,
+                    train_size=(512, 512), test_size=(512, 768),
+                    seed: int = 0, skip_existing: bool = True) -> str:
+    """Write root/{train,test}/data/*.png; returns root."""
+    from .png import write_png
+
+    for split, n, size in (("train", n_train, train_size),
+                           ("test", n_test, test_size)):
+        d = os.path.join(root, split, "data")
+        os.makedirs(d, exist_ok=True)
+        for i in range(n):
+            path = os.path.join(d, f"synth_{i:05d}.png")
+            if skip_existing and os.path.exists(path):
+                continue
+            rng = np.random.default_rng(seed * 1_000_003 + (0 if split == "train" else 500_000) + i)
+            img = synth_image(rng, *size)
+            write_png(path, (img * 255).round().astype(np.uint8))
+    return root
+
+
+if __name__ == "__main__":
+    import sys
+
+    root = sys.argv[1] if len(sys.argv) > 1 else "/tmp/synth_corpus"
+    n_train = int(sys.argv[2]) if len(sys.argv) > 2 else 400
+    generate_corpus(root, n_train=n_train)
+    print(root)

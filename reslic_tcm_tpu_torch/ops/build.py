@@ -6,7 +6,8 @@ plain C interface, loaded with ``ctypes``:
 * the CUDA kernels in ``reslic_tcm_tpu_torch/csrc/*.cu``, compiled by
   ``nvcc`` for ``sm_90a`` (Hopper), without ``-use_fast_math`` (the device
   coder's kernels must round every float32 operation as XLA does);
-* the host rANS coder ``coding/csrc/rans.cpp``, compiled by ``g++``.
+* the host rANS coder ``coding/csrc/rans.cpp`` and PNG's row unfilter
+  ``data/csrc/png_unfilter.cpp``, compiled by ``g++``.
 
 Nothing includes PyTorch's headers, so each build takes seconds. The
 objects go to ``reslic_tcm_tpu_torch/_build/`` (listed in ``.gitignore``)
@@ -53,6 +54,7 @@ SOURCES = {
     "qkv_attention": ("csrc/qkv_attention.cu", "nvcc"),
     "device_rans": ("csrc/device_rans.cu", "nvcc"),
     "rans": ("coding/csrc/rans.cpp", "g++"),
+    "png_unfilter": ("data/csrc/png_unfilter.cpp", "g++"),
 }
 
 BUILD_TIMEOUT_S = 300

@@ -6,6 +6,7 @@ from __future__ import annotations
 from datetime import datetime
 from os.path import join
 
+from ..data.datasets import read_image  # noqa: F401  (re-export, helper.py:70-74)
 from ..entropy.annealings import configure_annealings  # noqa: F401  (re-export, helper.py:118)
 
 

@@ -1276,3 +1276,59 @@ def test_wacnn_bf16_mode_launches_only_bf16_b1_and_decodes_exactly(cuda):
     assert torch.equal(dec["y_hat"], enc["y_hat"])
     codec.set_matmul_precision(None)
     assert torch.equal(codec.forward(img)["x_hat"], fp32["x_hat"])
+
+
+# ------------------------------- the CLIs' I/O -------------------------------
+
+
+@pytest.mark.cuda
+def test_port_written_png_feeds_evaluate_on_card_without_pillow(cuda, tmp_path, monkeypatch):
+    """A corpus file the port wrote, read by data/png.py with Pillow not
+    importable (a machine may have none), through cli/eval.py::evaluate
+    on the card with TCM-S's committed weights: an exact y_hat and B1-B3
+    launched as by compress and decompress."""
+    from reslic_tcm_tpu_torch.cli.eval import evaluate
+    from reslic_tcm_tpu_torch.data.png import read_png
+    from reslic_tcm_tpu_torch.data.synthetic import generate_corpus
+    from reslic_tcm_tpu_torch.models.tcm import make_tcm
+    from reslic_tcm_tpu_torch.utils.torch_convert import load_snapshot_into
+
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    monkeypatch.setitem(sys.modules, "PIL.Image", None)
+    root = generate_corpus(str(tmp_path), n_train=0, n_test=1, test_size=(256, 384))
+    img = read_png(os.path.join(root, "test", "data", "synth_00000.png"))
+    assert img.shape == (256, 384, 3) and img.dtype == np.uint8
+    codec = make_tcm(N=64, M=320, device=cuda)
+    load_snapshot_into(codec.module, SNAPSHOT)
+    codec.update()
+    rec = evaluate(codec, [img.astype(np.float32) / 255.0], real=True,
+                   log=lambda *_: None)["records"][0]
+    assert rec["y_hat_exact"]
+    assert rec["launches_compress"] == {"flash_window_block": 26, "fused_residual_block": 12,
+                                        "fused_conv_gdn": 6, "fused_qkv_attention": 0}
+    assert rec["launches_decompress"] == {"flash_window_block": 26, "fused_residual_block": 10,
+                                          "fused_conv_gdn": 5, "fused_qkv_attention": 0}
+
+
+@pytest.mark.cuda
+def test_profiling_tools_on_card(cuda, tmp_path, capsys):
+    """utils/profiling.py on the card: ``trace`` records the card's kernels
+    into its trace file; ``timed`` fences on a CUDA tensor of its block."""
+    import json
+
+    from reslic_tcm_tpu_torch.utils.profiling import throughput_mp_s, timed, trace
+
+    x = torch.ones(1024, 1024, device=cuda)
+    with trace(str(tmp_path / "tb")):
+        y = x @ x
+        torch.cuda.synchronize()
+    files = [os.path.join(d, f) for d, _, fs in os.walk(tmp_path / "tb") for f in fs
+             if f.endswith(".pt.trace.json")]
+    assert len(files) == 1
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    assert any(e.get("cat") == "kernel" for e in events)
+    with timed("matmul") as out:
+        out["sync"] = {"y": [x @ y]}
+    assert out["seconds"] > 0 and capsys.readouterr().out.startswith("[timed] matmul: ")
+    assert throughput_mp_s(393_216, out["seconds"]) > 0

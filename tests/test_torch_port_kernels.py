@@ -278,6 +278,7 @@ def test_library_path_hashes_the_headers_a_source_includes(tmp_path, monkeypatch
 
     shutil.copytree(os.path.join(build._PKG, "csrc"), tmp_path / "csrc")
     shutil.copytree(os.path.join(build._PKG, "coding", "csrc"), tmp_path / "coding" / "csrc")
+    shutil.copytree(os.path.join(build._PKG, "data", "csrc"), tmp_path / "data" / "csrc")
     monkeypatch.setattr(build, "_PKG", str(tmp_path))
     assert build.source_files("qkv_attention") == ["csrc/qkv_attention.cu",
                                                    "csrc/window_attn_common.cuh"]
