@@ -87,7 +87,9 @@ it is installed), in these phases:
    steps at extrema 80) with random weights: TCM's launches per pass and
    an exact decode at each level. The scale hyperprior with STanH on y and
    z (`-m scale_stanh`, N=192, M=320, random weights): the z and y streams
-   decoded to the encoder's symbols.
+   decoded to the encoder's symbols. Then WACNN-STanH's one-pass
+   encode_stanh at each level on the first image: its level indexes equal
+   the codec's symbols.
 5b. Train, through training/step.py (what cli/train.py runs), lambda
    0.013, crops of seeded synthetic images: TCM-S from the committed
    weights at batch 16 of 256x256 (the train CLI's defaults; 3 warm-up and
@@ -176,6 +178,26 @@ it is installed), in these phases:
    and shard_train_step on TCM-S at 16 x 256x256 against train_step from
    the same weights and seed (loss within 1e-6 relative over two steps, ms
    per step of each). The phase's wall time is printed and held to 90 s.
+5j. (after 5f) D4 beyond 8192 lanes: at k = 8193, 12288, 16384, 65536 and
+   100,000 (not a multiple of 32), three chained segments of 4 steps of
+   seeded Gaussian symbols (sigma log-uniform over [0.05, 300]) through
+   the wrapper's cluster and every cluster size it offers (a thread a lane
+   up to 16,384 lanes on 16 CTAs, beyond that several lanes a thread kept
+   in memory): values and carries equal to the plain version's, bit for bit,
+   its time (CUDA events), the plain version's, the bound, and each
+   instance's device time (`split` lines; a `d4_wide` line a k). Then
+   TCM-S through the analytic device codec at k=16384 on 5d's first batch
+   of 8 (48 steps a slice): the decode exact on the wrapper's cluster and
+   on each cluster forced, a second encode writing the same container,
+   decode ms per cluster.
+5k. (after 5j) A world of one over NCCL: the device-coder and pipelined
+   paths after shard_for_inference (compress_device / decompress_device,
+   the analytic pair, compress_pipelined, roundtrip_pipelined,
+   serve_roundtrip_pipelined, serve_roundtrip_metrics,
+   roundtrip_device_pipelined over two batches of two of 5d's images):
+   streams byte-identical to an unsharded codec's, decodes exact, ms of
+   each; then parallel/dryrun.py's dryrun_multichip(1) (a rank process of
+   its own, one train step of its small TCM, finite loss).
 5g. (run before 5b) bf16 mode (set_matmul_precision("bfloat16"), the eval
    CLI's --bf16 for TCM): TCM-S with the committed weights and TCM N=192
    with seeded weights (phase 4's codecs) on phase 4's two 768x512 images:
@@ -1265,6 +1287,19 @@ def phase_stanh_wacnn(torch, device, hw):
     if not (bpp[0] < bpp[1] < bpp[2] and psnr[0] < psnr[1] < psnr[2]):
         raise AssertionError(f"levels 0-2 are not a rate ladder: bpp {bpp}, PSNR {psnr}")
     log(f"launches per pass (each image and level): {json.dumps(want)}")
+    # the one-pass encode_stanh (after the path's launches were read): its
+    # level indexes are the codec's symbols, slice by slice
+    x = images[0][None]
+    for lv in range(3):
+        with torch.no_grad():
+            got = codec.module.encode_stanh(codec._input(x), lv)["symbols"]
+        want_sym = codec.encode_symbols(x, lv)[0]
+        got = got.permute(1, 0, 2, 3, 4).reshape(1, -1).cpu().numpy()
+        if not np.array_equal(got, want_sym):
+            raise AssertionError(f"level {lv}: encode_stanh's symbols differ from the codec's "
+                                 f"({int((got != want_sym).sum())} of {got.size})")
+    log(f"wacnn-stanh encode_stanh on {device}: level indexes equal to the codec's symbols at "
+        f"levels 0-2 ({got.size} a level)")
     return codec, launches
 
 
@@ -1928,6 +1963,19 @@ def _coder_splits(torch, name, label, calls, want, chosen, per_call):
     return per_call_ms[chosen]
 
 
+def _d4_key(dk, k, cluster) -> tuple:
+    """D4's instance at k lanes on ``cluster`` CTAs as its template arguments
+    (CTAs, whether a thread holds one lane; else its lanes are kept in
+    memory)."""
+    return (cluster, dk.decode_lanes_per_thread(k, cluster) == 1)
+
+
+def _d4_calls(dk, k, kern) -> dict:
+    """{D4's template arguments: kern(cluster)} for every cluster size the
+    wrapper offers at k lanes."""
+    return {_d4_key(dk, k, c): (lambda c=c: kern(c)) for c in dk.decode_clusters(k)}
+
+
 def _coder_kernel_checks(torch, codec, x1, x8, on_card):
     """D1-D4 against their plain versions on one image's real slice inputs
     (k=1024: the y and z streams, the five y segments chained) and on a
@@ -2083,8 +2131,7 @@ def _coder_kernel_checks(torch, codec, x1, x8, on_card):
         if on_card:
             dcase["device_ms"] = _coder_splits(
                 torch, "gaussian_decode_lanes", f"{label} k={k}, {n_seg} segments",
-                {(c,): (lambda c=c: kern(c)) for c in dk.decode_clusters(k)}, got,
-                (dk.decode_cluster(k),), n_seg)
+                _d4_calls(dk, k, kern), got, _d4_key(dk, k, dk.decode_cluster(k)), n_seg)
         if k == DC_K:
             add("gaussian_encode_lanes", case, 1)
             add("gaussian_decode_lanes", dcase, n_seg)
@@ -2415,6 +2462,203 @@ def phase_parallel(torch, device, images, tiled_hw=TILED_HW, tile=TILE, tile_bat
     if on_card and wall > PARALLEL_BUDGET_S:
         raise AssertionError(f"the parallel phase took {wall:.1f} s")
     return launches
+
+
+# ------------------------------ wide lanes ------------------------------
+
+# D4 beyond 8192 lanes: three k a thread a lane takes on 16 CTAs (8193 and
+# 12288 fill them partly), 65536 and 100,000 (not a multiple of 32), whose
+# lanes a thread keeps in memory: 4 and 7 a thread on 16 CTAs
+WIDE_KS = (8193, 12288, 16384, 65536, 100000)
+WIDE_STEPS = 12  # three chained segments of 4 steps
+WIDE_CODEC_K = 16384  # the analytic codec on TCM-S's batch of 8: 48 steps a slice
+
+
+def _lane_case(torch, seed, n, device):
+    """(sigma float32, symbols int32) of n Gaussian symbols on ``device``:
+    sigma log-uniform over [0.05, 300], symbols clamped to their support,
+    and each in a bin of width zero moved one bin down (no encoder of the
+    analytic scheme can code a symbol there)."""
+    from reslic_tcm_tpu_torch.coding import analytic_rans as ar
+
+    rng = np.random.default_rng(seed)
+    sigma = np.exp(rng.uniform(np.log(0.05), np.log(300.0), n)).astype(np.float32)
+    sym = np.round(rng.normal(0.0, 1.3, n) * sigma).astype(np.int32)
+    sigma, sym = torch.from_numpy(sigma).to(device), torch.from_numpy(sym).to(device)
+    c = ar.support(sigma)
+    sym = torch.minimum(torch.maximum(sym, -c), c).to(torch.int32)
+    p = ar.coder_params(sigma)
+    while True:
+        zero = ar._start_freq(sym, p)[1] == 0
+        if not bool(zero.any()):
+            return sigma, sym
+        sym = torch.where(zero, sym - 1, sym)
+
+
+def phase_wide_lanes(torch, device, x8):
+    """D4 at more lanes than 16 CTAs of 512 (``WIDE_KS``) on the card: per
+    k, three chained segments of seeded Gaussian symbols through the
+    wrapper's choice and every cluster size it offers (``_coder_case`` and
+    ``_coder_splits``: values and carries equal to the plain version's, bit
+    for bit, CUDA-event and profiler times, the bound); then TCM-S (the
+    committed weights) through the analytic device codec at k=16384 on the
+    batch ``x8`` of 768x512 images: the decode exact on the wrapper's
+    cluster and again with each cluster size forced, a second encode
+    writing the same container. Returns each k's device ms per launch on
+    the wrapper's cluster."""
+    from reslic_tcm_tpu_torch.coding import analytic_rans as ar
+    from reslic_tcm_tpu_torch.coding import device_kernels as dk
+
+    t0 = time.perf_counter()
+    on_card = device == "cuda"
+    per_k = {}
+    for k in WIDE_KS:
+        sigma, sym = _lane_case(torch, SEED + k, k * WIDE_STEPS, device)
+        ws = ar.plain_encode_gaussian_lanes(sym, sigma, k)
+        header, flat, total, _ = ar.compact_grouped(*ws, sym.numel())
+        flat = torch.cat([flat, flat.new_zeros(k)])
+        carry0 = ar.decode_gaussian_grouped_init(header)
+        parts = sigma.split(sigma.numel() // 3)
+
+        def kern(cluster=None):
+            x_, g = carry0[0].clone(), carry0[1].clone()
+            out = [dk.decode_on_cluster(x_, g, flat, s_, k, cluster or dk.decode_cluster(k))
+                   for s_ in parts]
+            return torch.cat(out), x_, g
+
+        def plain():
+            carry, out = carry0, []
+            for s_ in parts:
+                carry, vals = ar.plain_decode_gaussian_lanes(carry, flat, s_, k)
+                out.append(vals)
+            return (torch.cat(out), *carry)
+
+        label = f"k={k}, 3 segments of {WIDE_STEPS // 3} steps"
+        case, got = _coder_case(torch, "gaussian_decode_lanes", label, kern, plain, on_card,
+                                sym.numel() * 8 + int(total) * 4 + 3 * (k * 16 + 16),
+                                _search_ops(torch, sigma), 3)
+        if not torch.equal(got[0], sym):
+            raise AssertionError(f"D4 {label}: decoded other symbols")
+        if on_card:
+            device_ms = _coder_splits(torch, "gaussian_decode_lanes", label,
+                                      _d4_calls(dk, k, kern), got,
+                                      _d4_key(dk, k, dk.decode_cluster(k)), 3)
+            per_k[k] = None if device_ms is None else device_ms / 3
+            log("d4_wide " + json.dumps({
+                "k": k, "steps": WIDE_STEPS, "clusters": dk.decode_clusters(k),
+                "chosen": list(_d4_key(dk, k, dk.decode_cluster(k))),
+                "device_ms_per_launch": per_k[k],
+                "device_us_per_step": None if per_k[k] is None
+                else per_k[k] * 1e3 / (WIDE_STEPS // 3),
+                "call_ms_per_3_launches": case["ms"], "plain_ms": case["plain_ms"],
+                "bound_ms": case["bound_ms"]}))
+
+    codec = _load_codec(device)
+    enc = codec.compress_device_analytic(x8, k=WIDE_CODEC_K)
+    again = codec.compress_device_analytic(x8, k=WIDE_CODEC_K)
+    if not np.array_equal(enc["packed"], again["packed"]):
+        raise AssertionError("two encodes of one batch wrote other containers")
+    n_slice = enc["y_hat"].numel() // codec.module.num_slices
+    decode_ms = {}
+    chosen, wrapper_choice = dk.decode_cluster(WIDE_CODEC_K), dk.decode_cluster
+    for cluster in [None] + dk.decode_clusters(WIDE_CODEC_K):
+        if cluster is not None:
+            dk.decode_cluster = lambda k, c=cluster: c  # noqa: E731  (forced, then restored)
+        try:
+            dec, ms, _ = _timed(torch, device, lambda: codec.decompress_device_analytic(enc))
+        finally:
+            dk.decode_cluster = wrapper_choice
+        decode_ms["wrapper" if cluster is None else str(cluster)] = ms
+        if not torch.equal(dec["y_hat"], enc["y_hat"]):
+            raise AssertionError(f"analytic codec k={WIDE_CODEC_K}, cluster {cluster}: the "
+                                 f"decode did not reproduce y_hat")
+    log("wide_codec " + json.dumps({
+        "model": "TCM-S", "batch": len(x8), "hw": list(x8.shape[1:3]), "k": WIDE_CODEC_K,
+        "steps_per_slice": n_slice // WIDE_CODEC_K, "clusters": dk.decode_clusters(WIDE_CODEC_K),
+        "wrapper_cluster": chosen, "y_hat_exact_on_every_cluster": True,
+        "same_container_twice": True, "bpp": enc["nbytes"] * 8 / (x8.shape[0] * x8.shape[1]
+                                                                  * x8.shape[2]),
+        "decode_ms": decode_ms}))
+    log(f"wide lanes: phase wall {time.perf_counter() - t0:.1f} s")
+    return per_k
+
+
+# ---------------------------- sharded coders ----------------------------
+
+
+def _same_streams(a, b) -> bool:
+    """Two device-coder results (a dict with "packed" or "device_streams")
+    or lists of host-coder dicts with equal streams."""
+    if isinstance(a, list):
+        return [e["strings"] for e in a] == [e["strings"] for e in b]
+    if "packed" in a:
+        return bool(np.array_equal(a["packed"], b["packed"]))
+    return all(np.array_equal(u, v) for name in ("y", "z")
+               for u, v in zip(a["device_streams"][name], b["device_streams"][name]))
+
+
+def phase_sharded_coders(torch, device, batches):
+    """The device-coder and pipelined paths after ``shard_for_inference`` in
+    a world of one (NCCL on the card), TCM-S with the committed weights, on
+    ``batches`` (two batches of two 768x512 images): compress_device /
+    decompress_device and the analytic pair on the first batch,
+    compress_pipelined, roundtrip_pipelined, serve_roundtrip_pipelined,
+    serve_roundtrip_metrics and roundtrip_device_pipelined over both; every
+    stream byte-identical to an unsharded codec's same call, every decode
+    exact, ms of each side printed. Then ``parallel/dryrun.py``'s
+    ``dryrun_multichip(1)``: its own rank process, one train step of its
+    small TCM, a finite loss."""
+    from reslic_tcm_tpu_torch.parallel import dryrun
+    from reslic_tcm_tpu_torch.parallel.multihost import free_port, initialize_distributed
+
+    t0 = time.perf_counter()
+    one = _load_codec(device)
+    served = _load_codec(device)
+    x = batches[0]
+    initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0, device)
+    try:
+        served.shard_for_inference()
+        rows = []
+        for name, call, check in (
+                ("compress_device", lambda c: c.compress_device(x, k=DC_K),
+                 lambda c, e: c.decompress_device(e)),
+                ("compress_device_analytic", lambda c: c.compress_device_analytic(x, k=DC_K),
+                 lambda c, e: c.decompress_device_analytic(e)),
+                ("compress_pipelined", lambda c: c.compress_pipelined(batches), None),
+                ("roundtrip_pipelined", lambda c: c.roundtrip_pipelined(batches), None),
+                ("serve_roundtrip_pipelined",
+                 lambda c: c.serve_roundtrip_pipelined(batches, k=SERVE_K), None),
+                ("serve_roundtrip_metrics",
+                 lambda c: c.serve_roundtrip_metrics(batches, k=SERVE_K), None),
+                ("roundtrip_device_pipelined",
+                 lambda c: c.roundtrip_device_pipelined(batches, k=DC_K), None)):
+            want, ms_one = _run_plain(torch, lambda: call(one), device == "cuda")
+            got, ms_sh = _run_plain(torch, lambda: call(served), device == "cuda")
+            if name in ("compress_device", "compress_device_analytic"):
+                same = _same_streams(got, want)
+                exact = bool(torch.equal(check(served, got)["y_hat"], got["y_hat"]))
+            elif name == "compress_pipelined":
+                same, exact = _same_streams(got, want), True
+            elif name == "roundtrip_pipelined":
+                same = all(_same_streams(g["encs"], w["encs"]) for g, w in zip(got, want))
+                exact = all(torch.equal(g["y_hat"], torch.cat([e["y_hat"] for e in g["encs"]]))
+                            for g in got)
+            else:
+                same = all(_same_streams(g["enc"], w["enc"]) for g, w in zip(got, want))
+                exact = all(torch.equal(g["y_hat"], g["enc"]["y_hat"]) for g in got)
+            rows.append({"path": name, "streams_equal": same, "exact": exact,
+                         "ms_sharded": ms_sh, "ms_unsharded": ms_one})
+            log("sharded_coder " + json.dumps(rows[-1]))
+            if not (same and exact):
+                raise AssertionError(f"sharded {name}: streams or decodes differ from the "
+                                     f"unsharded codec's")
+    finally:
+        torch.distributed.destroy_process_group()
+    t1 = time.perf_counter()
+    loss = dryrun.dryrun_multichip(1, device)
+    log(f"dryrun_multichip(1) on {device}: loss {loss:.6f}, {time.perf_counter() - t1:.1f} s "
+        f"with its rank process's start")
+    log(f"sharded coders: phase wall {time.perf_counter() - t0:.1f} s")
 
 
 # -------------------------------- train ---------------------------------
@@ -3257,6 +3501,8 @@ def main() -> int:
             torch, "cpu", (256, 256), pipe_batches, repeats=1)
         launches["tiled"] = phase_parallel(torch, "cpu", pipe_batches[0], (640, 512), 256, 4,
                                            train_batch=2, train_hw=(128, 128))
+        phase_wide_lanes(torch, "cpu", pipe_batches[0])
+        phase_sharded_coders(torch, "cpu", [pipe_batches[0][:1], pipe_batches[0][1:]])
         for slice_name in TRAIN_SLICES:
             phase_train(torch, "cpu", slice_name, 2, (128, 128), 1, 2)
         phase_train_bf16(torch, "cpu", "tcm192", 2, (128, 128), 1, 2)
@@ -3308,6 +3554,10 @@ def main() -> int:
     lap("phase 5e device coder")
     paths["tiled"] = phase_parallel(torch, "cuda", pipe_batches[0])
     lap("phase 5f parallel")
+    phase_wide_lanes(torch, "cuda", pipe_batches[0])
+    lap("phase 5j wide lanes")
+    phase_sharded_coders(torch, "cuda", [pipe_batches[0][:2], pipe_batches[0][2:4]])
+    lap("phase 5k sharded coders")
     bf16_paths = phase_bf16(torch, codecs, "cuda", IMAGE_HW)
     bf16_paths.update(phase_bf16_codecs(torch, codecs, "cuda", IMAGE_HW))
     lap("phase 5g bf16")

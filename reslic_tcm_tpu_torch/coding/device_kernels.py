@@ -14,7 +14,12 @@
   a symbol lies in a bin of width zero, as the plain version does;
 * ``gaussian_decode_lanes`` (D4): the analytic grouped decode of one
   segment, the carry updated in place, its lanes spread over a cluster of
-  ``decode_cluster(k)`` CTAs, a thread a lane.
+  ``decode_cluster(k)`` CTAs, a thread a lane up to 16,384 lanes and
+  ``decode_lanes_per_thread(k, cluster)`` consecutive lanes a thread,
+  kept in global memory, beyond that.
+
+Each takes any lane count k that its tensors can index (k below 2^31), as
+the JAX package's scans do.
 
 They replace the JAX package's lax.scan lane loops, not Pallas kernels.
 Each wrapper takes CUDA tensors only and raises on anything else (a CPU
@@ -32,7 +37,7 @@ import torch
 
 from ..ops import build
 
-MAX_GAUSSIAN_LANES = 8192  # D4: a cluster of 16 CTAs of up to 512 lanes
+MAX_LANES = 2**31 - 1  # every kernel indexes its lanes with a C int
 MAX_SHARED_BYTES = 232448  # shared memory a CTA can take on an H100 (D2's staged table)
 # D2's variants, (lanes a CTA, table staged in shared memory):
 # csrc/device_rans.cu's TABLE_DECODE_INSTANCES, in that order. On an H100
@@ -46,16 +51,24 @@ DECODE_CLUSTERS = (1, 2, 4, 8, 16)
 
 
 def decode_clusters(k: int) -> list:
-    """D4's cluster sizes K that fit k lanes: K <= k, and a CTA of
-    ceil(k / K) lanes, a thread a lane, within 1024 threads."""
-    return [c for c in DECODE_CLUSTERS if c <= k and -(-k // c) <= MAX_THREADS]
+    """D4's cluster sizes K for k >= 1 lanes: every K <= k (1 at least)."""
+    return [c for c in DECODE_CLUSTERS if c <= k]
 
 
 def decode_cluster(k: int) -> int:
-    """D4's cluster size at k lanes: the largest that fits (0 where none
-    does). On an H100 (PERF.md §6) 16 CTAs were the fastest at k=4096 and
-    within 1% of the fastest at k=1024; the result does not depend on it."""
+    """D4's cluster size at k lanes: the largest (0 for k < 1). On an H100
+    (PERF.md §6) 16 CTAs were the fastest at k=4096 and within 1% of the
+    fastest at k=1024; the result does not depend on it."""
     return max(decode_clusters(k), default=0)
+
+
+def decode_lanes_per_thread(k: int, cluster: int) -> int:
+    """The lanes a thread of D4 holds at k lanes on ``cluster`` CTAs: 1 (its
+    one-lane form, state in registers) where a CTA of ceil(k / cluster)
+    lanes fits in 1024 threads, else as many as put the CTA within 1024
+    threads (its form that keeps the states in global memory;
+    csrc/device_rans.cu's one_lane_a_thread and launcher)."""
+    return -(-(-(-k // cluster)) // MAX_THREADS)
 
 
 def _lib() -> ctypes.CDLL:
@@ -240,9 +253,9 @@ def decode_on_cluster(x, g, flat, sigma, k: int, cluster: int):
     size use."""
     dev = _require_cuda("gaussian_decode_lanes", sigma)
     steps = _steps(sigma.numel(), k)
-    if k > MAX_GAUSSIAN_LANES:
-        raise ValueError(f"the gaussian_decode_lanes kernel takes up to "
-                         f"{MAX_GAUSSIAN_LANES} lanes, got {k}")
+    if k > MAX_LANES:
+        raise ValueError(f"the gaussian_decode_lanes kernel indexes up to {MAX_LANES} lanes, "
+                         f"got {k}")
     if cluster not in decode_clusters(k):
         raise ValueError(f"the gaussian_decode_lanes kernel has no cluster of {cluster} CTAs "
                          f"at k={k}; it has {decode_clusters(k)}")

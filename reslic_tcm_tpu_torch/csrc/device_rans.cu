@@ -47,9 +47,11 @@
 //   pointer: the lanes are spread over a thread-block cluster of K CTAs,
 //   which exchange their per-step counts of renormalising lanes through
 //   distributed shared memory behind one cluster barrier a step. A thread
-//   serves each lane and searches its bin in halvings that stop when the
-//   bin is found; the next step's parameters are computed while the barrier
-//   waits.
+//   serves one lane (up to 16,384 lanes on 16 CTAs) or, beyond that,
+//   several consecutive lanes whose states it keeps in global memory; it
+//   searches each lane's bin in halvings that stop when the bin is found;
+//   with a lane a thread the next step's parameters are computed while the
+//   barrier waits.
 //
 // D3 divides with exact integer / and %, D1 with its reciprocal: both give
 // the quotient of JAX's float estimate with its two corrections.
@@ -592,110 +594,222 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire;" ::: "memory");
 }
 
-// One stream over a cluster of K CTAs (the grid). CTA rank r holds lanes
-// r * per_cta .. (r + 1) * per_cta - 1, a thread a lane, so the lanes are
-// in rank order through the CTAs and warps. Per step each lane searches
-// its bin over the analytic boundaries in halvings of [lo, hi] that stop
-// when lo == hi (ceil(log2 nb) of them at most, against JAX's fixed 11);
-// B(lo) and B(lo + 1), which start and freq need, are values a halving
-// computed (B(0) = 0 and B(nb) = 2^16 where none did). Then the
-// renormalising lanes take consecutive words after the shared stream
-// pointer g in lane order: a warp ballot and the warp counts give each its
-// rank in the CTA; one thread per peer writes the CTA's count into slot
-// [s & 1][r] of every CTA of the cluster (distributed shared memory), and
-// after the cluster barrier each CTA adds the lower ranks' counts for its
-// offset and all of them for g (replicated in every CTA). Slot parity makes
-// one barrier a step enough: a CTA writes slot s & 1 again only after the
-// barrier of step s + 1, which every CTA passes only after reading step
-// s's counts. A barrier before the first step makes sure that every CTA
-// of the cluster runs before any writes into its shared memory; the last
-// step's barrier, that none exits while a peer still writes there. The
-// window's start is clamped to n_flat - k, as XLA's dynamic_slice clamps
-// it. K is a template parameter so that each cluster size is a kernel of
-// its own name (the profiler times each).
+// The analytic bin of cf under q: the last s in [0, hi] with B(s) <= cf
+// (hi = nb - 1 for a lane, 0 for none), found in halvings of [lo, hi] that
+// stop when lo == hi (ceil(log2 nb) of them at most, against JAX's fixed
+// 11); B(lo) and B(lo + 1), which start and freq need, are values a halving
+// computed (B(0) = 0 and B(nb) = 2^16 where none did).
+__device__ __forceinline__ int find_bin(uint32_t cf, int hi, const Params& q, uint32_t& b_lo,
+                                        uint32_t& b_hi) {
+  int lo = 0;
+  b_lo = 0;
+  b_hi = static_cast<uint32_t>(kTotal);
+  while (lo < hi) {
+    const int m = lo + (hi - lo + 2) / 2;
+    const uint32_t b = boundary(m, q);
+    if (b <= cf) {
+      lo = m;
+      b_lo = b;
+    } else {
+      hi = m - 1;
+      b_hi = b;
+    }
+  }
+  return lo;
+}
+
+// The first half of a step's exchange in D4's form with several lanes a
+// thread. cnt: the calling thread's renormalising lanes this step. An
+// inclusive scan of the counts over the warp gives each thread's lanes
+// before its own in the warp; the warps' counts go to shared memory, the
+// CTA's count into slot [par][rank] of every CTA of the cluster
+// (distributed shared memory, one thread a peer); then the thread arrives
+// on the cluster barrier. Returns the CTA's renormalising lanes before the
+// thread's.
 template <int K>
+__device__ __forceinline__ int publish_counts(cg::cluster_group& cluster, int rank, int cnt,
+                                              int par, int* warp_counts, int (*cta_counts)[K]) {
+  const int t = threadIdx.x, warp = t >> 5, wl = t & 31;
+  const int nwarps = blockDim.x >> 5;
+  int incl = cnt;  // the renormalising lanes of the warp's threads up to this one
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, incl, d);
+    if (wl >= d) incl += v;
+  }
+  if (wl == 31) warp_counts[warp] = incl;
+  __syncthreads();
+  const int wc = wl < nwarps ? warp_counts[wl] : 0;
+  const int warp_off = __reduce_add_sync(0xffffffffu, wl < warp ? wc : 0);
+  const int cta_count = __reduce_add_sync(0xffffffffu, wc);
+  if (t < K) *cluster.map_shared_rank(&cta_counts[par][rank], t) = cta_count;
+  cluster_arrive();
+  return warp_off + incl - cnt;
+}
+
+// The second half, after the cluster barrier's wait: (the renormalising
+// lanes of the CTAs before this one, those of the whole cluster).
+template <int K>
+__device__ __forceinline__ int2 cluster_counts(int rank, int par, int (*cta_counts)[K]) {
+  const int wl = threadIdx.x & 31;
+  const int cc = wl < K ? cta_counts[par][wl] : 0;
+  return make_int2(__reduce_add_sync(0xffffffffu, wl < rank ? cc : 0),
+                   __reduce_add_sync(0xffffffffu, cc));
+}
+
+// D4's two forms: a thread a lane, its state and parameters in registers
+// (the kernel's only form while the wrapper took at most 8192 lanes, kept
+// line for line but for its search, now find_bin, so that its time
+// stays), wherever a CTA of ceil(k / K) lanes fits in kMaxThreads
+// threads, that is every k up to 16,384 on 16 CTAs: ptxas (sm_90a) gives
+// it 32 of the 64 registers a thread has at 1024 threads, no spill, so the
+// 8192 lanes that the wrapper once allowed were its own limit, not the
+// kernel's; beyond that, ceil(per_cta / kMaxThreads) consecutive lanes a
+// thread, each lane's state kept in x_io and its parameters computed at
+// its step (39 registers). Forms holding 2 and 4 lanes a thread in
+// registers took as long a lane-step as this one on an H100 (PERF.md
+// section 6); with 8 they spilled.
+__host__ __device__ constexpr bool one_lane_a_thread(int per_cta) {
+  return per_cta <= kMaxThreads;
+}
+
+// One stream over a cluster of K CTAs (the grid). CTA rank r holds lanes
+// r * per_cta .. (r + 1) * per_cta - 1 and its thread t the lpt of them
+// from r * per_cta + t * lpt on (lpt = 1 where kOneLane), so lane order
+// runs through the ranks, the threads and each thread's lanes: the
+// stream's order. Per step each lane finds its bin (find_bin); then the
+// renormalising lanes take consecutive words after the shared stream
+// pointer g in lane order: each thread's rank in its CTA comes from the
+// warps' counts, the CTA's count goes to every CTA of the cluster, and
+// after the cluster barrier each CTA adds the lower ranks' counts for its
+// offset and all of them for g (replicated in every CTA).
+// Slot parity makes one barrier a step enough: a CTA writes slot s & 1
+// again only after the barrier of step s + 1, which every CTA passes only
+// after reading step s's counts. A barrier before the first step makes
+// sure that every CTA of the cluster runs before any writes into its
+// shared memory; the last step's barrier, that none exits while a peer
+// still writes there. The window's start is clamped to n_flat - k, as
+// XLA's dynamic_slice clamps it. With a lane a thread the next step's sigma
+// is read during the search and its parameters computed while the barrier
+// waits, and a warp ballot ranks the renormalising lanes; with lanes in
+// memory each lane's parameters are computed when it is decoded, its state
+// read from and written to x_io, and its renormalising word taken in a
+// second pass over the thread's lanes. K and kOneLane are template
+// parameters so that each instance is a kernel of its own name (the
+// profiler times each).
+template <int K, bool kOneLane>
 __global__ void __launch_bounds__(kMaxThreads)
 gaussian_decode_kernel(long long* __restrict__ x_io, long long* __restrict__ g_io,
                        const int* __restrict__ flat, long long n_flat,
-                       const float* __restrict__ sigma, int steps, int k, int per_cta,
+                       const float* __restrict__ sigma, int steps, int k, int per_cta, int lpt,
                        int* __restrict__ out) {
   __shared__ int warp_counts[kMaxThreads / 32];
   __shared__ int cta_counts[2][K];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
-  const int t = threadIdx.x;
-  const int warp = t >> 5, wl = t & 31;
-  const int nwarps = blockDim.x >> 5;
-  const int lane = rank * per_cta + t;
-  const bool active = t < per_cta && lane < k;
-  uint32_t x = active ? static_cast<uint32_t>(x_io[lane]) : 0u;
   long long g = *g_io;
   const long long last_start = n_flat - k;
-  Params q{};
-  cluster_arrive_relaxed();
-  if (active && steps > 0) q = coder_params(sigma[lane]);
-  cluster_wait();
-  for (int s = 0; s < steps; ++s) {
-    const long long p = static_cast<long long>(s) * k + lane;
-    const int par = s & 1;
-    const bool more = s + 1 < steps;
-    float sigma_next = 1.0f;
-    if (active && more) sigma_next = sigma[p + k];  // in flight during the search
-    const uint32_t cf = x & kMask16;
-    int lo = 0, hi = active ? q.nb - 1 : 0;
-    uint32_t b_lo = 0, b_hi = static_cast<uint32_t>(kTotal);  // B(lo), B(hi + 1)
-    while (lo < hi) {
-      const int m = lo + (hi - lo + 2) / 2;
-      const uint32_t b = boundary(m, q);
-      if (b <= cf) {
-        lo = m;
-        b_lo = b;
-      } else {
-        hi = m - 1;
-        b_hi = b;
-      }
-    }
-    bool need = false;
-    if (active) {
-      x = (b_hi - b_lo) * (x >> 16) + cf - b_lo;
-      need = x < kRansL;
-      out[p] = lo - q.c;
-    }
-    // the CTA's renormalising lanes: ranks within each warp, then the warps
-    const unsigned votes = __ballot_sync(0xffffffffu, need);
-    if (wl == 0) warp_counts[warp] = __popc(votes);
-    __syncthreads();
-    const int wc = wl < nwarps ? warp_counts[wl] : 0;
-    const int warp_off = __reduce_add_sync(0xffffffffu, wl < warp ? wc : 0);
-    const int cta_count = __reduce_add_sync(0xffffffffu, wc);
-    if (t < K) *cluster.map_shared_rank(&cta_counts[par][rank], t) = cta_count;
-    cluster_arrive();
-    if (active && more) q = coder_params(sigma_next);
+  if constexpr (kOneLane) {  // the one-lane form, unchanged (its search is find_bin)
+    const int t = threadIdx.x;
+    const int warp = t >> 5, wl = t & 31;
+    const int nwarps = blockDim.x >> 5;
+    const int lane = rank * per_cta + t;
+    const bool active = t < per_cta && lane < k;
+    uint32_t x = active ? static_cast<uint32_t>(x_io[lane]) : 0u;
+    Params q{};
+    cluster_arrive_relaxed();
+    if (active && steps > 0) q = coder_params(sigma[lane]);
     cluster_wait();
-    const int cc = wl < K ? cta_counts[par][wl] : 0;
-    const int cta_off = __reduce_add_sync(0xffffffffu, wl < rank ? cc : 0);
-    const int total = __reduce_add_sync(0xffffffffu, cc);
-    if (need) {
-      long long start = g < last_start ? g : last_start;
-      if (start < 0) start = 0;
-      const int r = cta_off + warp_off + __popc(votes & ((1u << wl) - 1u));
-      x = (x << 16) | static_cast<uint32_t>(flat[start + r]);
+    for (int s = 0; s < steps; ++s) {
+      const long long p = static_cast<long long>(s) * k + lane;
+      const int par = s & 1;
+      const bool more = s + 1 < steps;
+      float sigma_next = 1.0f;
+      if (active && more) sigma_next = sigma[p + k];  // in flight during the search
+      const uint32_t cf = x & kMask16;
+      uint32_t b_lo, b_hi;
+      const int lo = find_bin(cf, active ? q.nb - 1 : 0, q, b_lo, b_hi);
+      bool need = false;
+      if (active) {
+        x = (b_hi - b_lo) * (x >> 16) + cf - b_lo;
+        need = x < kRansL;
+        out[p] = lo - q.c;
+      }
+      // the CTA's renormalising lanes: ranks within each warp, then the warps
+      const unsigned votes = __ballot_sync(0xffffffffu, need);
+      if (wl == 0) warp_counts[warp] = __popc(votes);
+      __syncthreads();
+      const int wc = wl < nwarps ? warp_counts[wl] : 0;
+      const int warp_off = __reduce_add_sync(0xffffffffu, wl < warp ? wc : 0);
+      const int cta_count = __reduce_add_sync(0xffffffffu, wc);
+      if (t < K) *cluster.map_shared_rank(&cta_counts[par][rank], t) = cta_count;
+      cluster_arrive();
+      if (active && more) q = coder_params(sigma_next);
+      cluster_wait();
+      const int2 counts = cluster_counts<K>(rank, par, cta_counts);
+      if (need) {
+        long long start = g < last_start ? g : last_start;
+        if (start < 0) start = 0;
+        const int r = counts.x + warp_off + __popc(votes & ((1u << wl) - 1u));
+        x = (x << 16) | static_cast<uint32_t>(flat[start + r]);
+      }
+      g += counts.y;
     }
-    g += total;
+    if (active) x_io[lane] = x;
+  } else {
+    const long long first = static_cast<long long>(threadIdx.x) * lpt;  // in the CTA
+    const long long lane0 = static_cast<long long>(rank) * per_cta + first;
+    // this thread's lanes: fewer than lpt (or none) at the CTA's or the stream's end
+    const int n = static_cast<int>(
+        max(0LL, min(min(static_cast<long long>(lpt), per_cta - first), k - lane0)));
+    cluster_arrive_relaxed();
+    cluster_wait();
+    for (int s = 0; s < steps; ++s) {
+      const long long p = static_cast<long long>(s) * k + lane0;
+      const int par = s & 1;
+      int cnt = 0;
+      for (int j = 0; j < n; ++j) {
+        uint32_t x = static_cast<uint32_t>(x_io[lane0 + j]);
+        const uint32_t cf = x & kMask16;
+        const Params q = coder_params(sigma[p + j]);
+        uint32_t b_lo, b_hi;
+        const int lo = find_bin(cf, q.nb - 1, q, b_lo, b_hi);
+        x = (b_hi - b_lo) * (x >> 16) + cf - b_lo;
+        out[p + j] = lo - q.c;
+        x_io[lane0 + j] = x;
+        cnt += x < kRansL;
+      }
+      const int before = publish_counts<K>(cluster, rank, cnt, par, warp_counts, cta_counts);
+      cluster_wait();
+      const int2 counts = cluster_counts<K>(rank, par, cta_counts);
+      if (cnt) {
+        long long start = g < last_start ? g : last_start;
+        if (start < 0) start = 0;
+        int r = counts.x + before;
+        for (int j = 0; j < n; ++j) {
+          const uint32_t x = static_cast<uint32_t>(x_io[lane0 + j]);
+          if (x < kRansL) {
+            x_io[lane0 + j] = (x << 16) | static_cast<uint32_t>(flat[start + r]);
+            ++r;
+          }
+        }
+      }
+      g += counts.y;
+    }
   }
-  if (active) x_io[lane] = x;
-  if (rank == 0 && t == 0) *g_io = g;
+  if (rank == 0 && threadIdx.x == 0) *g_io = g;
 }
 
-template <int K>
+template <int K, bool kOneLane>
 int launch_gaussian_decode(long long* x, long long* g, const int* flat, long long n_flat,
                            const float* sigma, int steps, int k, int* out, cudaStream_t s) {
   const int per_cta = (k + K - 1) / K;
-  const int threads = (per_cta + 31) / 32 * 32;
+  const int lpt = kOneLane ? 1 : (per_cta + kMaxThreads - 1) / kMaxThreads;
+  const int threads = ((per_cta + lpt - 1) / lpt + 31) / 32 * 32;
   if (threads > kMaxThreads || K > k) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaSuccess;
   if (K > 8) {
-    e = cudaFuncSetAttribute(gaussian_decode_kernel<K>,
+    e = cudaFuncSetAttribute(gaussian_decode_kernel<K, kOneLane>,
                              cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
@@ -711,15 +825,15 @@ int launch_gaussian_decode(long long* x, long long* g, const int* flat, long lon
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, gaussian_decode_kernel<K>, x, g, flat, n_flat, sigma, steps, k,
-                         per_cta, out);
+  e = cudaLaunchKernelEx(&cfg, gaussian_decode_kernel<K, kOneLane>, x, g, flat, n_flat, sigma,
+                         steps, k, per_cta, lpt, out);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Instances (CTAs in the cluster): coding/device_kernels.py's
-// DECODE_CLUSTERS; a launch refuses a cluster larger than k or whose CTA
-// of ceil(k / K) lanes needs more than 1024 threads.
+// Instances: CTAs in the cluster (coding/device_kernels.py's
+// DECODE_CLUSTERS), each in both forms; a launch refuses a cluster larger
+// than k.
 #define DECODE_INSTANCES(X) X(1) X(2) X(4) X(8) X(16)
 
 int blocks_for(int k, int threads) { return (k + threads - 1) / threads; }
@@ -776,16 +890,21 @@ int gaussian_encode_lanes(const int* symbols, const float* sigma, int steps, int
 }
 
 // D4. x: [k] states; g: [1] stream pointer; flat: n_flat words (n_flat >= k);
-// sigma, out: [steps * k]. cluster: one of DECODE_INSTANCES, at most k,
-// with ceil(k / cluster) lanes a CTA at most 1024. The result does not
-// depend on the cluster size.
+// sigma, out: [steps * k]. cluster: one of DECODE_INSTANCES, at most k; the
+// form (a lane a thread, or lanes in memory) follows from k and cluster
+// (one_lane_a_thread). The result does not depend on the cluster size.
 int gaussian_decode_lanes(long long* x, long long* g, const int* flat, long long n_flat,
                           const float* sigma, int steps, int k, int cluster, int* out,
                           void* stream) {
-  if (k <= 0 || steps < 0 || n_flat < k) return static_cast<int>(cudaErrorInvalidValue);
+  if (k <= 0 || steps < 0 || n_flat < k || cluster <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define DECODE_CASE(c) \
-  if (cluster == c) return launch_gaussian_decode<c>(x, g, flat, n_flat, sigma, steps, k, out, s);
+  const bool one_lane = one_lane_a_thread((k + cluster - 1) / cluster);
+#define DECODE_CASE(c)                                                                        \
+  if (cluster == c)                                                                           \
+    return one_lane                                                                           \
+               ? launch_gaussian_decode<c, true>(x, g, flat, n_flat, sigma, steps, k, out, s) \
+               : launch_gaussian_decode<c, false>(x, g, flat, n_flat, sigma, steps, k, out, s);
   DECODE_INSTANCES(DECODE_CASE)
 #undef DECODE_CASE
   return static_cast<int>(cudaErrorInvalidValue);

@@ -56,9 +56,23 @@ i in worker threads while the next batches encode. On the CPU the same
 code runs in order.
 
 Data-parallel serving (``shard_for_inference``): with the codec on every
-rank of a process group, ``compress_batch`` and ``decompress_batch`` code a
-batch that the ranks divide in rows, rank r its own, and hand every rank
-the whole batch's results.
+rank of a process group, each path codes a batch that the ranks divide in
+rows, rank r its own, and hands every rank the whole batch's results; a
+batch the ranks do not divide runs whole on every rank. The host-coder
+paths (``compress_batch``, ``decompress_batch``, ``compress_pipelined``,
+``roundtrip_pipelined``) code each rank's rows into their per-image
+streams and gather the streams. The device coder's paths keep one stream
+for the batch, the one-process codec's byte for byte: each rank runs the
+model stages (analysis, hyper-synthesis, each slice's mu and sigma and its
+LRP) on its rows, and the lane coders code the whole batch on every rank.
+The encoder gathers the slices' symbols and sigma (or scale indexes), z
+and y_hat once its slice walk is done; the decoder decodes z whole,
+gathers each slice's sigma (or indexes) before that slice's lane decoder
+and keeps its own rows of the decoded symbols after it, then gathers
+y_hat and the pixels. Every collective is issued from the calling thread
+in the same order on every rank: the pipelined paths gather in the
+calling thread, and the serving pipelines run their encoder and decoder
+in one worker thread after ``shard_for_inference``.
 """
 
 from __future__ import annotations
@@ -507,26 +521,25 @@ class ChannelARCodec(MatmulPrecision):
         image's y and z streams on the host. After ``shard_for_inference``
         a batch that the ranks divide is coded in rows, and every rank
         returns every image's entry."""
-        if not self._split(len(x)):
-            return self._code_staged(self._encode_device_stage(x, lv), lv)
-        mesh = self._inference_mesh
-        encs = self._code_staged(self._encode_device_stage(distribute_batch(mesh, x), lv), lv)
-        # the streams go through the host, y_hat stays on the device
-        y_hat = gather_cat(torch.cat([e.pop("y_hat") for e in encs]), mesh)
-        encs = gather_objects(encs, mesh)
-        for e, y in zip(encs, y_hat.split(1)):
-            e["y_hat"] = y
-        return encs
+        split = self._split(len(x))
+        encs = self._code_staged(self._encode_device_stage(self._rows(x, split), lv), lv)
+        return self._gather_encs(encs) if split else encs
 
     def shard_for_inference(self, mesh=None) -> None:
         """Data-parallel serving over the data ranks of ``mesh`` (a
         DeviceMesh, a ProcessGroup, or None for the default group), the
         codec on each rank's device: the first rank's weights are broadcast
         to every rank (and the tables rebuilt if ``update()`` had run), and
-        from then on ``compress_batch`` and ``decompress_batch`` split each
+        from then on every coding path (the host coder's ``compress_batch``,
+        ``decompress_batch``, ``compress_pipelined``, ``roundtrip_pipelined``;
+        the device coder's ``compress_device*``, ``decompress_device*``,
+        ``serve_roundtrip_*``, ``roundtrip_device_pipelined``) splits each
         batch that the ranks divide into contiguous rows, one block a rank,
-        and gather the results; other batches run whole on every rank. The
-        streams are the one-process codec's, byte for byte."""
+        and gathers the results (module docstring); other batches run whole
+        on every rank. The streams are the one-process codec's, byte for
+        byte, where the model gives each row the bits it gives it in the
+        whole batch (on the CPU: at two rows a rank or more; PyTorch's CPU
+        convolutions round a batch of one otherwise)."""
         broadcast_module(self.module, mesh)
         self._sharded, self._inference_mesh = True, mesh
         if self.eb_tables is not None:
@@ -536,6 +549,33 @@ class ChannelARCodec(MatmulPrecision):
         """Whether a batch of ``b`` is split over the ranks: sharded, and
         the ranks divide it."""
         return self._sharded and b % rank_and_size(self._inference_mesh)[1] == 0
+
+    def _rows(self, batch, split: bool):
+        """This rank's rows of ``batch`` where it is ``split``, else all of it."""
+        return distribute_batch(self._inference_mesh, batch) if split else batch
+
+    def _gather(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's rows of ``t``, in rank order, on every rank."""
+        return gather_cat(t, self._inference_mesh)
+
+    def _gather_encs(self, encs: list) -> list:
+        """Every rank's per-image dicts of ``_code_staged``, in rank order:
+        the streams go through the host, y_hat stays on the device."""
+        y_hat = self._gather(torch.cat([e.pop("y_hat") for e in encs]))
+        encs = gather_objects(encs, self._inference_mesh)
+        for e, y in zip(encs, y_hat.split(1)):
+            e["y_hat"] = y
+        return encs
+
+    def _pools(self, encode_workers: int, decode_workers: int):
+        """The encode and decode executors of a pipeline; after
+        ``shard_for_inference`` one thread runs both, in the order of
+        submission, so that every rank issues its collectives in one order."""
+        if self._sharded:
+            pool = ThreadPoolExecutor(max_workers=1)
+            return pool, pool
+        return (ThreadPoolExecutor(max_workers=encode_workers),
+                ThreadPoolExecutor(max_workers=decode_workers))
 
     def _code_staged(self, staged: dict, lv: int) -> list[dict]:
         """The host stage of a staged batch: wait for its copies, then code
@@ -562,30 +602,41 @@ class ChannelARCodec(MatmulPrecision):
         """Encode a sequence of NHWC batches at rate level ``lv`` with the
         device and the host overlapped: each batch's device stage is
         enqueued while a worker thread waits for an earlier batch's copies
-        and codes it. Returns ``compress_batch``'s dicts, batch after batch."""
+        and codes it. Returns ``compress_batch``'s dicts, batch after batch.
+        After ``shard_for_inference`` each rank codes its rows of a batch
+        that the ranks divide, and the calling thread gathers them."""
         futures = []
         with ThreadPoolExecutor(max_workers=2) as pool:
             for x in batches:
-                futures.append(pool.submit(self._code_staged, self._encode_device_stage(x, lv),
-                                           lv))
-            return [enc for f in futures for enc in f.result()]
+                split = self._split(len(x))
+                futures.append((split, pool.submit(
+                    self._code_staged, self._encode_device_stage(self._rows(x, split), lv), lv)))
+            return [enc for split, f in futures
+                    for enc in (self._gather_encs(f.result()) if split else f.result())]
 
     def roundtrip_pipelined(self, batches, lv: int = 0, decode_workers: int = 2) -> list[dict]:
         """Encode and decode a sequence of NHWC batches at rate level ``lv``
         with the two directions overlapped: batch i decodes in one of
         ``decode_workers`` threads while later batches encode. Returns per
         batch {"encs": compress_batch's dicts, "x_hat", "y_hat"}
-        (``decompress_batch``'s, NHWC)."""
+        (``decompress_batch``'s, NHWC). After ``shard_for_inference`` each
+        rank encodes and decodes its rows of a batch that the ranks divide,
+        and the calling thread gathers the streams and the decodes."""
         def decode(encs):
-            dec = self.decompress_batch([e["strings"] for e in encs], encs[0]["shape"], lv)
+            dec = self._decompress_batch([e["strings"] for e in encs], encs[0]["shape"], lv)
             return {"encs": encs, "x_hat": dec["x_hat"], "y_hat": dec["y_hat"]}
 
         with ThreadPoolExecutor(max_workers=2) as enc_pool, \
                 ThreadPoolExecutor(max_workers=decode_workers) as dec_pool:
-            encoded = [enc_pool.submit(self._code_staged, self._encode_device_stage(x, lv), lv)
-                       for x in batches]
+            splits = [self._split(len(x)) for x in batches]
+            encoded = [enc_pool.submit(self._code_staged,
+                                       self._encode_device_stage(self._rows(x, split), lv), lv)
+                       for x, split in zip(batches, splits)]
             decoded = [dec_pool.submit(decode, f.result()) for f in encoded]
-            return [f.result() for f in decoded]
+            out = [f.result() for f in decoded]
+        return [{"encs": self._gather_encs(r["encs"]), "x_hat": self._gather(r["x_hat"]),
+                 "y_hat": self._gather(r["y_hat"])} if split else r
+                for r, split in zip(out, splits)]
 
     def decompress(self, strings, shape, lv: int = 0) -> dict:
         return self.decompress_batch([strings], shape, lv)
@@ -597,9 +648,8 @@ class ChannelARCodec(MatmulPrecision):
         the ranks divide is decoded in rows and gathered on every rank."""
         if not self._split(len(strings_list)):
             return self._decompress_batch(strings_list, shape, lv)
-        mesh = self._inference_mesh
-        dec = self._decompress_batch(distribute_batch(mesh, strings_list), shape, lv)
-        return {k: gather_cat(v, mesh) for k, v in dec.items()}
+        dec = self._decompress_batch(self._rows(strings_list, True), shape, lv)
+        return {k: self._gather(v) for k, v in dec.items()}
 
     @torch.no_grad()
     @codec_pass
@@ -674,10 +724,19 @@ class ChannelARCodec(MatmulPrecision):
         support ("clamped": how many were); "z" the int32 symbols
         round(z - medians) in NHWC order; "y_hat" (NHWC, what the decoder
         must reproduce); the batch, the z shape and the coder's per-slice
-        symbol count; "x_dev", the NHWC images on the device."""
+        symbol count; "x_dev", the NHWC images on the device. After
+        ``shard_for_inference`` each rank walks the slices on its rows of a
+        batch that the ranks divide, and the whole batch's symbols, sides,
+        z and y_hat are gathered on every rank."""
         self._require_tables()
         x_dev = self._upload(x)
-        z, slices, y_hat = self._encode_slices(to_nchw(x_dev), lv, analytic)
+        split = self._split(x_dev.shape[0])
+        z, slices, y_hat = self._encode_slices(self._rows(to_nchw(x_dev), split), lv, analytic)
+        if split:
+            z, y_hat = self._gather(z), self._gather(y_hat)
+            slices = [(self._gather(sym), self._gather(side),
+                       None if clamped is None else self._gather(clamped[None]).sum())
+                      for sym, side, clamped in slices]
         syms = [_nhwc_flat(s[0]).to(torch.int32) for s in slices]
         side = torch.cat([_nhwc_flat(s[1]) for s in slices])
         out = {"y": torch.cat(syms), "y_hat": to_nhwc(y_hat),
@@ -758,7 +817,9 @@ class ChannelARCodec(MatmulPrecision):
     def decompress_device(self, enc: dict, lv: int = 0) -> dict:
         """Decode ``compress_device``'s streams on the device: the slice
         loop chains the lanes' state with no host round trip. Returns
-        {"x_hat": NHWC in [0, 1], "y_hat": NHWC}."""
+        {"x_hat": NHWC in [0, 1], "y_hat": NHWC}. After
+        ``shard_for_inference`` the ranks split a batch they divide
+        (``_decode_rows``)."""
         tables = self._device_tables(lv)
         k, b = enc["k"], enc["batch"]
         zh, zw = enc["shape"]
@@ -771,8 +832,22 @@ class ChannelARCodec(MatmulPrecision):
                           lambda carry, indexes: dr.decode_segment(
                               carry, y_words, indexes, *yt[:3], k=k, inverse=yt.inverse,
                               packed=yt.packed, search=yt.search))
-        y_hat = self._decode_slices(z_hat, (zh * 4, zw * 4), lv, False, decode)
-        return {"x_hat": to_nhwc(self.module.synthesize(y_hat, lv)), "y_hat": to_nhwc(y_hat)}
+        split = self._split(b)
+        y_hat = self._decode_rows(z_hat, (zh * 4, zw * 4), lv, False, decode, split)
+        out = {"x_hat": self.module.synthesize(y_hat, lv), "y_hat": y_hat}
+        return {key: to_nhwc(self._gather(v) if split else v) for key, v in out.items()}
+
+    def _decode_rows(self, z_hat, y_shape, lv: int, analytic: bool, decode, split: bool):
+        """``_decode_slices`` of the whole batch's ``z_hat`` (NCHW) through a
+        lane decoder ``decode`` of the whole batch's stream; where the batch
+        is ``split``, on this rank's rows: each slice's side of every rank's
+        rows is gathered before the lane decoder, which decodes the whole
+        batch on every rank, and this rank keeps its rows of the symbols.
+        Returns this rank's rows of y_hat (NCHW)."""
+        if not split:
+            return self._decode_slices(z_hat, y_shape, lv, analytic, decode)
+        return self._decode_slices(self._rows(z_hat, True), y_shape, lv, analytic,
+                                   lambda side: self._rows(decode(self._gather(side)), True))
 
     def compress_device_fused(self, x, lv: int = 0, k: int = 1024,
                               cap: int | None = None) -> dict:
@@ -867,12 +942,19 @@ class ChannelARCodec(MatmulPrecision):
         decode = _chained(ar.decode_gaussian_grouped_init(header),
                           lambda carry, sigma: ar.decode_gaussian_grouped_segment(
                               carry, y_words, sigma, k))
-        y_hat = self._decode_slices(z_hat, (zh * 4, zw * 4), lv, True, decode)
-        out = {"y_hat": to_nhwc(y_hat)}
+        split = self._split(b)
+        y_hat = self._decode_rows(z_hat, (zh * 4, zw * 4), lv, True, decode, split)
+        out = {"y_hat": y_hat}
+        if raw_u8:
+            out["rgb_raw"] = m.synthesize_raw_u8(y_hat, lv)
+        else:
+            out["x_hat"] = m.synthesize(y_hat, lv)
+        if split:
+            out = {key: self._gather(v) for key, v in out.items()}
+        out["y_hat"] = to_nhwc(out["y_hat"])
         if not raw_u8:
-            out["x_hat"] = to_nhwc(m.synthesize(y_hat, lv))
+            out["x_hat"] = to_nhwc(out["x_hat"])
             return out
-        out["rgb_raw"] = m.synthesize_raw_u8(y_hat, lv)
         if psnr_vs is not None:
             src = torch.as_tensor(psnr_vs, dtype=torch.float32).to(self.device)
             dec = _unshuffle(out["rgb_raw"]).to(torch.float32) / 255.0
@@ -905,8 +987,8 @@ class ChannelARCodec(MatmulPrecision):
             return enc, host, ready, dec["y_hat"]
 
         results = []
-        with ThreadPoolExecutor(max_workers=1) as enc_pool, \
-                ThreadPoolExecutor(max_workers=1) as dec_pool:
+        enc_pool, dec_pool = self._pools(1, 1)
+        with enc_pool, dec_pool:
             encoded = [enc_pool.submit(self.compress_device_analytic, x, lv, k) for x in batches]
             decoded = [dec_pool.submit(decode, f) for f in encoded]
             for f in decoded:
@@ -928,8 +1010,8 @@ class ChannelARCodec(MatmulPrecision):
             d = self.decompress_device_analytic(enc, lv, raw_u8=True, psnr_vs=enc.pop("x_dev"))
             return enc, d["psnr"].cpu().numpy(), d["y_hat"]
 
-        with ThreadPoolExecutor(max_workers=1) as enc_pool, \
-                ThreadPoolExecutor(max_workers=2) as dec_pool:
+        enc_pool, dec_pool = self._pools(1, 2)
+        with enc_pool, dec_pool:
             encoded = [enc_pool.submit(self.compress_device_analytic, x, lv, k, None, True)
                        for x in batches]
             decoded = [dec_pool.submit(decode, f) for f in encoded]

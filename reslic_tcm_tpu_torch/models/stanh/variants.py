@@ -27,6 +27,7 @@ from ...entropy.stanh_models import (StanhEntropyBottleneck, StanhGaussianCondit
                                      build_stanh_factorized_tables, build_stanh_scale_tables,
                                      stanh_gaussian_likelihood)
 from ...ops.layers import StackedConv1x1, to_nhwc
+from ...ops.math import build_indexes, get_scale_table
 from ..balle2018 import HyperpriorCodec, ScaleHyperprior
 from ..base import ChannelARCodec, codec_pass, fp32_numerics
 from ..tcm import TCM
@@ -65,6 +66,35 @@ class _StanhChannelAR:
 
     def decode_slice_dequant_finish(self, i, mean_support, symbols, mu, lv=0):
         return self._lrp(i, mean_support, self.gaussian_conditional.dequantize(symbols, mu, lv))
+
+    @torch.no_grad()
+    def encode_stanh(self, x, lv: int = 0, scale_table=None) -> dict:
+        """The STanH codec's encoder in one pass (the JAX mixin's
+        ``encode_stanh``): for NCHW images x at level lv, {"z": the hyper
+        latent before rounding, NCHW; "symbols": level lv's level indexes of
+        y - mu (int64), "indexes": the scale indexes of sigma in
+        ``scale_table`` (int32; default the 64-entry Gaussian table), both
+        [S, B, C/S, h, w], slice by slice}. Each slice's y_hat, which the
+        later slices' parameters read, is the decoder's: the levels of its
+        symbols plus mu, then the LRP. JAX's are NHWC: z [B, h, w, C],
+        symbols and indexes [S, B, h, w, C/S]. No codec path calls it (the
+        codecs code with ``quantize_slice``); it is the JAX package's
+        counterpart for callers."""
+        scale_table = get_scale_table() if scale_table is None else torch.as_tensor(scale_table)
+        y, z, z_hat = self.analysis(x, lv)
+        latent_means, latent_scales = self.hyper_synthesis(z_hat, lv)
+        c = self.M // self.num_slices
+        y_hat_slices, symbols, indexes = [], [], []
+        for i in range(self.num_slices):
+            mu, sigma, mean_support = self._mu_sigma(i, latent_means, latent_scales,
+                                                     self.slice_support(y_hat_slices),
+                                                     tuple(y.shape[2:]))
+            sym = self.gaussian_conditional.symbols(y[:, i * c : (i + 1) * c], mu, lv)
+            symbols.append(sym)
+            indexes.append(build_indexes(sigma, scale_table))
+            y_hat_slices.append(self._lrp(i, mean_support,
+                                          self.gaussian_conditional.dequantize(sym, mu, lv)))
+        return {"z": z, "symbols": torch.stack(symbols), "indexes": torch.stack(indexes)}
 
 
 class TCMStanh(_StanhChannelAR, TCM):

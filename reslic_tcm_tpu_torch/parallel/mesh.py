@@ -3,8 +3,12 @@ reslic_tcm_tpu/parallel/mesh.py).
 
 The mesh is a ``torch.distributed`` DeviceMesh over every rank with
 dimensions ``("data", "model")``, rank d * n_model + m holding data row d
-and model column m. The batch is split over "data" (``shard_batch``). The
-parameters are replicated (``replicate``: rank 0's copy broadcast), or, with
+and model column m. The placements are DTensor's: ``batch_sharding`` (the
+batch split over "data", whole on every "model" rank) and ``replicated``
+(whole everywhere), JAX's ``NamedSharding``s of the same names. The batch
+is placed by the first (``shard_batch``: each rank keeps its rows, no
+communication). The parameters are placed by the second (``replicate``:
+rank 0's copy broadcast), or, with
 ``shard_params(tp=True)``, the wide convolutions and linears that
 ``tensor_parallel_specs`` selects hold only their output-channel slice on
 each "model" rank: each such layer computes its slice of the output channels
@@ -25,9 +29,10 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import Replicate, Shard, distribute_tensor
 
 from ..ops.layers import compute_dtype
-from .multihost import broadcast_module, distribute_batch, gather_cat
+from .multihost import gather_cat, local_batch_size
 
 
 def make_mesh(n_data: int | None = None, n_model: int = 1):
@@ -51,16 +56,34 @@ def mesh_device(mesh) -> torch.device:
     return torch.device(mesh.device_type)
 
 
+def batch_sharding(mesh) -> list:
+    """The placement of a batch on ``mesh``: split along its first axis
+    over "data", whole on every "model" rank (JAX's ``P("data", ...)``)."""
+    return [Shard(0), Replicate()]
+
+
+def replicated(mesh) -> list:
+    """The placement of a tensor that every rank holds whole (JAX's ``P()``)."""
+    return [Replicate(), Replicate()]
+
+
 def shard_batch(mesh, batch) -> torch.Tensor:
-    """This rank's rows of the global ``batch`` (its data index's), on its
-    device."""
-    return torch.as_tensor(distribute_batch(mesh, batch)).to(mesh_device(mesh))
+    """This rank's rows of the global ``batch`` (its data index's contiguous
+    block, ``batch_sharding``), on its device. Every rank passes the same
+    batch; nothing is communicated. Raises where "data" does not divide it."""
+    t = torch.as_tensor(batch).to(mesh_device(mesh))
+    local_batch_size(len(t), mesh)
+    return distribute_tensor(t, mesh, batch_sharding(mesh), src_data_rank=None).to_local()
 
 
+@torch.no_grad()
 def replicate(mesh, module: nn.Module) -> nn.Module:
     """``module`` on this rank's device with rank 0's parameters and buffers
-    on every rank (broadcast). Returns the module."""
-    broadcast_module(module.to(mesh_device(mesh)))
+    on every rank (``replicated``: broadcast from the mesh's first rank).
+    Returns the module."""
+    module.to(mesh_device(mesh))
+    for t in list(module.parameters()) + list(module.buffers()):
+        t.copy_(distribute_tensor(t.detach(), mesh, replicated(mesh)).to_local())
     return module
 
 

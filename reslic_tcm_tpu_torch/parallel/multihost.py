@@ -129,7 +129,10 @@ def replicated_to_host(x) -> np.ndarray:
 
 def gather_cat(t: torch.Tensor, mesh=None, dim: int = 0) -> torch.Tensor:
     """Every rank's ``t`` (equal shapes), concatenated along ``dim`` in rank
-    order, on every rank."""
+    order, on every rank. An int16 tensor travels as int32 (NCCL has no
+    16-bit integers)."""
+    if t.dtype == torch.int16:
+        return gather_cat(t.to(torch.int32), mesh, dim).to(torch.int16)
     group = data_group(mesh)
     parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, t.contiguous(), group=group)

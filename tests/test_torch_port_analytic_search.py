@@ -160,16 +160,24 @@ def test_kernel_search_finds_decode_steps_bin(search_case):
     assert int(rounds.min()) == 1 and int(rounds.max()) == 10
 
 
-@pytest.mark.parametrize("k", [1, 2, 3, 4, 7, 8, 15, 16, 96, 1000, 1024, 2048, 4096, 8192])
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 7, 8, 15, 16, 96, 1000, 1024, 2048, 4096, 8192,
+                               8193, 12288, 16384, 16385, 65536, 100000, 131072, 131073, 10**6])
 def test_decode_cluster_fits_one_cta_each(k):
+    """Every k >= 1 gets a cluster: every size up to k, each CTA within 1024
+    threads, a thread a lane where the CTA's lanes fit, else the fewest
+    lanes a thread that fit (kept in memory)."""
     clusters = dk.decode_clusters(k)
     assert clusters and dk.decode_cluster(k) == max(clusters)
+    assert clusters == [c for c in dk.DECODE_CLUSTERS if c <= k]
     for c in clusters:
-        assert c in dk.DECODE_CLUSTERS and c <= k and -(-k // c) <= dk.MAX_THREADS
-    # the codec's k=1024 and the serving path's k=4096 run on 16 CTAs; a
-    # smaller k on the most it fills
+        per_cta, lanes = -(-k // c), dk.decode_lanes_per_thread(k, c)
+        assert -(-per_cta // lanes) <= dk.MAX_THREADS
+        assert (lanes - 1) * dk.MAX_THREADS < per_cta
+    # the codec's k=1024 and the serving path's k=4096 run on 16 CTAs, a
+    # thread a lane up to 16,384 lanes; a smaller k on the most it fills
     assert dk.decode_cluster(k) == min(16, 1 << (k.bit_length() - 1))
-    assert dk.decode_cluster(0) == 0 and dk.decode_clusters(2 * dk.MAX_GAUSSIAN_LANES + 1) == []
+    assert (dk.decode_lanes_per_thread(k, dk.decode_cluster(k)) == 1) == (k <= 16384)
+    assert dk.decode_cluster(0) == 0
 
 
 def test_wrapper_tables_match_the_kernel_instances():

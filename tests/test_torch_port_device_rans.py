@@ -160,6 +160,35 @@ def test_grouped_decoder_chained_over_four_segments_matches_jax(gaussian, groupe
     _eq(PA.decode_gaussian_grouped(_t(header.astype(np.int32)), flat_t, _t(sigma), K), sym)
 
 
+@pytest.mark.parametrize("k", [8193, 16384])
+def test_grouped_decoder_beyond_8192_lanes_matches_jax(k):
+    """At more lanes than D4 once took (8192), three steps of JAX's grouped
+    stream decoded one segment a step: the port's values are the symbols,
+    and its carry equals JAX's after each segment. The kernel has a
+    cluster for such k (csrc/device_rans.cu; tests/test_torch_port_cuda.py
+    holds it to this plain version on the card)."""
+    sigma, sym = gaussian_inputs(13, 3 * k)
+    c = np.asarray(JA.coder_params(jnp.asarray(sigma))["c"])
+    sym = np.clip(sym, -c, c).astype(np.int32)
+    header, flat, total, ovf = jax.jit(lambda s, sg: JA.encode_gaussian_grouped(
+        s, JA.coder_params(sg), k=k, cap=3 * k))(jnp.asarray(sym), jnp.asarray(sigma))
+    assert not bool(ovf)
+    flat = np.concatenate([np.asarray(flat), np.zeros(k, np.uint16)])
+    seg = jax.jit(lambda c, f, sg: JA.decode_gaussian_grouped_segment(
+        c, f, JA.coder_params(sg), k))
+    jcarry = JA.decode_gaussian_grouped_init(header)
+    carry = PA.decode_gaussian_grouped_init(_t(np.asarray(header).astype(np.int32)))
+    flat_t = _t(flat.astype(np.int32))
+    for part in np.split(np.arange(3 * k), 3):
+        jcarry, jvals = seg(jcarry, jnp.asarray(flat), jnp.asarray(sigma[part]))
+        carry, vals = PA.decode_gaussian_grouped_segment(carry, flat_t, _t(sigma[part]), k)
+        _eq(vals, jvals)
+        _eq(vals, sym[part])
+        _eq(carry[0], jcarry[0])
+        assert int(carry[1]) == int(jcarry[1])
+    assert PK.decode_clusters(k) == list(PK.DECODE_CLUSTERS)
+
+
 # ------------------------------- table coder -------------------------------
 
 

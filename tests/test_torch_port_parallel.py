@@ -31,6 +31,24 @@ answers. Held here:
   weights and seed;
 - ``tensor_parallel_specs`` selects the leaves JAX's selects, by name;
 - ``local_batch_size`` and ``distribute_batch`` at world 1 and world 4;
+- at a data group of 2 ranks (the worker's 2 x 2 mesh), the tiny TCM's
+  device-coder and pipelined paths after ``shard_for_inference``:
+  compress_device and compress_device_analytic on a batch of 4 give the
+  streams of an unsharded codec in the same process and of JAX's device
+  codec at the same weights, byte for byte, and decode exactly; 3 images
+  (which the ranks do not divide) run whole; the pipelines
+  (roundtrip_device_pipelined, serve_roundtrip_pipelined and
+  serve_roundtrip_metrics over that batch and its reverse) give the
+  profiles' streams for it and decode every batch exactly; compress_pipelined and
+  roundtrip_pipelined over the serving batch's halves give JAX's streams;
+- ``batch_sharding`` and ``replicated`` place a batch and a tensor as
+  ``shard_batch`` and ``replicate`` do;
+- the dry run (``parallel/dryrun.py``): ``dryrun_multichip(4)`` over gloo
+  (a 2 x 2 mesh, its wide kernels sliced over "model") gives a finite loss
+  within 1e-5 relative of the one-process ``train_step`` on the same
+  weights, zeros and noise (that step is held against JAX's by
+  tests/test_torch_port_train_parity.py; a four-device JAX step would cost
+  minutes of compile), and ``entry()``'s forward runs;
 - the train CLI through ``--coordinator`` in a world of one.
 
 JAX programs are compiled with XLA's optimisations off.
@@ -68,6 +86,7 @@ TOL = 1e-5
 WORLD = 4
 LMBDA = 0.01
 STEP_DIMS = ((4, 1), (2, 2))  # data-parallel, then data x tensor parallel
+DEV_K = 128  # the device coder's lanes on the tiny TCM's batch of 4
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -126,6 +145,8 @@ def run(tmp_path_factory):
         "conv_k": (rng.normal(size=(5, 3, 8, 4)) * 0.1).astype(np.float32),
         "fwd_x": rng.uniform(size=(1, 256, 64, 3)).astype(np.float32),
         "serve_x": np.random.default_rng(7).uniform(size=(8, 128, 128, 3)).astype(np.float32),
+        "dev_x": np.random.default_rng(8).uniform(size=(4, 128, 128, 3)).astype(np.float32),
+        "dev_k": np.int64(DEV_K),
         "step_x": rng.uniform(size=(4, 32, 32, 3)).astype(np.float32),
         # the factorized prior's one draw: y's noise as [C, 1, B*h*w]
         "step_noise": rng.uniform(-0.5, 0.5, size=(128, 1, 4 * 2 * 2)).astype(np.float32),
@@ -154,6 +175,10 @@ def run(tmp_path_factory):
             jc.update()
             jc.shard_for_inference(mesh4)
             want["serve"] = jc.compress_batch(jnp.asarray(inputs["serve_x"]))
+            jd = jax_tiny_tcm()[0]
+            jd.update()
+            want["table"] = jd.compress_device(jnp.asarray(inputs["dev_x"]), k=DEV_K)
+            want["analytic"] = jd.compress_device_analytic(jnp.asarray(inputs["dev_x"]), k=DEV_K)
             want["step"] = _jax_step(balle128, flat128, inputs["step_x"], inputs["step_noise"])
         finally:
             jax.config.update("jax_disable_most_optimizations", off)
@@ -252,6 +277,107 @@ def test_tensor_parallel_specs_select_jax_leaves(run, model, min_channels):
     for name, dim in got.items():
         layer = module.get_submodule(name.rpartition(".")[0])
         assert dim == (1 if isinstance(layer, torch.nn.ConvTranspose2d) else 0), name
+
+
+def _streams(port, prefix) -> dict:
+    return {k[len(prefix):]: v for k, v in port.items() if k.startswith(prefix)}
+
+
+def _jax_streams(enc) -> dict:
+    if "packed" in enc:
+        return {"packed": enc["packed"]}
+    return {f"{name}{i}": np.asarray(a) for name, pair in enc["device_streams"].items()
+            for i, a in enumerate(pair)}
+
+
+@pytest.mark.parametrize("profile", ["table", "analytic", "odd"])
+def test_sharded_device_coder_matches_one_process_and_jax(run, profile):
+    """A data group of 2 ranks against an unsharded codec in the same
+    process: every stream byte-identical, y_hat and the decoded x_hat
+    equal, the decodes exact. The batch of 4 (table, analytic) also
+    against JAX's compress_device and compress_device_analytic; 3 images
+    (odd) run whole on every rank."""
+    port = run["port"]
+    sharded, one = (_streams(port, f"dev/{tag}/{profile}/") for tag in ("sharded", "one"))
+    assert set(sharded) == set(one) and sharded["exact"] and one["exact"]
+    for key, a in one.items():
+        np.testing.assert_array_equal(sharded[key], a, err_msg=key)
+    if profile != "odd":
+        want = _jax_streams(run["jax"][profile])
+        for key, a in want.items():
+            np.testing.assert_array_equal(sharded[key], a, err_msg=key)
+    assert sharded["y_hat"].shape[0] == (3 if profile == "odd" else 4)
+
+
+@pytest.mark.parametrize("path, profile", [("roundtrip_device_pipelined", "table"),
+                                           ("serve_roundtrip_pipelined", "analytic"),
+                                           ("serve_roundtrip_metrics", "analytic")])
+def test_sharded_device_pipelines_give_the_profiles_streams(run, path, profile):
+    """The pipelines over the batch of 4 and its reverse at a data group of
+    2: the first batch's streams are the unsharded profile's, and every
+    batch decodes to its encoder's y_hat."""
+    port = run["port"]
+    first, second = (_streams(port, f"dev/{path}{j}/") for j in (0, 1))
+    assert first.pop("exact") and second.pop("exact")
+    want = _streams(port, f"dev/one/{profile}/")
+    for key, a in first.items():
+        np.testing.assert_array_equal(a, want[key], err_msg=key)
+    assert not all(np.array_equal(a, second[key]) for key, a in first.items())
+
+
+@pytest.mark.parametrize("path", ["compress_pipelined", "roundtrip_pipelined"])
+def test_sharded_host_pipelines_match_jax(run, path):
+    """The pipelined host codec at a data group of 2 over the serving
+    batch's halves: each image's y and z streams are JAX's codec's; the
+    roundtrip decodes every batch exactly."""
+    port, want = run["port"], run["jax"]["serve"]
+    assert len(port[f"dev/{path}/y"]) == len(want) == 8
+    for j, enc in enumerate(want):
+        assert port[f"dev/{path}/y"][j] == enc["strings"][0][0], j
+        assert port[f"dev/{path}/z"][j] == enc["strings"][1][0], j
+    assert port["dev/roundtrip_pipelined/exact"]
+
+
+def test_batch_sharding_and_replicated_place_as_shard_batch_and_replicate(run):
+    """On the 2 x 2 mesh: ``batch_sharding`` leaves each rank its data
+    row's half of a batch of 8, as ``shard_batch`` does (ranks 0 and 1 the
+    first half); ``replicated`` gives every rank the first rank's tensor,
+    as ``replicate`` gives its parameters."""
+    port = run["port"]
+    rows = np.arange(24, dtype=np.float32).reshape(8, 3)
+    want = np.stack([rows[:4], rows[:4], rows[4:], rows[4:]])
+    np.testing.assert_array_equal(port["place/batch_rows"], want)
+    np.testing.assert_array_equal(port["place/shard_batch_rows"], want)
+    np.testing.assert_array_equal(port["place/replicated"], np.zeros((4, 2, 3)))
+    np.testing.assert_array_equal(port["place/replicate"], np.zeros((4, 2, 3)))
+    assert [str(p) for p in pmesh.batch_sharding(None)] == ["S(0)", "R"]
+    assert [str(p) for p in pmesh.replicated(None)] == ["R", "R"]
+
+
+def test_dryrun_multichip_matches_the_one_process_step(capfd):
+    from reslic_tcm_tpu_torch.parallel import dryrun
+    from reslic_tcm_tpu_torch.training.step import create_train_state, step_noise, train_step
+
+    loss = dryrun.dryrun_multichip(WORLD, "cpu")
+    out = capfd.readouterr().out
+    assert f"dryrun_multichip({WORLD}): ok, mesh=(data=2, model=2), loss={loss:.4f}" in out, out
+    assert "sliced over 'model'" in out and "step executed" in out
+    n_data, _ = dryrun.mesh_dims(WORLD)
+    want = float(train_step(create_train_state(dryrun.dryrun_model("cpu")),
+                            dryrun.dryrun_batch(n_data, "cpu"), dryrun.LMBDA,
+                            step_noise(dryrun.SEED, 0, "cpu"))["loss"])
+    assert np.isfinite(loss) and abs(loss - want) <= TOL * abs(want), (loss, want)
+
+
+def test_dryrun_entry_is_a_training_forward():
+    from reslic_tcm_tpu_torch.parallel import dryrun
+
+    fn, args = dryrun.entry("cpu")
+    x_hat, y_lik, z_lik = fn(*args)
+    assert tuple(x_hat.shape) == (1, 3, 256, 256) and tuple(y_lik.shape) == (1, 320, 16, 16)
+    for t in (x_hat, y_lik, z_lik):
+        assert bool(torch.isfinite(t).all())
+    assert bool(((y_lik > 0) & (y_lik <= 1)).all()) and x_hat.requires_grad
 
 
 def test_batch_rows_at_world_1_and_4(run):

@@ -426,7 +426,10 @@ def test_forward_codec_consistent_is_the_codec(wacnn):
         assert bool(((lik > 0) & (lik <= 1)).all())
 
 
-def test_tcm_stanh_forward_and_streams_match_jax():
+@pytest.fixture(scope="module")
+def tcm_stanh():
+    """(JAX module, JAX codec (updated), port codec) of TCM-STanH with the
+    same weights."""
     jm = JV.TCMStanh(N=32, M=40, **TCM_TINY, **JV._stanh_kwargs(GCFG))
     template = _template(jm, (128, 128), training=True)
     pc = PV.make_tcm_stanh(GCFG, N=32, M=40, device="cpu", seed=3, **TCM_TINY)
@@ -435,6 +438,11 @@ def test_tcm_stanh_forward_and_streams_match_jax():
     jc = JV.StanhChannelARCodec(jm, {"params": _tree(_to_jax(template, m.state_dict()))})
     _update(jc)
     pc.update()
+    return jm, jc, pc
+
+
+def test_tcm_stanh_forward_and_streams_match_jax(tcm_stanh):
+    jm, jc, pc = tcm_stanh
     x = _image(seed=4)
     f = jax.jit(lambda v, xx, lv: jm.apply(v, xx, training=False, lv=lv))
     for lv in range(LEVELS):
@@ -448,6 +456,36 @@ def test_tcm_stanh_forward_and_streams_match_jax():
         dec = pc.decompress(enc["strings"], enc["shape"], lv=lv)
         assert torch.equal(dec["y_hat"], enc["y_hat"])
         assert len(np.unique(pc.encode_symbols(x, lv)[0])) >= 8
+
+
+@pytest.mark.parametrize("model", ["tcm", "wacnn"])
+def test_encode_stanh_matches_jax(tcm_stanh, wacnn, model):
+    """The one-pass ``encode_stanh`` at levels 0 and 2 (lv traced, one
+    compile a model) on the same image and scale table: the level indexes
+    and scale indexes equal JAX's element for element (the port's NCHW
+    slices in JAX's NHWC order), z within 1e-5; the symbols are the
+    codec's."""
+    if model == "tcm":
+        jm, jc, pc = tcm_stanh
+        variables = jc.variables
+    else:
+        jm, flat, pc = wacnn[0]["none"]
+        variables = {"params": _tree(flat)}
+    table = PV.get_scale_table().numpy()
+    f = jax.jit(lambda v, xx, st, lv: jm.apply(v, xx, st, lv, method=type(jm).encode_stanh))
+    x = _image(seed=6)
+    xt = torch.from_numpy(np.ascontiguousarray(x.transpose(0, 3, 1, 2)))
+    for lv in (0, 2):
+        want = f(variables, jnp.asarray(x), jnp.asarray(table), jnp.int32(lv))
+        got = pc.module.encode_stanh(xt, lv)
+        for key in ("symbols", "indexes"):
+            np.testing.assert_array_equal(got[key].permute(0, 1, 3, 4, 2).numpy(),
+                                          np.asarray(want[key]), err_msg=f"{key} lv {lv}")
+        _close(got["z"].permute(0, 2, 3, 1), want["z"])
+        assert len(np.unique(got["symbols"].numpy())) >= 8
+        sym, idx, *_ = pc.encode_symbols(x, lv)
+        np.testing.assert_array_equal(
+            got["symbols"].permute(1, 0, 2, 3, 4).reshape(1, -1).numpy(), sym)
 
 
 def test_scale_stanh_forward_and_streams_match_jax():

@@ -46,21 +46,12 @@ from reslic_tcm_tpu_torch.training.step import (create_train_state, eval_step, s
 from reslic_tcm_tpu_torch.utils.checkpoint import (ReduceLROnPlateau, load_checkpoint, restore,
                                                    save_checkpoint)
 from reslic_tcm_tpu_torch.utils.parser import parse_args
+from torch_port_threads import one_torch_thread  # noqa: E402,F401
 
 TOL = 1e-5
 TOL_OPT = 1e-6
 TCM_SMALL = dict(N=32, M=80, hyper_ch=24, atten_inter_dim=32, config=(1, 1, 1, 1, 1, 1))
 WACNN_TINY = dict(hyper_dims=(40, 36, 32), mean_dims=(32, 36, 40, 44), cc_dims=(28, 24, 20, 16))
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: beside the other test workers (several with XLA
-    compiles) more threads thrash instead of helping at these sizes."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _rel_close(got, want, tol):

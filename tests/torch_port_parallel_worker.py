@@ -22,7 +22,17 @@ and rank 0 writes the results to OUT.npz:
   z noise is the entropy bottleneck's [C, 1, B*h*w], and rank 0's
   one-process ``train_step`` on the whole batch from the same weights and
   seed: both losses, both parameter sets and the noise shapes drawn;
-- ``local_batch_size`` and ``distribute_batch`` of a batch of 8.
+- ``local_batch_size`` and ``distribute_batch`` of a batch of 8;
+- on a 2 x 2 mesh, whose "data" groups have 2 ranks, the tiny TCM after
+  ``shard_for_inference(mesh)``: the device coder's paths at k=128 on
+  dev_x (batch 4: compress_device / decompress_device, the analytic pair;
+  roundtrip_device_pipelined, serve_roundtrip_pipelined and
+  serve_roundtrip_metrics over dev_x and its reverse), compress_device on
+  dev_x's first 3 images (which the ranks do not divide), the pipelined
+  host paths on serve_x's two halves; the device profiles' calls also on
+  an unsharded codec with the same weights in the same process;
+- ``batch_sharding`` and ``replicated`` applied to a batch of 8 and to a
+  rank's own tensor on that mesh, beside ``shard_batch`` and ``replicate``.
 """
 
 from __future__ import annotations
@@ -150,6 +160,98 @@ def noise_step(z, rank: int) -> dict:
     return out
 
 
+def _device_streams(enc) -> dict:
+    """A device-coder container as arrays: the table profile's y and z words
+    and counts, or the analytic profile's packed container."""
+    if "packed" in enc:
+        return {"packed": enc["packed"]}
+    return {f"{name}{i}": a for name, pair in enc["device_streams"].items()
+            for i, a in enumerate(pair)}
+
+
+def sharded_device_paths(z) -> dict:
+    """The batch-sharded codec paths at a data group of 2 (two rows a rank:
+    PyTorch's CPU convolutions round a batch of one otherwise than a batch
+    of two or more, by an ulp here and there, which moves sigma and so the
+    analytic container). The unsharded codec, with the same weights, codes
+    and decodes the same batches of the device profiles; the pipelines'
+    first batch is the device profiles' batch."""
+    from reslic_tcm_tpu_torch.models.tcm import make_tcm
+    from reslic_tcm_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(2, 2)
+    codecs = {}
+    for tag in ("sharded", "one"):
+        codec = make_tcm(device="cpu", **TINY_TCM)
+        codec.module.load_state_dict(_state(z, "tcm"), strict=True)
+        codec.update()
+        if tag == "sharded":
+            codec.shard_for_inference(mesh)
+        codecs[tag] = codec
+    x4, x8, k = z["dev_x"], z["serve_x"], int(z["dev_k"])
+    out = {}
+    for tag, codec in codecs.items():
+        runs = {"table": codec.compress_device(x4, k=k),
+                "analytic": codec.compress_device_analytic(x4, k=k),
+                "odd": codec.compress_device(x4[:3], k=k)}
+        decoded = {"table": codec.decompress_device(runs["table"]),
+                   "analytic": codec.decompress_device_analytic(runs["analytic"]),
+                   "odd": codec.decompress_device(runs["odd"])}
+        for name, enc in runs.items():
+            for key, a in _device_streams(enc).items():
+                out[f"dev/{tag}/{name}/{key}"] = a
+            out[f"dev/{tag}/{name}/exact"] = np.bool_(
+                torch.equal(decoded[name]["y_hat"], enc["y_hat"]))
+            out[f"dev/{tag}/{name}/y_hat"] = enc["y_hat"].numpy()
+            out[f"dev/{tag}/{name}/x_hat"] = decoded[name]["x_hat"].numpy()
+    codec, pair = codecs["sharded"], [x4, x4[::-1].copy()]
+    for j, r in enumerate(codec.roundtrip_device_pipelined(pair, k=k)):
+        for key, a in _device_streams(r["enc"]).items():
+            out[f"dev/roundtrip_device_pipelined{j}/{key}"] = a
+        out[f"dev/roundtrip_device_pipelined{j}/exact"] = np.bool_(
+            torch.equal(r["y_hat"], r["enc"]["y_hat"]))
+    for name, fn in (("serve_roundtrip_pipelined", codec.serve_roundtrip_pipelined),
+                     ("serve_roundtrip_metrics", codec.serve_roundtrip_metrics)):
+        for j, r in enumerate(fn(pair, k=k)):
+            out[f"dev/{name}{j}/packed"] = r["enc"]["packed"]
+            out[f"dev/{name}{j}/exact"] = np.bool_(torch.equal(r["y_hat"], r["enc"]["y_hat"]))
+    rt = codec.roundtrip_pipelined([x8[4:], x8[:4]])
+    host = {"compress_pipelined": codec.compress_pipelined([x8[:4], x8[4:]]),
+            "roundtrip_pipelined": [e for r in rt[::-1] for e in r["encs"]]}
+    out["dev/roundtrip_pipelined/exact"] = np.bool_(all(
+        torch.equal(r["y_hat"], torch.cat([e["y_hat"] for e in r["encs"]])) for r in rt))
+    for name, encs in host.items():
+        out[f"dev/{name}/y"] = np.array([e["strings"][0][0] for e in encs], object)
+        out[f"dev/{name}/z"] = np.array([e["strings"][1][0] for e in encs], object)
+    return out
+
+
+def placements(z, rank: int) -> dict:
+    """``batch_sharding`` and ``replicated`` on the 2 x 2 mesh: a batch of 8
+    distributed by each against ``shard_batch``'s rows, and a tensor that
+    differs on every rank distributed by ``replicated`` against
+    ``replicate``'s broadcast of the first rank's."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from reslic_tcm_tpu_torch.parallel.mesh import (batch_sharding, make_mesh, replicate,
+                                                    replicated, shard_batch)
+    from reslic_tcm_tpu_torch.parallel.multihost import gather_objects
+
+    mesh = make_mesh(2, 2)
+    batch = torch.arange(8 * 3, dtype=torch.float32).reshape(8, 3)
+    rows = distribute_tensor(batch, mesh, batch_sharding(mesh), src_data_rank=None).to_local()
+    mine = torch.full((2, 3), float(rank))
+    repl = distribute_tensor(mine, mesh, replicated(mesh)).to_local()
+    module = torch.nn.Linear(3, 2)
+    with torch.no_grad():
+        module.weight.fill_(float(rank))
+    replicate(mesh, module)
+    return {"place/batch_rows": np.array(gather_objects([rows.tolist()])),
+            "place/shard_batch_rows": np.array(gather_objects([shard_batch(mesh, batch).tolist()])),
+            "place/replicated": np.array(gather_objects([repl.tolist()])),
+            "place/replicate": np.array(gather_objects([module.weight.tolist()]))}
+
+
 def batches() -> dict:
     from reslic_tcm_tpu_torch.parallel.multihost import (distribute_batch, gather_objects,
                                                          local_batch_size)
@@ -173,7 +275,8 @@ def main(inputs: str, out: str, port: int, world: int, rank: int) -> None:
     try:
         z = np.load(inputs)
         res = {**sharded_conv(z, rank, world), **sharded_forward(z), **serving(z),
-               **train_steps(z), **noise_step(z, rank), **batches()}
+               **train_steps(z), **noise_step(z, rank), **batches(),
+               **sharded_device_paths(z), **placements(z, rank)}
         if rank == 0:
             np.savez(out, **res)
     finally:
